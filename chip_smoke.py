@@ -10,19 +10,34 @@ Phases, each printed as it runs:
 2. each CUDA kernel against its plain PyTorch version on the card, on
    seeded edge-shape inputs (ragged sizes, duplicate join keys, invalid
    rows, segment ids outside [0, S), masked NaNs, C = 0, S >= 4096,
-   cap == N, tie-heavy keys);
-3. the main path: the NOAA-GHCN-shaped weather collections of the
+   cap == N, tie-heavy keys; attention causal and not, windows 4096 and
+   16, softcap 50, GQA g in {1, 2, 8}, ragged Sq/Sk, head_dim 64/128/256,
+   bf16 and float32; decode kv_len in {0, 1, ragged, Smax} and an Smax
+   that is no multiple of a tile; sum/count with all rows invalid);
+3. the query path: the NOAA-GHCN-shaped weather collections of the
    paper's §5 at 2000 stations x 50 years x 8 days (4,000,000 /sensors
    readings, P = 4 partitions), Q1–Q12 through ``compile_query`` ->
    ``Executor(db).run`` with statistics-presized caps, once on the
    kernel route and once on the plain route (kernel knobs pinned
    False); the two raw-output dicts must agree, and every result must
    agree with a numpy computation straight from the generated records;
-4. each kernel again, on the largest input the main path gave it,
-   timed beside its plain version, a PyTorch library call where one
-   computes the same function, and its bound.
+4. each executor kernel again, on the largest input the query path
+   gave it, timed beside its plain version, a PyTorch library call
+   where one computes the same function, and its bound
+   (``segmented_sum_count``, which no path launches, on the value
+   column of the largest group-by input);
+5. the LM serving path: qwen3-1.7b at its full published size (28
+   layers, d_model 2048, 16/8 heads, vocab 151936; seeded random
+   weights on the card) through ``launch.serve.serve_batch`` with 8
+   requests of up to 2048 prompt tokens and 32 generated tokens, twice
+   on the kernel route (cold, warm: 28 flash-kernel launches and
+   28 x 32 decode-kernel launches each), then once on the plain route
+   (dense attention in prefill and decode) teacher-forced with the
+   kernel route's tokens; prefill logits and every decode step's logits
+   must agree within LOGIT_ATOL. Then the two attention kernels, as in
+   phase 4, on the inputs the serve gave them.
 
-Then one JSON line with the kernels' numbers, the card's name and
+Then one JSON line with the six kernels' numbers, the card's name and
 power limit, and the last line ``{"ok": true, "device": {...}}``. Any
 failure exits non-zero without that line, as does a machine without
 CUDA or a directory without the port's sources.
@@ -44,8 +59,20 @@ PARTITIONS = 4
 SEED = 0
 SUM_RTOL = 1e-5      # float sums (another order, or another association)
 REF_RTOL = 1e-5      # float32 results vs the float64 numpy reference
-# H100 SXM HBM3 memory rate (NVIDIA data sheet)
+# H100 SXM HBM3 memory rate and dense tensor-core peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# attention kernel vs plain version: float32 another summation order,
+# bf16 outputs rounded to bf16 (one ulp below 4 is at most 1.6e-2)
+ATT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the LM path (phase 5)
+LM_ARCH = "qwen3-1.7b"
+LM_REQUESTS, LM_PROMPT, LM_GEN = 8, 2048, 32
+# kernel route vs plain route, teacher-forced: largest absolute
+# difference of any prefill or decode-step logit. Both routes compute in
+# bf16; the attention outputs differ in the last bf16 bit here and there,
+# and 28 layers carry that into logits of standard deviation ~1.
+LOGIT_ATOL = 0.25
 # result positions (DistributeResult order) that are sums, averages or
 # divisions: compared to SUM_RTOL between routes, all else exactly
 TOLERANT = {"Q3": {0}, "Q4": {0}, "Q7": {0}, "Q8": {0}, "Q9": {2},
@@ -196,9 +223,120 @@ def check_topk(keys, cap) -> float:
     return 0.0
 
 
+def attn_err(got, want, dtype_name: str, what: str) -> float:
+    """Largest |got - want|; fails past ATT_TOL[dtype] (atol and rtol)."""
+    import torch
+    torch.cuda.synchronize()
+    tol = ATT_TOL[dtype_name]
+    g, w = got.float(), want.float()
+    require(bool(torch.isfinite(g).all()), f"{what}: non-finite output")
+    err = (g - w).abs()
+    worst = float(err.max())
+    require(bool((err <= tol + tol * w.abs()).all()),
+            f"{what} disagrees with its plain version by up to {worst}")
+    return worst
+
+
+def normal(shape, seed, dev, dtype):
+    import torch
+    return torch.randn(shape, generator=_gen(seed, dev), device=dev).to(dtype)
+
+
+FLASH_EDGES = [
+    # causal, window, softcap, g, sq, sk, d, dtype
+    (True, None, None, 2, 256, 256, 128, "bfloat16"),
+    (False, None, None, 1, 100, 77, 64, "float32"),
+    (True, 4096, None, 2, 300, 300, 128, "bfloat16"),
+    (True, 16, None, 8, 130, 200, 64, "float32"),
+    (False, 16, None, 1, 200, 100, 64, "bfloat16"),   # rows with no live key
+    (True, None, 50.0, 2, 129, 129, 256, "bfloat16"),
+    (True, 16, 50.0, 1, 65, 65, 256, "float32"),
+]
+DECODE_EDGES = [
+    # g, smax, d, window, softcap, dtype
+    (2, 2080, 128, None, None, "bfloat16"),
+    (1, 1000, 64, None, None, "float32"),
+    (8, 333, 256, None, 50.0, "bfloat16"),
+    (4, 2080, 128, 16, None, "float32"),
+    (2, 65, 128, 4096, 30.0, "bfloat16"),
+]
+SUM_COUNT_EDGES = [(4, 5000, 37, 0.8), (2, 3001, 9000, 0.8),
+                   (3, 999, 4096, 0.0), (4, 300000, 2000, 0.8)]
+
+
+def check_flash(q, k, v, kw) -> float:
+    from repro_torch.kernels import flash_attention, ref
+    got = flash_attention.flash_attention_bhsd(q, k, v, **kw)
+    want = ref.flash_attention(q, k, v, **kw)
+    return attn_err(got, want, str(q.dtype).split(".")[1], "flash_attention")
+
+
+def check_decode(q, k, v, kv_len, kw) -> float:
+    import torch
+    from repro_torch.kernels import decode_attention, ref
+    got = decode_attention.decode_attention_bhgd(q, k, v, kv_len, **kw)
+    want = ref.decode_attention(q, k, v, kv_len, **kw)
+    err = attn_err(got, want, str(q.dtype).split(".")[1], "decode_attention")
+    again = decode_attention.decode_attention_bhgd(q, k, v, kv_len, **kw)
+    require(torch.equal(again, got),
+            "decode_attention differs from run to run")
+    return err
+
+
+def check_sum_count(vals, segs, valid, s) -> float:
+    """Counts exact, sums within SUM_RTOL of the summed magnitudes, the
+    same bits from launch to launch; returns the largest sum error."""
+    import torch
+    from repro_torch.kernels import ref, seg_aggregate
+    sums, counts = seg_aggregate.segmented_sum_count(vals, segs, valid, s)
+    wsums, wcounts = ref.segmented_sum_count(vals, segs, valid, s)
+    mag, _ = ref.segmented_sum_count(vals.abs(), segs, valid, s)
+    torch.cuda.synchronize()
+    require(torch.equal(counts, wcounts), "segmented_sum_count counts")
+    err = (sums - wsums).abs()
+    worst = float(err.max()) if err.numel() else 0.0
+    require(bool((err <= SUM_RTOL * mag + 1e-30).all()),
+            f"segmented_sum_count sums off by up to {worst}")
+    again, _ = seg_aggregate.segmented_sum_count(vals, segs, valid, s)
+    require(torch.equal(again, sums),
+            "segmented_sum_count sums differ from run to run")
+    return worst
+
+
+def attention_edge_checks(dev, errs: dict) -> None:
+    import torch
+    for i, (causal, window, cap, g, sq, sk, d, dt) in enumerate(FLASH_EDGES):
+        dtype = getattr(torch, dt)
+        q = normal((2 * g, sq, d), SEED + 30 + i, dev, dtype)
+        k = normal((2, sk, d), SEED + 40 + i, dev, dtype)
+        v = normal((2, sk, d), SEED + 50 + i, dev, dtype)
+        e = check_flash(q, k, v, dict(g=g, causal=causal, window=window,
+                                      softcap=cap))
+        errs["flash_attention"] = max(errs["flash_attention"], e)
+    for i, (g, smax, d, window, cap, dt) in enumerate(DECODE_EDGES):
+        dtype = getattr(torch, dt)
+        q = normal((6, g, d), SEED + 60 + i, dev, dtype)
+        k = normal((6, smax, d), SEED + 70 + i, dev, dtype)
+        v = normal((6, smax, d), SEED + 80 + i, dev, dtype)
+        kv_len = torch.tensor([1, 2, smax // 2 + 3, smax - 1, smax, 0],
+                              dtype=torch.int32, device=dev)
+        e = check_decode(q, k, v, kv_len, dict(window=window, softcap=cap))
+        errs["decode_attention"] = max(errs["decode_attention"], e)
+    for i, (p, n, s, share) in enumerate(SUM_COUNT_EDGES):
+        g = _gen(SEED + 90 + i, dev)
+        vals = torch.randint(-400, 400, (p, n), generator=g,
+                             device=dev).float() / 10
+        segs = torch.randint(-3, s + 3, (p, n), generator=g, device=dev,
+                             dtype=torch.int32)
+        valid = torch.rand((p, n), generator=g, device=dev) < share
+        e = check_sum_count(vals, segs, valid, s)
+        errs["segmented_sum_count"] = max(errs["segmented_sum_count"], e)
+
+
 def edge_checks(dev) -> dict[str, float]:
     errs = {"block_join_probe": 0.0, "segmented_aggregate": 0.0,
-            "segment_topk": 0.0}
+            "segment_topk": 0.0, "segmented_sum_count": 0.0,
+            "flash_attention": 0.0, "decode_attention": 0.0}
     for i, (p, nb, np_, nk) in enumerate([(4, 1000, 777, 1),
                                           (4, 2049, 3000, 2),
                                           (1, 5, 1, 2), (2, 1, 300, 1)]):
@@ -214,6 +352,7 @@ def edge_checks(dev) -> dict[str, float]:
                                          (3, 33, 5, False), (1, 1, 1, True)]):
         e = check_topk(topk_inputs(p, n, SEED + 20 + i, dev, fk), cap)
         errs["segment_topk"] = max(errs["segment_topk"], e)
+    attention_edge_checks(dev, errs)
     return errs
 
 
@@ -463,15 +602,57 @@ def agg_library(vals, ok, segs, valid, s):
     return fn
 
 
-def main_shape_timings(best: dict, launches: dict, edge_errs: dict) -> list:
-    """Phase 4: each kernel on the largest input the main path gave it:
-    parity with the plain version, device times, and the bound."""
-    from repro_torch.kernels import hash_join, ref, seg_aggregate, seg_topk
+def kernel_record(name: str, launches: dict, err: float, run, plain, lib,
+                  nbytes: float, flops: float, dtype: str, shape: dict
+                  ) -> dict:
+    """Time one kernel beside its plain version and library call; the
+    bound is the larger of bytes over the memory rate and operations
+    over the peak rate of the input type."""
     from repro_torch.kernels.registry import KERNELS
+    entry = KERNELS[name]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    rec = {"name": name, "route": "cuda", "source": entry["source"],
+           "replaces": entry["replaces"], "launches": launches[name],
+           "max_abs_err": err, "ms": cuda_ms(run), "plain_ms": cuda_ms(plain),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "operations" if t_ops > t_bytes else "bytes",
+           "library_ms": cuda_ms(lib) if lib is not None else None}
+    log(f"kernel {name} at main-path shape {json.dumps(shape)}: "
+        + json.dumps(rec))
+    return rec
+
+
+def sum_count_library(vals, segs, valid, s):
+    """One index_add_ of [value, 1] rows into the flat [P * S + 1]
+    slots (the last collects dropped rows)."""
+    import torch
+    p, n = vals.shape
+    keep = valid & (segs >= 0) & (segs < s)
+    slot = torch.where(keep, torch.arange(p, device=vals.device)[:, None] * s
+                       + segs, torch.full_like(segs, p * s)).long().reshape(-1)
+    src = torch.stack([torch.where(keep, vals, 0.0), keep.float()],
+                      2).reshape(p * n, 2)
+
+    def fn():
+        return torch.zeros(p * s + 1, 2, device=vals.device).index_add_(
+            0, slot, src)
+
+    return fn
+
+
+def main_shape_timings(best: dict, launches: dict, edge_errs: dict) -> list:
+    """Phase 4: each executor kernel on the largest input the query path
+    gave it (``segmented_sum_count``: the first value column of the
+    largest aggregate input, rows not ``ok`` invalid): parity with the
+    plain version, device times, and the bound."""
+    from repro_torch.kernels import hash_join, ref, seg_aggregate, seg_topk
     out = []
-    for name, entry in KERNELS.items():
-        require(name in best, f"the main path never reached {name}")
-        args = best[name][1]
+    for name in ("block_join_probe", "segmented_aggregate", "segment_topk",
+                 "segmented_sum_count"):
+        src = "segmented_aggregate" if name == "segmented_sum_count" else name
+        require(src in best, f"the query path never reached {src}")
+        args = best[src][1]
         lib = None
         if name == "block_join_probe":
             bk, bv, pk, pv = args
@@ -504,7 +685,7 @@ def main_shape_timings(best: dict, launches: dict, edge_errs: dict) -> list:
             nbytes = vals.numel() * 4 + ok.numel() + segs.numel() * 4 \
                 + valid.numel() + p * s * 4 * (1 + 3 * nc)
             shape = {"P": p, "N": n, "S": s, "C": nc}
-        else:
+        elif name == "segment_topk":
             keys, cap = args
             err = check_topk(keys, cap)
 
@@ -519,16 +700,238 @@ def main_shape_timings(best: dict, launches: dict, edge_errs: dict) -> list:
                 + keys[0].shape[0] * cap * 4
             shape = {"P": keys[0].shape[0], "N": keys[0].shape[1],
                      "keys": len(keys), "cap": cap}
-        rec = {"name": name, "route": "cuda", "source": entry["source"],
-               "replaces": entry["replaces"], "launches": launches[name],
-               "max_abs_err": max(err, edge_errs[name]),
-               "ms": cuda_ms(run), "plain_ms": cuda_ms(plain),
-               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-               "bound_by": "bytes",
-               "library_ms": cuda_ms(lib) if lib is not None else None}
-        log(f"kernel {name} at main-path shape {json.dumps(shape)}: "
-            + json.dumps(rec))
-        out.append(rec)
+        else:
+            vals3, ok, segs, valid, s = args
+            sc = (vals3[:, :, 0].contiguous(), segs,
+                  (valid & ok[:, :, 0]).contiguous(), s)
+            err = check_sum_count(*sc)
+
+            def run():
+                return seg_aggregate.segmented_sum_count(*sc)
+
+            def plain():
+                return ref.segmented_sum_count(*sc)
+
+            lib = sum_count_library(*sc)
+            p, n = sc[0].shape
+            nbytes = p * n * 9 + p * s * 8
+            shape = {"P": p, "N": n, "S": s}
+        out.append(kernel_record(name, launches, max(err, edge_errs[name]),
+                                 run, plain, lib, nbytes, 0.0, "float32",
+                                 shape))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the LM serving path
+# ---------------------------------------------------------------------------
+
+class LastCall:
+    """Wraps the attention entry points of ``kernels.ops`` and keeps the
+    arguments of each one's last call: the inputs of the last layer of
+    the prefill and of the last (longest) decode step."""
+
+    NAMES = ("flash_attention", "decode_attention")
+
+    def __init__(self, ops):
+        self.ops = ops
+        self.saved = {}
+        self.calls: dict[str, tuple] = {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            fn = getattr(self.ops, name)
+            self.saved[name] = fn
+
+            def wrapped(*args, _fn=fn, _name=name, **kw):
+                self.calls[_name] = (args, kw)
+                return _fn(*args, **kw)
+
+            setattr(self.ops, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for attr, fn in self.saved.items():
+            setattr(self.ops, attr, fn)
+
+
+def lm_path(dev, *, smoke: bool = False, requests: int = LM_REQUESTS,
+            prompt_len: int = LM_PROMPT, gen_len: int = LM_GEN,
+            counters: dict | None = None, capture=None) -> dict:
+    """Phase 5: ``serve_batch`` of LM_ARCH twice on the kernel route
+    (cold, warm) and once on the plain route, teacher-forced with the
+    kernel route's tokens; prefill and per-step logits must agree within
+    LOGIT_ATOL. ``counters``: the attention kernel wrappers, set to 0
+    before each kernel-route serve and read after it (each must launch
+    once per layer, and once per layer per generated token);
+    ``capture``: a context that sees the cold serve's kernel calls."""
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import model
+    cfg = get_smoke_config(LM_ARCH) if smoke else get_config(LM_ARCH)
+    on_cuda = dev.type == "cuda"
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, SEED, dev)
+    if on_cuda:
+        torch.cuda.synchronize(dev)
+    n_params = sum(t.numel() for t in model._leaves(params))
+    log(f"lm {LM_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"heads {cfg.num_heads}/{cfg.num_kv_heads}, head_dim {cfg.head_dim}, "
+        f"vocab {cfg.vocab_size}: {n_params} params initialised on {dev} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    kw = dict(smoke=smoke, num_requests=requests, prompt_len=prompt_len,
+              gen_len=gen_len, seed=SEED, device=dev, params=params)
+    runs = {}
+    for label in ("cold", "warm"):
+        for w in (counters or {}).values():
+            w.launches = 0
+        if on_cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        with capture if capture is not None and label == "cold" \
+                else contextlib.nullcontext():
+            out = serve_batch(LM_ARCH, **kw)
+        rec = {"route": "kernel", "run": label,
+               "prefill_ms": out["prefill_s"] * 1e3,
+               "decode_ms_per_token": out["decode_s"] * 1e3 / gen_len,
+               "tok_per_s": out["tok_per_s"],
+               "peak_mib": (torch.cuda.max_memory_allocated(dev) / 2**20
+                            if on_cuda else 0.0)}
+        if counters:
+            rec["launches"] = {k: w.launches for k, w in counters.items()}
+            want = {"flash_attention": cfg.num_layers,
+                    "decode_attention": cfg.num_layers * gen_len}
+            require(rec["launches"] == want, f"lm {label} serve launched "
+                    f"{rec['launches']}, want {want}")
+        log("lm serve " + json.dumps(rec))
+        runs[label] = (rec, out)
+    kernel = runs["warm"][1]
+    if on_cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    plain = serve_batch(LM_ARCH, **kw, overrides={"attn_impl": "dense"},
+                        force_tokens=kernel["generated"])
+    prec = {"route": "plain", "run": "teacher-forced",
+            "prefill_ms": plain["prefill_s"] * 1e3,
+            "decode_ms_per_token": plain["decode_s"] * 1e3 / gen_len,
+            "tok_per_s": plain["tok_per_s"],
+            "peak_mib": (torch.cuda.max_memory_allocated(dev) / 2**20
+                         if on_cuda else 0.0)}
+    log("lm serve " + json.dumps(prec))
+    errs = {}
+    for key, shape in (("prefill_logits", (requests, 1, cfg.vocab_size)),
+                       ("step_logits", (requests, gen_len, cfg.vocab_size))):
+        a, b = kernel[key], plain[key]
+        require(tuple(a.shape) == shape and tuple(b.shape) == shape,
+                f"lm {key}: shapes {tuple(a.shape)}, {tuple(b.shape)}, "
+                f"want {shape}")
+        require(bool(torch.isfinite(a).all() & torch.isfinite(b).all()),
+                f"lm {key}: non-finite logits")
+        errs[key] = float((a - b).abs().max())
+    require(max(errs.values()) <= LOGIT_ATOL,
+            f"lm kernel and plain routes disagree: {errs} > {LOGIT_ATOL}")
+    same = float((torch.from_numpy(plain["generated"])
+                  == torch.from_numpy(kernel["generated"])).float().mean())
+    cold_same = bool((runs["cold"][1]["generated"]
+                      == kernel["generated"]).all())
+    summary = {"logit_max_abs_err": errs, "logit_atol": LOGIT_ATOL,
+               "plain_argmax_agrees": same, "cold_warm_tokens_equal":
+               cold_same, "generated_shape": list(kernel["generated"].shape),
+               "warm": runs["warm"][0], "cold": runs["cold"][0],
+               "plain": prec}
+    log("lm check " + json.dumps({k: summary[k] for k in (
+        "logit_max_abs_err", "logit_atol", "plain_argmax_agrees",
+        "cold_warm_tokens_equal", "generated_shape")}))
+    return summary
+
+
+def live_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs a causal/windowed mask keeps."""
+    import torch
+    qp = torch.arange(sq)[:, None]
+    kp = torch.arange(sk)[None, :]
+    ok = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        ok &= kp <= qp
+    if window is not None:
+        ok &= kp > qp - window
+    return int(ok.sum())
+
+
+def lm_kernel_timings(calls: dict, launches: dict, edge_errs: dict) -> list:
+    """The attention kernels on the inputs the serve gave them (the last
+    prefill layer's q/k/v; the last decode step's q and caches)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention, flash_attention, ref
+    out = []
+    require("flash_attention" in calls and "decode_attention" in calls,
+            f"the LM path never reached the attention kernels: {set(calls)}")
+    (q, k, v), kw = calls["flash_attention"]
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    g = hq // hkv
+    fkw = dict(g=g, causal=kw.get("causal", True), window=kw.get("window"),
+               softcap=kw.get("logit_softcap"), scale=kw.get("scale"))
+    qv, kv, vv = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    qb = qv.reshape(b * hq, sq, d)
+    kb, vb = kv.reshape(b * hkv, sk, d), vv.reshape(b * hkv, sk, d)
+    dt = str(q.dtype).split(".")[1]
+    got = flash_attention.flash_attention_bhsd(qv, kv, vv, **fkw)
+    err = attn_err(got.reshape(b * hq, sq, d), ref.flash_attention(
+        qb, kb, vb, **fkw), dt, "flash_attention (serve shape)")
+    lib = None
+    if fkw["window"] is None and fkw["softcap"] is None:
+        def lib():
+            return F.scaled_dot_product_attention(
+                qv, kv, vv, is_causal=fkw["causal"], enable_gqa=True,
+                scale=fkw["scale"])
+    flops = 4.0 * d * b * hq * live_pairs(sq, sk, fkw["causal"],
+                                          fkw["window"])
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    out.append(kernel_record(
+        "flash_attention", launches, max(err, edge_errs["flash_attention"]),
+        lambda: flash_attention.flash_attention_bhsd(qv, kv, vv, **fkw),
+        lambda: ref.flash_attention(qb, kb, vb, **fkw), lib, nbytes, flops,
+        dt, {"B*Hq": b * hq, "Sq": sq, "Sk": sk, "D": d, "g": g,
+             "causal": fkw["causal"], "dtype": dt}))
+
+    (q, kc, vc, kv_len), kw = calls["decode_attention"]
+    b, _, hq, d = q.shape
+    _, smax, hkv, _ = kc.shape
+    g = hq // hkv
+    dkw = dict(window=kw.get("window"), softcap=kw.get("logit_softcap"),
+               scale=kw.get("scale"))
+    q4 = q.reshape(b, hkv, g, d)
+    k4, v4 = kc.transpose(1, 2), vc.transpose(1, 2)
+    kl = kv_len[:, None].expand(b, hkv)
+    qb = q.reshape(b * hkv, g, d)
+    kb, vb = k4.reshape(b * hkv, smax, d), v4.reshape(b * hkv, smax, d)
+    klb = torch.repeat_interleave(kv_len, hkv)
+    got = decode_attention.decode_attention_bhgd(q4, k4, v4, kl, **dkw)
+    err = attn_err(got.reshape(b * hkv, g, d),
+                   ref.decode_attention(qb, kb, vb, klb, **dkw), dt,
+                   "decode_attention (serve shape)")
+    lib = None
+    if dkw["window"] is None and dkw["softcap"] is None:
+        live = (torch.arange(smax, device=q.device)[None, :]
+                < kv_len[:, None])[:, None, None, :]
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k4, v4, attn_mask=live, enable_gqa=True,
+                scale=dkw["scale"])
+    lo = (kv_len - dkw["window"]).clamp(min=0) if dkw["window"] \
+        else torch.zeros_like(kv_len)
+    slots = int((kv_len.clamp(max=smax) - lo).clamp(min=0).sum()) * hkv
+    nbytes = (2 * slots * d + 2 * q.numel()) * q.element_size()
+    flops = 4.0 * g * d * slots
+    out.append(kernel_record(
+        "decode_attention", launches,
+        max(err, edge_errs["decode_attention"]),
+        lambda: decode_attention.decode_attention_bhgd(q4, k4, v4, kl, **dkw),
+        lambda: ref.decode_attention(qb, kb, vb, klb, **dkw), lib, nbytes,
+        flops, dt, {"B*Hkv": b * hkv, "G": g, "Smax": smax, "D": d,
+                    "kv_len": [int(x) for x in kv_len], "dtype": dt}))
     return out
 
 
@@ -547,8 +950,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import Executor
     from repro_torch.data.weather import WeatherSpec, build_database
-    from repro_torch.kernels import _build, hash_join, ops, seg_aggregate
-    from repro_torch.kernels import seg_topk
+    from repro_torch.kernels import _build, decode_attention, flash_attention
+    from repro_torch.kernels import hash_join, ops, seg_aggregate, seg_topk
+    from repro_torch.kernels.registry import KERNELS
     dev = torch.device("cuda")
     t_all = time.perf_counter()
 
@@ -583,17 +987,37 @@ def main() -> int:
 
     wrappers = {"block_join_probe": hash_join.block_join_probe,
                 "segmented_aggregate": seg_aggregate.segmented_aggregate,
-                "segment_topk": seg_topk.segment_topk}
+                "segment_topk": seg_topk.segment_topk,
+                "segmented_sum_count": seg_aggregate.segmented_sum_count,
+                "flash_attention": flash_attention.flash_attention_bhsd,
+                "decode_attention": decode_attention.decode_attention_bhgd}
+    query_kernels = ("block_join_probe", "segmented_aggregate",
+                     "segment_topk")
+    lm_kernels = ("flash_attention", "decode_attention")
     for w in wrappers.values():
         w.launches = 0
     capture = Capture(ops)
     main_path(ex, spec, capture)
     launches = {k: w.launches for k, w in wrappers.items()}
-    log(f"main path launches {json.dumps(launches)}")
-    require(all(n > 0 for n in launches.values()),
-            f"a kernel of the main path never launched: {launches}")
+    log(f"query path launches {json.dumps(launches)}")
+    require(all(launches[k] > 0 for k in query_kernels),
+            f"a kernel of the query path never launched: {launches}")
+    require(all(launches[k] == 0 for k in lm_kernels),
+            f"the query path launched an attention kernel: {launches}")
+    records = {r["name"]: r for r in
+               main_shape_timings(capture.best, launches, edge_errs)}
+    del ex, db, capture
+    torch.cuda.empty_cache()
 
-    kernels = main_shape_timings(capture.best, launches, edge_errs)
+    t0 = time.perf_counter()
+    last = LastCall(ops)
+    lm = lm_path(dev, counters={k: wrappers[k] for k in lm_kernels},
+                 capture=last)
+    launches.update(lm["warm"]["launches"])
+    log(f"lm path ok ({time.perf_counter() - t0:.1f} s)")
+    for r in lm_kernel_timings(last.calls, launches, edge_errs):
+        records[r["name"]] = r
+    kernels = [records[name] for name in KERNELS]
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -25,7 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("hash_join", "seg_aggregate", "seg_topk")
+SOURCES = ("hash_join", "seg_aggregate", "seg_topk", "flash_attention",
+           "decode_attention")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v")
 

@@ -25,6 +25,14 @@
 // ok flags and segment id, plus its valid byte) and (1 + 3C) x S floats per
 // partition are written; the inner loop costs 256 shared-memory reads per
 // staged row per CTA, which is what this simple design pays above the bound.
+//
+// The same file replaces the module's second Pallas kernel,
+// segmented_sum_count (src/repro/kernels/seg_aggregate.py:125): per segment,
+// the sum of one value column over the valid rows and their count. Its own
+// pair of kernels (repro_seg_sum_count) uses the same owner-per-segment
+// pass and fixed-order combine, with partials sums [S] | counts [S]: no
+// atomics, sums in row order, the same bits from launch to launch. Bound:
+// bytes (9 bytes a row read, 8 x S bytes a partition written).
 #include <math.h>
 
 #include "common.cuh"
@@ -145,7 +153,111 @@ __global__ void seg_agg_combine_kernel(const float* __restrict__ partials,
   (part == 0 ? sums : (part == 1 ? mins : maxs))[dst] = a;
 }
 
+// acc layout per (partition, chunk): sums [S] | counts [S]
+__global__ void __launch_bounds__(kThreads)
+seg_sum_count_partial_kernel(const float* __restrict__ vals,
+                             const int32_t* __restrict__ seg,
+                             const uint8_t* __restrict__ valid,
+                             float* __restrict__ partials, int n, int s,
+                             int chunk_rows, int use_smem) {
+  extern __shared__ float4 smem_raw[];
+  int32_t* s_seg = reinterpret_cast<int32_t*>(smem_raw);        // [256]
+  float* s_val = reinterpret_cast<float*>(s_seg + kThreads);     // [256]
+  const int p = blockIdx.y;
+  const int chunk = blockIdx.x;
+  const int64_t w = 2 * static_cast<int64_t>(s);
+  float* acc = use_smem
+      ? s_val + kThreads
+      : partials + (static_cast<int64_t>(p) * gridDim.x + chunk) * w;
+  for (int64_t i = threadIdx.x; i < w; i += kThreads) acc[i] = 0.f;
+  const int64_t row0 = static_cast<int64_t>(chunk) * chunk_rows;
+  const int64_t row_end = min(static_cast<int64_t>(n), row0 + chunk_rows);
+  const int64_t pbase = static_cast<int64_t>(p) * n;
+  const int tid = threadIdx.x;
+  for (int64_t t0 = row0; t0 < row_end; t0 += kThreads) {
+    __syncthreads();   // acc initialised / previous stage consumed
+    const int64_t r = t0 + tid;
+    int sg = -1;
+    float v = 0.f;
+    if (r < row_end && valid[pbase + r]) {
+      const int x = seg[pbase + r];
+      if (x >= 0 && x < s) {
+        sg = x;
+        v = vals[pbase + r];
+      }
+    }
+    s_seg[tid] = sg;
+    s_val[tid] = v;
+    __syncthreads();
+    const int rows = static_cast<int>(min(static_cast<int64_t>(kThreads),
+                                          row_end - t0));
+    for (int i = 0; i < rows; ++i) {
+      const int sg_i = s_seg[i];
+      if (sg_i < 0 || (sg_i % kThreads) != tid) continue;
+      acc[sg_i] += s_val[i];
+      acc[s + sg_i] += 1.f;
+    }
+  }
+  if (use_smem) {
+    __syncthreads();
+    float* out = partials + (static_cast<int64_t>(p) * gridDim.x + chunk) * w;
+    for (int64_t i = threadIdx.x; i < w; i += kThreads) out[i] = acc[i];
+  }
+}
+
+__global__ void seg_sum_count_combine_kernel(const float* __restrict__ partials,
+                                             float* __restrict__ sums,
+                                             float* __restrict__ counts,
+                                             int s, int chunks) {
+  const int p = blockIdx.y;
+  const int64_t w = 2 * static_cast<int64_t>(s);
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x
+                    + threadIdx.x;
+  if (i >= w) return;
+  const float* src = partials + static_cast<int64_t>(p) * chunks * w + i;
+  float a = 0.f;
+  for (int k = 0; k < chunks; ++k) a += src[k * w];
+  if (i < s)
+    sums[static_cast<int64_t>(p) * s + i] = a;
+  else
+    counts[static_cast<int64_t>(p) * s + (i - s)] = a;
+}
+
 }  // namespace
+
+// vals [P, N] f32, seg [P, N] i32, valid [P, N] bool bytes; partials:
+// P x chunks x 2S floats of scratch; outputs sums, counts [P, S] f32.
+extern "C" int repro_seg_sum_count(const void* vals, const void* seg,
+                                   const void* valid, void* partials,
+                                   void* sums, void* counts, int p, int n,
+                                   int s, int chunks, int device,
+                                   void* stream) {
+  int err = repro::select_device(device);
+  if (err) return err;
+  if (p == 0 || s == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int chunk_rows = (n + chunks - 1) / chunks;
+  const size_t stage = static_cast<size_t>(kThreads) * 8;
+  const size_t acc_bytes = static_cast<size_t>(s) * 2 * sizeof(float);
+  const int use_smem = stage + acc_bytes <= kSmemLimit;
+  const size_t smem = stage + (use_smem ? acc_bytes : 0);
+  err = static_cast<int>(cudaFuncSetAttribute(
+      seg_sum_count_partial_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+  if (err) return err;
+  seg_sum_count_partial_kernel<<<dim3(chunks, p), kThreads, smem, st>>>(
+      static_cast<const float*>(vals), static_cast<const int32_t*>(seg),
+      static_cast<const uint8_t*>(valid), static_cast<float*>(partials), n,
+      s, chunk_rows, use_smem);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  dim3 grid2(static_cast<unsigned>((2 * static_cast<int64_t>(s) + 255) / 256),
+             p);
+  seg_sum_count_combine_kernel<<<grid2, 256, 0, st>>>(
+      static_cast<const float*>(partials), static_cast<float*>(sums),
+      static_cast<float*>(counts), s, chunks);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // vals/ok [P, N, C] (f32, bool bytes), seg/valid [P, N] (i32, bool bytes);
 // partials: P x chunks x (1 + 3C) x S floats of scratch; outputs counts

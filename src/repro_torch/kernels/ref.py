@@ -2,9 +2,11 @@
 written with tensor operations only. The CPU path runs them, the tests
 hold them against the JAX package's Pallas kernels, and on the card
 they are the kernels' parity target. Every function takes a leading
-partition dimension [P, ...], like its kernel.
+partition dimension [P, ...], like its kernel, except the two attention
+functions, which keep the JAX reference's layouts ((B·H, S, D) and
+(B·Hkv, G, D)).
 
-None of them is a transcription of the TPU kernel's blocked one-hot or
+None of the segment and join versions is a transcription of the TPU kernel's blocked one-hot or
 dense-compare form: at the main path's shapes on the card those cost
 O(N x S) and O(NP x NB). Each is instead an exact formulation of the
 same function (sort + binary search, scatter-reduce, chained stable
@@ -15,6 +17,60 @@ import torch
 
 I32_MAX = 2**31 - 1
 I64_MAX = 2**63 - 1
+NEG_INF = -2.0e38      # the masked score of the JAX kernels (not -inf)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    g: int, causal: bool = True, window: int | None = None,
+                    softcap: float | None = None,
+                    scale: float | None = None) -> torch.Tensor:
+    """Plain version of ``flash_attention.flash_attention_bhsd`` (JAX:
+    ``kernels/ref.py:flash_attention``): dense attention in float32.
+    q (B·Hq, Sq, D), k/v (B·Hkv, Sk, D); query head h reads key/value
+    head h // g. Masked scores are NEG_INF, so a row with no live key
+    averages V over all keys, as in the JAX kernel."""
+    sq, d = q.shape[1], q.shape[2]
+    sk = k.shape[1]
+    scale = scale if scale is not None else d ** -0.5
+    kq = torch.repeat_interleave(k, g, dim=0).float()
+    vq = torch.repeat_interleave(v, g, dim=0).float()
+    s = torch.einsum("hqd,hkd->hqk", q.float() * scale, kq)
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(sk, device=q.device)[None, :]
+    ok = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kp <= qp
+    if window is not None:
+        ok &= kp > (qp - window)
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("hqk,hkd->hqd", p, vq).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len: torch.Tensor, *, window: int | None = None,
+                     softcap: float | None = None,
+                     scale: float | None = None) -> torch.Tensor:
+    """Plain version of ``decode_attention.decode_attention_bhgd`` (JAX:
+    ``kernels/ref.py:decode_attention``): q (B·Hkv, G, D), k/v
+    (B·Hkv, Sk, D), kv_len (B·Hkv,). Slot s is live when s < kv_len and,
+    with a window, s > kv_len - 1 - window."""
+    d = q.shape[2]
+    sk = k.shape[1]
+    scale = scale if scale is not None else d ** -0.5
+    s = torch.einsum("hgd,hkd->hgk", q.float() * scale, k.float())
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    kp = torch.arange(sk, device=q.device)[None, None, :]
+    kl = kv_len.to(torch.int64)[:, None, None]
+    ok = kp < kl
+    if window is not None:
+        ok &= kp > (kl - 1 - window)
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("hgk,hkd->hgd", p, v.float()).to(q.dtype)
 
 
 def _composite(keys: tuple[torch.Tensor, ...]) -> torch.Tensor:
@@ -110,9 +166,9 @@ def segmented_aggregate(values: torch.Tensor, ok: torch.Tensor,
 def segmented_sum_count(values: torch.Tensor, segments: torch.Tensor,
                         valid: torch.Tensor, num_segments: int
                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the JAX ``seg_aggregate.segmented_sum_count``
-    (its kernel is not ported yet; the legacy group-by route calls
-    only this). values/segments/valid [P, N] -> (sums [P, S],
+    """Plain version of ``seg_aggregate.segmented_sum_count`` (JAX:
+    ``kernels/ref.py:segmented_sum_count``; the legacy group-by route
+    calls it). values/segments/valid [P, N] -> (sums [P, S],
     counts [P, S]) float32."""
     p = values.shape[0]
     s = num_segments

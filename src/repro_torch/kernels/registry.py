@@ -33,14 +33,28 @@ KERNELS: dict[str, dict[str, str]] = {
         "jax_ref": "seg_topk.segment_topk",
         "replaces": "src/repro/kernels/seg_topk.py:69",
     },
+    "segmented_sum_count": {
+        "wrapper": "seg_aggregate.segmented_sum_count",
+        "plain": "segmented_sum_count",
+        "source": "src/repro_torch/kernels/csrc/seg_aggregate.cu",
+        "jax_ref": "seg_aggregate.segmented_sum_count",
+        "replaces": "src/repro/kernels/seg_aggregate.py:125",
+    },
+    "flash_attention": {
+        "wrapper": "flash_attention.flash_attention_bhsd",
+        "plain": "flash_attention",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "jax_ref": "flash_attention.flash_attention_bhsd",
+        "replaces": "src/repro/kernels/flash_attention.py:73",
+    },
+    "decode_attention": {
+        "wrapper": "decode_attention.decode_attention_bhgd",
+        "plain": "decode_attention",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "jax_ref": "decode_attention.decode_attention_bhgd",
+        "replaces": "src/repro/kernels/decode_attention.py:70",
+    },
 }
 
-# JAX kernels with no CUDA kernel yet (ROADMAP.md, "TPU kernels to port")
-NOT_PORTED: dict[str, str] = {
-    "seg_aggregate.segmented_sum_count":
-        "src/repro/kernels/seg_aggregate.py:125",
-    "flash_attention.flash_attention_bhsd":
-        "src/repro/kernels/flash_attention.py:73",
-    "decode_attention.decode_attention_bhgd":
-        "src/repro/kernels/decode_attention.py:70",
-}
+# JAX kernels with no CUDA kernel yet: none (every KERNEL_REFS key above)
+NOT_PORTED: dict[str, str] = {}

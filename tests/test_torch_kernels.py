@@ -6,7 +6,12 @@ kernel against its plain version.
 
 Tolerances: everything is exact except float sums, held to rtol=1e-5
 (the reference's own kernel and jnp twin disagree on sum bits, see
-test_seg_kernels.py[256-32-256-1]; sums here run in another order).
+test_seg_kernels.py[256-32-256-1]; sums here run in another order), and
+attention: atol/rtol 2e-5 in float32 for the plain versions against the
+Pallas kernels (as tests/test_kernels.py holds the kernels to their jnp
+references); on the card 1e-4 in float32 (another summation order over
+up to 2048 keys) and 2e-2 in bfloat16 (outputs rounded to bf16, one ulp
+of values below 4 is at most 1.6e-2).
 
 The JAX imports sit inside the JAX-parity tests so that the CUDA cases
 also run where JAX is not installed:
@@ -18,10 +23,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import hash_join, ops, ref, seg_aggregate, seg_topk
+from repro_torch.kernels import (decode_attention, flash_attention,
+                                 hash_join, ops, ref, seg_aggregate, seg_topk)
 from repro_torch.kernels.registry import KERNELS, NOT_PORTED
 
 SUM_RTOL = 1e-5
+ATT_TOL = 2e-5                                    # plain vs Pallas, f32
+CUDA_ATT_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 @pytest.fixture
@@ -72,6 +80,20 @@ def topk_case(p, n, seed, float_key=True):
     return tuple(keys)
 
 
+def attn_case(bh, bhkv, sq, sk, d, seed):
+    """Standard-normal q (BH, Sq, D), k/v (BHkv, Sk, D), float32."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.normal(size=shape).astype(np.float32)
+                 for shape in ((bh, sq, d), (bhkv, sk, d), (bhkv, sk, d)))
+
+
+def decode_case(bh, g, sk, d, seed):
+    """q (BH, G, D), k/v (BH, Sk, D) float32; kv_len drawn later."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.normal(size=shape).astype(np.float32)
+                 for shape in ((bh, g, d), (bh, sk, d), (bh, sk, d)))
+
+
 def T(a, device="cpu"):
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
@@ -92,6 +114,15 @@ def test_registry_entries_resolve():
     # every JAX kernel is either ported or listed as still to port
     ported = {e["jax_ref"] for e in KERNELS.values()}
     assert ported | set(NOT_PORTED) == set(KERNEL_REFS)
+
+
+def test_registry_covers_every_tpu_kernel():
+    from repro.kernels.registry import KERNEL_REFS
+    assert {e["jax_ref"] for e in KERNELS.values()} == set(KERNEL_REFS)
+    assert len(KERNELS) == len(KERNEL_REFS) == 6
+    assert NOT_PORTED == {}
+    for e in KERNELS.values():
+        assert e["plain"] == KERNEL_REFS[e["jax_ref"]]
 
 
 # ---------------------------------------------------------------------------
@@ -176,9 +207,88 @@ def test_segmented_sum_count_plain_vs_pallas(n, s):
                                   np.stack([np.asarray(w[1]) for w in want]))
 
 
+@pytest.mark.parametrize("causal,window,softcap,g,sq,sk,d", [
+    (True, None, None, 2, 128, 128, 64),
+    (True, 64, None, 2, 128, 128, 64),
+    (True, None, 30.0, 1, 64, 256, 32),
+    (False, None, None, 4, 256, 128, 32),
+    (True, 64, 30.0, 2, 128, 128, 64),
+    (False, 16, 50.0, 8, 64, 128, 16),
+])
+def test_flash_attention_plain_vs_pallas(causal, window, softcap, g, sq, sk,
+                                         d):
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention import flash_attention_bhsd as jax_fa
+    q, k, v = attn_case(2 * g, 2, sq, sk, d, seed=sq + sk + d + g)
+    want = jax_fa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), g=g,
+                  causal=causal, window=window, softcap=softcap,
+                  block_q=64, block_k=64, interpret=True)
+    got = ref.flash_attention(T(q), T(k), T(v), g=g, causal=causal,
+                              window=window, softcap=softcap)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATT_TOL,
+                               rtol=ATT_TOL)
+
+
+@pytest.mark.parametrize("g,sk,d,window,softcap", [
+    (4, 256, 64, None, None), (8, 512, 128, None, None),
+    (1, 128, 32, None, None), (4, 256, 64, 32, 25.0), (2, 192, 16, 7, None),
+])
+def test_decode_attention_plain_vs_pallas(g, sk, d, window, softcap):
+    import jax.numpy as jnp
+    from repro.kernels.decode_attention import \
+        decode_attention_bhgd as jax_dec
+    q, k, v = decode_case(4, g, sk, d, seed=g + sk + d)
+    kv_len = np.asarray([1, sk // 3, sk - 5, sk], np.int32)   # ragged
+    want = jax_dec(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   jnp.asarray(kv_len), window=window, softcap=softcap,
+                   block_k=64, interpret=True)
+    got = ref.decode_attention(T(q), T(k), T(v), T(kv_len), window=window,
+                               softcap=softcap)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATT_TOL,
+                               rtol=ATT_TOL)
+
+
 # ---------------------------------------------------------------------------
 # dispatch: the CPU takes the plain version; the kernels take CUDA only
 # ---------------------------------------------------------------------------
+
+def test_ops_attention_dispatch_plain_on_cpu():
+    """The public (B, S, H, D) entry points on the CPU equal the plain
+    versions in the JAX kernels' layouts, and launch nothing."""
+    b, sq, hq, hkv, d = 2, 24, 4, 2, 16
+    rng = np.random.default_rng(11)
+    q = rng.normal(size=(b, sq, hq, d)).astype(np.float32)
+    k = rng.normal(size=(b, sq, hkv, d)).astype(np.float32)
+    v = rng.normal(size=(b, sq, hkv, d)).astype(np.float32)
+    got = ops.flash_attention(T(q), T(k), T(v), causal=True, window=5)
+    want = ref.flash_attention(
+        T(q.transpose(0, 2, 1, 3).reshape(b * hq, sq, d)),
+        T(k.transpose(0, 2, 1, 3).reshape(b * hkv, sq, d)),
+        T(v.transpose(0, 2, 1, 3).reshape(b * hkv, sq, d)),
+        g=hq // hkv, causal=True, window=5)
+    assert got.shape == (b, sq, hq, d)
+    torch.testing.assert_close(got, want.reshape(b, hq, sq, d)
+                               .transpose(1, 2), rtol=0, atol=0)
+    kv_len = np.asarray([3, 24], np.int32)
+    got = ops.decode_attention(T(q[:, :1]), T(k), T(v), T(kv_len),
+                               logit_softcap=20.0)
+    g = hq // hkv
+    want = ref.decode_attention(
+        T(q[:, 0].reshape(b * hkv, g, d)),
+        T(k.transpose(0, 2, 1, 3).reshape(b * hkv, sq, d)),
+        T(v.transpose(0, 2, 1, 3).reshape(b * hkv, sq, d)),
+        T(np.repeat(kv_len, hkv)), softcap=20.0)
+    torch.testing.assert_close(got, want.reshape(b, 1, hq, d), rtol=0, atol=0)
+    vals = rng.normal(size=(2, 50)).astype(np.float32)
+    segs = rng.integers(-1, 9, (2, 50)).astype(np.int32)
+    valid = rng.random((2, 50)) > 0.3
+    for g_, w_ in zip(ops.segmented_sum_count(T(vals), T(segs), T(valid), 7),
+                      ref.segmented_sum_count(T(vals), T(segs), T(valid), 7)):
+        assert torch.equal(g_, w_)
+    assert flash_attention.flash_attention_bhsd.launches == 0
+    assert decode_attention.decode_attention_bhgd.launches == 0
+    assert seg_aggregate.segmented_sum_count.launches == 0
+
 
 def test_ops_dispatch_plain_on_cpu():
     bk, bv, pk, pv = join_case(2, 64, 64, 2, seed=3)
@@ -210,6 +320,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         seg_aggregate.segmented_aggregate(T(vals), T(ok), T(segs), T(valid), 3)
     with pytest.raises(ValueError, match="CUDA"):
         seg_topk.segment_topk(tuple(map(T, topk_case(1, 8, seed=8))), 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        seg_aggregate.segmented_sum_count(T(vals[..., 0]), T(segs), T(valid),
+                                          3)
+    q, k, v = attn_case(2, 1, 8, 8, 64, seed=9)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention.flash_attention_bhsd(T(q), T(k), T(v), g=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention.decode_attention_bhgd(T(q[:1, :2]), T(k), T(v),
+                                               T(np.asarray([3], np.int32)))
 
 
 # ---------------------------------------------------------------------------
@@ -255,3 +374,113 @@ def test_cuda_segment_topk(cuda, p, n, cap, float_key):
     want = ref.segment_topk(keys, cap)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+FLASH_CUDA_CASES = [
+    # causal, window, softcap, g, sq, sk, d
+    (True, None, None, 2, 256, 256, 128),
+    (False, None, None, 1, 100, 77, 64),          # ragged Sq and Sk
+    (True, 4096, None, 2, 300, 300, 128),
+    (True, 16, None, 8, 130, 200, 64),
+    (False, 16, None, 1, 200, 100, 64),           # rows with no live key
+    (True, None, 50.0, 2, 129, 129, 256),
+    (True, 16, 50.0, 1, 65, 65, 128),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window,softcap,g,sq,sk,d", FLASH_CUDA_CASES)
+def test_cuda_flash_attention(cuda, dtype, causal, window, softcap, g, sq, sk,
+                              d):
+    q, k, v = (T(x, cuda).to(dtype) for x in
+               attn_case(2 * g, 2, sq, sk, d, seed=sq * sk + d))
+    kw = dict(g=g, causal=causal, window=window, softcap=softcap)
+    got = flash_attention.flash_attention_bhsd(q, k, v, **kw)
+    want = ref.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = CUDA_ATT_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_cuda_flash_attention_reads_model_layout_in_place(cuda):
+    """(B, S, H, D) tensors through ops: strided views, no copies; the
+    output comes back contiguous in (B, S, H, D)."""
+    b, s, hq, hkv, d = 2, 190, 8, 4, 128
+    rng = np.random.default_rng(5)
+    q, k, v = (T(rng.normal(size=(b, s, h, d)).astype(np.float32),
+                 cuda).bfloat16() for h in (hq, hkv, hkv))
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention(
+        q.transpose(1, 2).reshape(b * hq, s, d),
+        k.transpose(1, 2).reshape(b * hkv, s, d),
+        v.transpose(1, 2).reshape(b * hkv, s, d), g=2, causal=True)
+    torch.cuda.synchronize()
+    assert got.is_contiguous() and got.shape == (b, s, hq, d)
+    torch.testing.assert_close(got.float(), want.reshape(b, hq, s, d)
+                               .transpose(1, 2).float(), atol=2e-2, rtol=2e-2)
+
+
+DECODE_CUDA_CASES = [
+    # g, smax, d, window, softcap
+    (2, 2080, 128, None, None),
+    (1, 1000, 64, None, None),
+    (8, 333, 256, None, 50.0),
+    (4, 2080, 128, 16, None),
+    (2, 65, 128, 4096, 30.0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,smax,d,window,softcap", DECODE_CUDA_CASES)
+def test_cuda_decode_attention(cuda, dtype, g, smax, d, window, softcap):
+    q, k, v = (T(x, cuda).to(dtype) for x in
+               decode_case(6, g, smax, d, seed=smax + d + g))
+    kv_len = T(np.asarray([1, 2, smax // 2 + 3, smax - 1, smax, 0],
+                          np.int32), cuda)   # 0: no live slot
+    kw = dict(window=window, softcap=softcap)
+    got = decode_attention.decode_attention_bhgd(q, k, v, kv_len, **kw)
+    want = ref.decode_attention(q, k, v, kv_len, **kw)
+    torch.cuda.synchronize()
+    tol = CUDA_ATT_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    again = decode_attention.decode_attention_bhgd(q, k, v, kv_len, **kw)
+    assert torch.equal(again, got)                 # fixed combine order
+
+
+def test_cuda_decode_attention_reads_cache_in_place(cuda):
+    b, smax, hq, hkv, d = 3, 2080, 16, 8, 128
+    rng = np.random.default_rng(6)
+    q = T(rng.normal(size=(b, 1, hq, d)).astype(np.float32), cuda).bfloat16()
+    kc, vc = (T(rng.normal(size=(b, smax, hkv, d)).astype(np.float32),
+                cuda).bfloat16() for _ in range(2))
+    kv_len = T(np.asarray([7, 2048, 2080], np.int32), cuda)
+    got = ops.decode_attention(q, kc, vc, kv_len)
+    g = hq // hkv
+    want = ref.decode_attention(
+        q.reshape(b * hkv, g, d), kc.transpose(1, 2).reshape(b * hkv, smax, d),
+        vc.transpose(1, 2).reshape(b * hkv, smax, d),
+        torch.repeat_interleave(kv_len, hkv))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.reshape(b, 1, hq, d).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("p,n,s,valid_share", [(4, 5000, 37, 0.8),
+                                               (2, 3001, 9000, 0.8),
+                                               (3, 999, 4096, 0.0),
+                                               (4, 300000, 2000, 0.8)])
+def test_cuda_segmented_sum_count(cuda, p, n, s, valid_share):
+    rng = np.random.default_rng(n + s)
+    vals = (rng.integers(-400, 400, (p, n)) / 10.0).astype(np.float32)
+    segs = rng.integers(-3, s + 3, (p, n)).astype(np.int32)
+    valid = rng.random((p, n)) < valid_share
+    args = (T(vals, cuda), T(segs, cuda), T(valid, cuda), s)
+    sums, counts = seg_aggregate.segmented_sum_count(*args)
+    wsums, wcounts = ref.segmented_sum_count(*args)
+    mag, _ = ref.segmented_sum_count(args[0].abs(), *args[1:])
+    torch.cuda.synchronize()
+    assert torch.equal(counts, wcounts)
+    assert bool(((sums - wsums).abs() <= SUM_RTOL * mag + 1e-30).all())
+    again, _ = seg_aggregate.segmented_sum_count(*args)
+    assert torch.equal(again, sums)

@@ -107,6 +107,8 @@ def _imports(path: Path):
 def test_no_reference_imports_in_source():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    for sub in ("models", "configs", "launch", "kernels", "core"):
+        assert any(f.parent.name == sub for f in files), sub
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -125,3 +127,17 @@ def test_chip_smoke_main_path_rehearsal_on_cpu():
     recs = chip_smoke.main_path(ex, spec)
     assert [r["query"] for r in recs] == [f"Q{i}" for i in range(1, 13)]
     assert all(r["rows"] > 0 for r in recs)
+
+
+def test_chip_smoke_lm_path_rehearsal_on_cpu():
+    """chip_smoke.py's phase 5 at the smoke size of qwen3-1.7b on the
+    CPU: kernel route cold and warm, the plain route teacher-forced, the
+    logits compared (the plain versions stand in for the kernels)."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    out = chip_smoke.lm_path(torch.device("cpu"), smoke=True, requests=2,
+                             prompt_len=16, gen_len=3)
+    assert out["generated_shape"] == [2, 3]
+    assert max(out["logit_max_abs_err"].values()) <= chip_smoke.LOGIT_ATOL
+    assert out["plain_argmax_agrees"] == 1.0
+    assert out["cold_warm_tokens_equal"]
