@@ -18,7 +18,10 @@ JSON line each. Every line has:
   launched, and ``busy`` = device_ms / wall_ms (1 - busy is the share
   of the run in which the card was idle: host work, launches, syncs);
 - ``launches``: device kernels launched, and the three kernel names
-  with the most device time.
+  with the most device time;
+- ``repo_kernels``: [name, device ms, launches] of each of this
+  repository's own kernels (the ``__global__`` functions of
+  ``src/repro_torch/kernels/csrc``) that the run launched.
 
 Needs a CUDA device; exits 2 without one.
 """
@@ -31,6 +34,17 @@ from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+
+
+def repo_kernel_pattern():
+    """A pattern that finds, in a profiler's kernel name, a ``__global__``
+    function defined in the CUDA sources."""
+    import re
+    decl = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                      r"\s+)?(\w+)\s*\(")
+    names = {n for f in CSRC.glob("*.cu") for n in decl.findall(f.read_text())}
+    return re.compile(r"\b(?:" + "|".join(sorted(names)) + r")\s*[<(]")
 
 
 def traced(fn) -> dict:
@@ -49,12 +63,18 @@ def traced(fn) -> dict:
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name = Counter()
+    ours, ours_n = Counter(), Counter()
+    repo = repo_kernel_pattern()
     for e in kernels:
         by_name[e.name[:60]] += e.device_time_total / 1e3
+        if repo.search(e.name):
+            ours[e.name[:60]] += e.device_time_total / 1e3
+            ours_n[e.name[:60]] += 1
     device_ms = sum(by_name.values())
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy": device_ms / wall_ms, "launches": len(kernels),
-            "top": [[k, v] for k, v in by_name.most_common(5)]}
+            "top": [[k, v] for k, v in by_name.most_common(5)],
+            "repo_kernels": [[k, v, ours_n[k]] for k, v in ours.most_common()]}
 
 
 def trace_lm() -> None:

@@ -10,10 +10,12 @@ Phases, each printed as it runs:
 2. each CUDA kernel against its plain PyTorch version on the card, on
    seeded edge-shape inputs (ragged sizes, duplicate join keys, invalid
    rows, segment ids outside [0, S), masked NaNs, C = 0, S >= 4096,
-   cap == N, tie-heavy keys; attention causal and not, windows 4096 and
-   16, softcap 50, GQA g in {1, 2, 8}, ragged Sq/Sk, head_dim 64/128/256,
-   bf16 and float32; decode kv_len in {0, 1, ragged, Smax} and an Smax
-   that is no multiple of a tile; sum/count with all rows invalid);
+   cap == N, tie-heavy keys, N over several sorted chunks (the top-k
+   merge), all rows invalid; attention causal and not, windows 4096,
+   100 and 16, softcap 50, GQA g in {1, 2, 8}, ragged Sq/Sk and Sq < Sk,
+   head_dim 64/128/256 at several tiles, bf16 and float32, the same bits
+   from launch to launch; decode kv_len in {0, 1, ragged, Smax} and an
+   Smax that is no multiple of a tile; sum/count with all rows invalid);
 3. the query path: the NOAA-GHCN-shaped weather collections of the
    paper's §5 at 2000 stations x 50 years x 8 days (4,000,000 /sensors
    readings, P = 4 partitions), Q1–Q12 through ``compile_query`` ->
@@ -251,6 +253,12 @@ FLASH_EDGES = [
     (False, 16, None, 1, 200, 100, 64, "bfloat16"),   # rows with no live key
     (True, None, 50.0, 2, 129, 129, 256, "bfloat16"),
     (True, 16, 50.0, 1, 65, 65, 256, "float32"),
+    # the bf16 tensor-core tiling: 128 query rows, 128 keys (64 at D = 256)
+    (True, None, None, 2, 1000, 1000, 128, "bfloat16"),   # no tile multiple
+    (True, None, None, 2, 100, 300, 128, "bfloat16"),     # Sq < Sk
+    (True, 100, None, 2, 700, 700, 128, "bfloat16"),      # window across tiles
+    (True, None, None, 1, 640, 640, 64, "bfloat16"),
+    (True, None, None, 2, 600, 600, 256, "bfloat16"),
 ]
 DECODE_EDGES = [
     # g, smax, d, window, softcap, dtype
@@ -265,10 +273,15 @@ SUM_COUNT_EDGES = [(4, 5000, 37, 0.8), (2, 3001, 9000, 0.8),
 
 
 def check_flash(q, k, v, kw) -> float:
+    import torch
     from repro_torch.kernels import flash_attention, ref
     got = flash_attention.flash_attention_bhsd(q, k, v, **kw)
     want = ref.flash_attention(q, k, v, **kw)
-    return attn_err(got, want, str(q.dtype).split(".")[1], "flash_attention")
+    err = attn_err(got, want, str(q.dtype).split(".")[1], "flash_attention")
+    again = flash_attention.flash_attention_bhsd(q, k, v, **kw)
+    require(torch.equal(again, got),
+            "flash_attention differs from run to run")
+    return err
 
 
 def check_decode(q, k, v, kv_len, kw) -> float:
@@ -334,6 +347,7 @@ def attention_edge_checks(dev, errs: dict) -> None:
 
 
 def edge_checks(dev) -> dict[str, float]:
+    import torch
     errs = {"block_join_probe": 0.0, "segmented_aggregate": 0.0,
             "segment_topk": 0.0, "segmented_sum_count": 0.0,
             "flash_attention": 0.0, "decode_attention": 0.0}
@@ -347,10 +361,16 @@ def edge_checks(dev) -> dict[str, float]:
                                        (4, 300000, 2000, 1)]):
         e = check_agg(agg_inputs(p, n, s, nc, SEED + 10 + i, dev))
         errs["segmented_aggregate"] = max(errs["segmented_aggregate"], e)
-    for i, (p, n, cap, fk) in enumerate([(4, 2000, 16, True),
-                                         (2, 1500, 1500, True),
-                                         (3, 33, 5, False), (1, 1, 1, True)]):
-        e = check_topk(topk_inputs(p, n, SEED + 20 + i, dev, fk), cap)
+    # the last three span several sorted chunks (the merge runs)
+    for i, (p, n, cap, fk, none_valid) in enumerate([
+            (4, 2000, 16, True, False), (2, 1500, 1500, True, False),
+            (3, 33, 5, False, False), (1, 1, 1, True, False),
+            (2, 50000, 64, True, False), (2, 12000, 12000, True, False),
+            (3, 20000, 100, True, True)]):
+        keys = topk_inputs(p, n, SEED + 20 + i, dev, fk)
+        if none_valid:
+            keys = (torch.ones_like(keys[0]),) + keys[1:]
+        e = check_topk(keys, cap)
         errs["segment_topk"] = max(errs["segment_topk"], e)
     attention_edge_checks(dev, errs)
     return errs

@@ -120,6 +120,15 @@ def function(lib_name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
     return fn
 
 
+def stream(device) -> int:
+    """The raw handle of PyTorch's current stream on ``device`` (a CUDA
+    ``torch.device``): the same value as
+    ``torch.cuda.current_stream(device).cuda_stream``, without building
+    a Stream object on every launch."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(device.index or 0)
+
+
 def check(lib_name: str, kernel: str, code: int) -> None:
     """Raise on a non-zero cudaError_t returned by a launcher."""
     if code != 0:

@@ -86,7 +86,7 @@ def decode_attention_bhgd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               _DTYPES[q.dtype], int(window or 0),
               float(scale if scale is not None else d ** -0.5),
               float(softcap or 0.0), dev.index or 0,
-              torch.cuda.current_stream(dev).cuda_stream)
+              _build.stream(dev))
     _build.check("decode_attention", "decode_attention", code)
     decode_attention_bhgd.launches += 1
     return out

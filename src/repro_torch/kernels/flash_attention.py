@@ -25,15 +25,17 @@ def as_bhsd(x: torch.Tensor) -> torch.Tensor:
     return x.unsqueeze(0) if x.dim() == 3 else x
 
 
-def check_strided(name: str, *ts: torch.Tensor) -> None:
-    """The kernels read 4 elements (16 or 8 bytes) at a time: unit dim
-    stride, other strides multiples of 4, 16-byte aligned storage."""
+def check_strided(name: str, *ts: torch.Tensor, elems: int = 4) -> None:
+    """The kernels read ``elems`` elements at a time (4: 16 or 8 bytes;
+    the bf16 flash kernel's TMA maps need 16 bytes, 8 elements): unit dim
+    stride, other strides multiples of ``elems``, 16-byte aligned
+    storage."""
     for t in ts:
-        if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:-1]) \
+        if t.stride(-1) != 1 or any(s % elems for s in t.stride()[:-1]) \
                 or t.data_ptr() % 16:
             raise ValueError(f"{name}: tensors need a unit last stride, "
-                             f"other strides multiples of 4 and 16-byte "
-                             f"alignment (got strides {t.stride()})")
+                             f"other strides multiples of {elems} and "
+                             f"16-byte alignment (got strides {t.stride()})")
 
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -47,8 +49,9 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors, read in place). Query head h reads key/value head h // g.
     Returns the output in q's shape and dtype, laid out like q where q is
     dense (so a transposed (B, S, H, D) input gives a contiguous
-    (B, S, H, D) output back through ``transpose(1, 2)``). bf16 or
-    float32; head_dim 64, 128 or 256. CUDA tensors only."""
+    (B, S, H, D) output back through ``transpose(1, 2)``). bf16 (the
+    tensor-core kernel) or float32 (the FP32-core kernel); head_dim 64,
+    128 or 256. CUDA tensors only."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention kernel needs CUDA tensors, got {dev}")
@@ -75,7 +78,8 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"softcap must be > 0, got {softcap}")
     out = torch.empty_like(q)
     o4 = as_bhsd(out)
-    check_strided("flash_attention", q4, k4, v4, o4)
+    check_strided("flash_attention", q4, k4, v4, o4,
+                  elems=16 // q.element_size())
     strides = (ctypes.c_longlong * 12)(*(s for t in (q4, k4, v4, o4)
                                          for s in t.stride()[:3]))
     fn = _build.function("flash_attention", "repro_flash_attention", _ARGS)
@@ -84,7 +88,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               _DTYPES[q.dtype], int(causal), int(window or 0),
               float(scale if scale is not None else d ** -0.5),
               float(softcap or 0.0), dev.index or 0,
-              torch.cuda.current_stream(dev).cuda_stream)
+              _build.stream(dev))
     _build.check("flash_attention", "flash_attention", code)
     flash_attention_bhsd.launches += 1
     return out

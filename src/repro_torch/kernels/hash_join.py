@@ -49,7 +49,7 @@ def block_join_probe(build_keys: tuple[torch.Tensor, ...],
     code = fn(pk[0].data_ptr(), pk[-1].data_ptr(), pv.data_ptr(),
               bk[0].data_ptr(), bk[-1].data_ptr(), bv.data_ptr(),
               pos.data_ptr(), p, np_, nb, int(nk == 2), dev.index or 0,
-              torch.cuda.current_stream(dev).cuda_stream)
+              _build.stream(dev))
     _build.check("hash_join", "block_join_probe", code)
     block_join_probe.launches += 1
     return pos, pos >= 0

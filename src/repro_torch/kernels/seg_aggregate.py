@@ -67,7 +67,7 @@ def segmented_aggregate(values: torch.Tensor, ok: torch.Tensor,
               vld.data_ptr(), partials.data_ptr(), counts.data_ptr(),
               sums.data_ptr(), mins.data_ptr(), maxs.data_ptr(),
               p, n, nc, s, chunks, dev.index or 0,
-              torch.cuda.current_stream(dev).cuda_stream)
+              _build.stream(dev))
     _build.check("seg_aggregate", "segmented_aggregate", code)
     segmented_aggregate.launches += 1
     return counts, sums, mins, maxs
@@ -111,7 +111,7 @@ def segmented_sum_count(values: torch.Tensor, segments: torch.Tensor,
     code = fn(vals.data_ptr(), seg.data_ptr(), vld.data_ptr(),
               partials.data_ptr(), sums.data_ptr(), counts.data_ptr(),
               p, n, s, chunks, dev.index or 0,
-              torch.cuda.current_stream(dev).cuda_stream)
+              _build.stream(dev))
     _build.check("seg_aggregate", "segmented_sum_count", code)
     segmented_sum_count.launches += 1
     return sums, counts

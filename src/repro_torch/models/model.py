@@ -31,6 +31,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.core.executor import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (apply_rope, dense_init, embed_init,
                                        mlp, mlp_init, rmsnorm, rmsnorm_init,
@@ -191,12 +192,13 @@ def _init_block(cfg: ModelConfig, spec: BlockSpec, gen, device) -> Params:
     return p
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> Params:
-    """Seeded random weights on ``device`` (one ``torch.Generator`` of
-    that device, drawn layer by layer): ``{"embed", "layers": [one dict
-    per layer], "final_norm", "lm_head"?}``."""
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
+    """Seeded random weights on ``device`` (``None``: the GPU; one
+    ``torch.Generator`` of that device, drawn layer by layer):
+    ``{"embed", "layers": [one dict per layer], "final_norm",
+    "lm_head"?}``."""
     check_supported(cfg)
-    device = torch.device(device)
+    device = resolve_device(device)
     gen = None
     if device.type != "meta":
         gen = torch.Generator(device=device)
@@ -350,10 +352,12 @@ def logits_from_hidden(cfg: ModelConfig, params: Params,
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
-               device="cpu") -> list[Params]:
+               device=None) -> list[Params]:
     """Zeroed caches, one ``{"k", "v"}`` (B, max_len, Hkv, D) per layer
-    (``device="meta"``: shapes only, JAX's ``abstract=True``)."""
+    on ``device`` (``None``: the GPU; ``"meta"``: shapes only, JAX's
+    ``abstract=True``)."""
     check_supported(cfg)
+    device = resolve_device(device)
     shape = (batch_size, max_len, cfg.num_kv_heads, cfg.head_dim)
     return [{"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
              "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}

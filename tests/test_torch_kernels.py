@@ -176,7 +176,9 @@ def test_segmented_aggregate_plain_vs_pallas(n, s, nc, bn):
 
 
 @pytest.mark.parametrize("n,cap,float_key", [(300, 16, True), (128, 128, True),
-                                             (257, 40, False)])
+                                             (257, 40, False),
+                                             # just past a power of two
+                                             (129, 1, True), (129, 129, True)])
 def test_segment_topk_plain_vs_pallas(n, cap, float_key):
     import jax.numpy as jnp
     from repro.kernels.seg_topk import segment_topk as jax_topk
@@ -331,6 +333,30 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                                T(np.asarray([3], np.int32)))
 
 
+@pytest.mark.parametrize("n,nkeys,want", [(1, 3, 2), (33, 1, 64),
+                                          (2000, 3, 2048), (8193, 3, 8192),
+                                          (50000, 4, 4096), (50000, 32, 512)])
+def test_segment_topk_chunk_rows(n, nkeys, want):
+    """A power of two that covers N where it can, whose records (nkeys
+    words and the row position, in whole 16-byte vectors) fit the
+    kernel's shared-memory budget."""
+    chunk = seg_topk.chunk_rows(n, nkeys)
+    assert chunk == want and chunk & (chunk - 1) == 0
+    assert chunk * 16 * ((nkeys + 4) // 4) <= seg_topk.SORT_SMEM
+
+
+def test_flash_strides_for_the_tma_maps():
+    """bf16 strides must be multiples of 8 elements (16 bytes) for the
+    tensor-core kernel's TMA maps, float32 ones of 4."""
+    for dtype, elems in ((torch.float32, 4), (torch.bfloat16, 8)):
+        x = torch.zeros(2, 10, 68, dtype=dtype)[..., :64]   # row stride 68
+        if elems == 4:
+            flash_attention.check_strided("t", x, elems=elems)
+        else:
+            with pytest.raises(ValueError, match="multiples of 8"):
+                flash_attention.check_strided("t", x, elems=elems)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels vs their plain versions (skip without a card)
 # ---------------------------------------------------------------------------
@@ -364,12 +390,17 @@ def test_cuda_segmented_aggregate(cuda, p, n, s, nc):
     assert torch.equal(again[1], got[1])          # deterministic sums
 
 
-@pytest.mark.parametrize("p,n,cap,float_key", [(4, 2000, 16, True),
-                                               (2, 1500, 1500, True),
-                                               (3, 33, 5, False)])
-def test_cuda_segment_topk(cuda, p, n, cap, float_key):
-    keys = tuple(T(k, cuda) for k in topk_case(p, n, seed=n,
-                                               float_key=float_key))
+@pytest.mark.parametrize("p,n,cap,float_key,none_valid", [
+    (4, 2000, 16, True, False), (2, 1500, 1500, True, False),
+    (3, 33, 5, False, False),
+    # N over several sorted chunks: the merge runs
+    (2, 50000, 64, True, False), (2, 12000, 12000, True, False),
+    (3, 20000, 100, True, True)])
+def test_cuda_segment_topk(cuda, p, n, cap, float_key, none_valid):
+    keys = topk_case(p, n, seed=n, float_key=float_key)
+    if none_valid:
+        keys = (np.ones_like(keys[0]),) + keys[1:]
+    keys = tuple(T(k, cuda) for k in keys)
     got = seg_topk.segment_topk(keys, cap)
     want = ref.segment_topk(keys, cap)
     torch.cuda.synchronize()
@@ -385,6 +416,12 @@ FLASH_CUDA_CASES = [
     (False, 16, None, 1, 200, 100, 64),           # rows with no live key
     (True, None, 50.0, 2, 129, 129, 256),
     (True, 16, 50.0, 1, 65, 65, 128),
+    # the bf16 tensor-core tiling: 128 query rows, 128 keys (64 at D = 256)
+    (True, None, None, 2, 1000, 1000, 128),       # no tile multiple
+    (True, None, None, 2, 100, 300, 128),         # Sq < Sk
+    (True, 100, None, 2, 700, 700, 128),          # window across key tiles
+    (True, None, None, 1, 640, 640, 64),
+    (True, None, None, 2, 600, 600, 256),
 ]
 
 
@@ -401,6 +438,8 @@ def test_cuda_flash_attention(cuda, dtype, causal, window, softcap, g, sq, sk,
     assert got.dtype == dtype and got.shape == q.shape
     tol = CUDA_ATT_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    again = flash_attention.flash_attention_bhsd(q, k, v, **kw)
+    assert torch.equal(again, got)                 # no atomics, fixed order
 
 
 def test_cuda_flash_attention_reads_model_layout_in_place(cuda):

@@ -172,7 +172,7 @@ def test_prefill_and_decode_match_jax_f32(arch):
     # several decode steps from the grown caches, the same tokens fed
     max_len = s + 4
     jc = grown_jax_caches(jcfg, jcaches, b, s, max_len)
-    pc = model.init_cache(pcfg, b, max_len)
+    pc = model.init_cache(pcfg, b, max_len, device="cpu")
     for dst, src in zip(pc, pcaches):
         dst["k"][:, :s] = src["k"]
         dst["v"][:, :s] = src["v"]
@@ -199,7 +199,7 @@ def test_greedy_decode_matches_jax_f32():
     _, jc = jax_steps.make_prefill_step(jcfg)(jp, {"tokens": jnp.asarray(toks)})
     _, pc = steps.make_prefill_step(pcfg)(pp, {"tokens": torch.from_numpy(toks)})
     jc = grown_jax_caches(jcfg, jc, 2, 8, 14)
-    grown = model.init_cache(pcfg, 2, 14)
+    grown = model.init_cache(pcfg, 2, 14, device="cpu")
     for dst, src in zip(grown, pc):
         dst["k"][:, :8] = src["k"]
         dst["v"][:, :8] = src["v"]
@@ -302,6 +302,17 @@ def test_serve_batch_defaults_to_cuda(monkeypatch):
         serve.serve_batch()
 
 
+@pytest.mark.parametrize("entry", ["init_params", "init_cache"])
+def test_model_init_defaults_to_cuda(monkeypatch, entry):
+    cfg = get_smoke_config("qwen3-1.7b")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = (cfg, 2, 8) if entry == "init_cache" else (cfg, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(model, entry)(*args)
+    # the meta device stays: shapes only, no card needed
+    assert getattr(model, entry)(*args, device="meta")
+
+
 @pytest.mark.parametrize("arch,what", [("mamba2-370m", "mamba"),
                                        ("granite-moe-1b-a400m", "moe"),
                                        ("jamba-v0.1-52b", "mamba"),
@@ -312,7 +323,7 @@ def test_unported_blocks_raise(arch, what):
     with pytest.raises(NotImplementedError, match=what):
         model.init_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.init_cache(cfg, 1, 4)
+        model.init_cache(cfg, 1, 4, device="cpu")
 
 
 # ---------------------------------------------------------------------------
