@@ -9,13 +9,18 @@ Phases, each printed as it runs:
    (every ``csrc/*.cu`` is compiled by nvcc at first use);
 2. each CUDA kernel against its plain PyTorch version on the card, on
    seeded edge-shape inputs (ragged sizes, duplicate join keys, invalid
-   rows, segment ids outside [0, S), masked NaNs, C = 0, S >= 4096,
+   rows; the join's hash table at its worst: every build key equal, no
+   probe key present, keys at INT32_MIN/INT32_MAX, k0 equal with k1
+   different and swapped, NB = 2^20 + 3, NB = 1 and NB = 0, bit-equal;
+   segment ids outside [0, S), masked NaNs, C = 0, S >= 4096,
    cap == N, tie-heavy keys, N over several sorted chunks (the top-k
    merge), all rows invalid; attention causal and not, windows 4096,
    100 and 16, softcap 50, GQA g in {1, 2, 8}, ragged Sq/Sk and Sq < Sk,
    head_dim 64/128/256 at several tiles, bf16 and float32, the same bits
-   from launch to launch; decode kv_len in {0, 1, ragged, Smax} and an
-   Smax that is no multiple of a tile; sum/count with all rows invalid);
+   from launch to launch; decode in bf16 and float32 with kv_len in
+   {0, 1, ragged, Smax}, an Smax that is no multiple of a tile, one
+   split, more heads than resident CTAs, and two calls in a row (the
+   fused combine's counters); sum/count with all rows invalid);
 3. the query path: the NOAA-GHCN-shaped weather collections of the
    paper's §5 at 2000 stations x 50 years x 8 days (4,000,000 /sensors
    readings, P = 4 partitions), Q1–Q12 through ``compile_query`` ->
@@ -38,6 +43,9 @@ Phases, each printed as it runs:
    kernel route's tokens; prefill logits and every decode step's logits
    must agree within LOGIT_ATOL. Then the two attention kernels, as in
    phase 4, on the inputs the serve gave them.
+
+Phase 3's ``query`` lines also give each query's peak device memory and
+the join kernel's hash-table scratch (``join_table_mib``).
 
 Then one JSON line with the six kernels' numbers, the card's name and
 power limit, and the last line ``{"ok": true, "device": {...}}``. Any
@@ -150,6 +158,70 @@ def join_inputs(p, nb, np_, nkeys, seed, dev):
     return tuple(bk), bv, tuple(pk), pv
 
 
+I32_MIN, I32_MAX = -2**31, 2**31 - 1
+
+
+def join_edge_inputs(kind, p, nb, np_, nkeys, seed, dev):
+    """The hash table's worst cases, ~15 % invalid rows on both sides:
+    ``equal`` every build key equal; ``miss`` no probe key present;
+    ``extreme`` keys at INT32_MIN/INT32_MAX and negative, duplicated;
+    ``k0`` k0 equal everywhere, k1 different, and probes that swap
+    (k0, k1); ``random`` ``join_inputs``."""
+    import torch
+    if kind == "random":
+        return join_inputs(p, nb, np_, nkeys, seed, dev)
+    g = _gen(seed, dev)
+
+    def ints(lo, hi, n):
+        return torch.randint(lo, hi + 1, (p, n), generator=g, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+
+    def share(n, x):
+        return torch.rand((p, n), generator=g, device=dev) < x
+
+    if kind == "equal":
+        bk = [torch.full((p, nb), 7, dtype=torch.int32, device=dev),
+              torch.full((p, nb), -2, dtype=torch.int32, device=dev)]
+        hit = share(np_, 0.5)
+        pk = [torch.where(hit, 7, ints(-9, 9, np_)).int(),
+              torch.where(hit, -2, ints(-3, 3, np_)).int()]
+    elif kind == "miss":
+        bk = [ints(0, nb, nb), ints(-5, 5, nb)]
+        pk = [ints(nb + 1, 3 * nb + 1, np_), ints(-5, 5, np_)]
+    elif kind == "extreme":
+        pool = torch.tensor([I32_MIN, I32_MIN + 1, -2, -1, 0, 1,
+                             I32_MAX - 1, I32_MAX], dtype=torch.int32,
+                            device=dev)
+        bk = [pool[ints(0, 7, nb).long()], pool[ints(0, 7, nb).long()]]
+        pk = [pool[ints(0, 7, np_).long()], pool[ints(0, 7, np_).long()]]
+        bk[0] = torch.where(share(nb, 0.3), ints(I32_MIN, -1, nb), bk[0])
+        pk[0] = torch.where(share(np_, 0.3),
+                            bk[0][:, ints(0, nb - 1, np_)[0].long()], pk[0])
+    elif kind == "k0":
+        bk = [torch.full((p, nb), 3, dtype=torch.int32, device=dev),
+              ints(0, nb, nb)]
+        pk = [torch.full((p, np_), 3, dtype=torch.int32, device=dev),
+              ints(0, 2 * nb, np_)]
+        swap = share(np_, 0.3)
+        pk = [torch.where(swap, pk[1], pk[0]), torch.where(swap, pk[0], pk[1])]
+    else:
+        raise ValueError(kind)
+    return (tuple(bk[:nkeys]), ~share(nb, 0.15), tuple(pk[:nkeys]),
+            ~share(np_, 0.15))
+
+
+# the join's edge inputs: kind, P, NB, NP, keys
+JOIN_EDGES = [
+    ("random", 4, 1000, 777, 1), ("random", 4, 2049, 3000, 2),
+    ("random", 1, 5, 1, 2), ("random", 2, 1, 300, 1),
+    ("equal", 4, 200000, 50000, 2), ("equal", 2, 64, 100, 1),
+    ("miss", 4, 100000, 100000, 2), ("extreme", 4, 50000, 40000, 2),
+    ("extreme", 2, 257, 129, 1), ("k0", 4, 30000, 40000, 2),
+    ("random", 2, 2**20 + 3, 100000, 2),   # 2^22 table slots
+    ("random", 2, 1, 50, 2), ("random", 2, 0, 300, 2),
+]
+
+
 def agg_inputs(p, n, s, nc, seed, dev):
     """Tenths-valued columns, NaNs masked through ``ok``, invalid rows,
     segment ids outside [0, S)."""
@@ -180,13 +252,18 @@ def topk_inputs(p, n, seed, dev, float_key=True):
 
 
 def check_join(args) -> float:
+    """Bit-equal to the plain version, twice (the table is rebuilt)."""
     import torch
     from repro_torch.kernels import hash_join, ref
     pos, matched = hash_join.block_join_probe(*args)
     want, wm = ref.block_join_probe(*args)
     torch.cuda.synchronize()
+    shape = tuple(args[3].shape) + (args[1].shape[1], len(args[0]))
     require(torch.equal(pos, want) and torch.equal(matched, wm),
-            "block_join_probe disagrees with its plain version")
+            f"block_join_probe disagrees with its plain version at "
+            f"(P, NP, NB, keys) = {shape}")
+    require(torch.equal(hash_join.block_join_probe(*args)[0], pos),
+            "block_join_probe differs from run to run")
     return 0.0
 
 
@@ -261,12 +338,19 @@ FLASH_EDGES = [
     (True, None, None, 2, 600, 600, 256, "bfloat16"),
 ]
 DECODE_EDGES = [
-    # g, smax, d, window, softcap, dtype
-    (2, 2080, 128, None, None, "bfloat16"),
-    (1, 1000, 64, None, None, "float32"),
-    (8, 333, 256, None, 50.0, "bfloat16"),
-    (4, 2080, 128, 16, None, "float32"),
-    (2, 65, 128, 4096, 30.0, "bfloat16"),
+    # heads, g, smax, d, window, softcap; each in bf16 and float32. Six
+    # heads with kv_len 1, 2, ragged, Smax - 1, Smax and 0 (no live slot):
+    # the short heads use one split, the long ones many
+    (6, 2, 2080, 128, None, None),
+    (6, 1, 1000, 64, None, None),
+    (6, 8, 333, 256, None, 50.0),
+    (6, 4, 2080, 128, 16, None),
+    (6, 2, 65, 128, 4096, 30.0),
+    (6, 2, 20, 128, None, None),     # one split per head (Smax < a tile)
+    (6, 4, 700, 64, 100, 20.0),
+    (400, 2, 300, 128, None, None),  # more heads than resident CTAs
+    (6, 2, 100, 16, None, None),     # bf16 off the tensor-core kernel
+    (6, 4, 257, 32, 50, None),
 ]
 SUM_COUNT_EDGES = [(4, 5000, 37, 0.8), (2, 3001, 9000, 0.8),
                    (3, 999, 4096, 0.0), (4, 300000, 2000, 0.8)]
@@ -290,6 +374,8 @@ def check_decode(q, k, v, kv_len, kw) -> float:
     got = decode_attention.decode_attention_bhgd(q, k, v, kv_len, **kw)
     want = ref.decode_attention(q, k, v, kv_len, **kw)
     err = attn_err(got, want, str(q.dtype).split(".")[1], "decode_attention")
+    # a second call right after: an arrival counter of the fused combine
+    # left non-zero would combine early and differ
     again = decode_attention.decode_attention_bhgd(q, k, v, kv_len, **kw)
     require(torch.equal(again, got),
             "decode_attention differs from run to run")
@@ -326,15 +412,17 @@ def attention_edge_checks(dev, errs: dict) -> None:
         e = check_flash(q, k, v, dict(g=g, causal=causal, window=window,
                                       softcap=cap))
         errs["flash_attention"] = max(errs["flash_attention"], e)
-    for i, (g, smax, d, window, cap, dt) in enumerate(DECODE_EDGES):
-        dtype = getattr(torch, dt)
-        q = normal((6, g, d), SEED + 60 + i, dev, dtype)
-        k = normal((6, smax, d), SEED + 70 + i, dev, dtype)
-        v = normal((6, smax, d), SEED + 80 + i, dev, dtype)
-        kv_len = torch.tensor([1, 2, smax // 2 + 3, smax - 1, smax, 0],
-                              dtype=torch.int32, device=dev)
-        e = check_decode(q, k, v, kv_len, dict(window=window, softcap=cap))
-        errs["decode_attention"] = max(errs["decode_attention"], e)
+    for i, (bh, g, smax, d, window, cap) in enumerate(DECODE_EDGES):
+        for dtype in (torch.bfloat16, torch.float32):
+            q = normal((bh, g, d), SEED + 60 + i, dev, dtype)
+            k = normal((bh, smax, d), SEED + 70 + i, dev, dtype)
+            v = normal((bh, smax, d), SEED + 80 + i, dev, dtype)
+            kv_len = torch.tensor([1, 2, smax // 2 + 3, smax - 1, smax, 0],
+                                  dtype=torch.int32, device=dev)
+            kv_len = kv_len.repeat(-(-bh // 6))[:bh].contiguous()
+            e = check_decode(q, k, v, kv_len, dict(window=window,
+                                                   softcap=cap))
+            errs["decode_attention"] = max(errs["decode_attention"], e)
     for i, (p, n, s, share) in enumerate(SUM_COUNT_EDGES):
         g = _gen(SEED + 90 + i, dev)
         vals = torch.randint(-400, 400, (p, n), generator=g,
@@ -351,10 +439,8 @@ def edge_checks(dev) -> dict[str, float]:
     errs = {"block_join_probe": 0.0, "segmented_aggregate": 0.0,
             "segment_topk": 0.0, "segmented_sum_count": 0.0,
             "flash_attention": 0.0, "decode_attention": 0.0}
-    for i, (p, nb, np_, nk) in enumerate([(4, 1000, 777, 1),
-                                          (4, 2049, 3000, 2),
-                                          (1, 5, 1, 2), (2, 1, 300, 1)]):
-        e = check_join(join_inputs(p, nb, np_, nk, SEED + i, dev))
+    for i, (kind, p, nb, np_, nk) in enumerate(JOIN_EDGES):
+        e = check_join(join_edge_inputs(kind, p, nb, np_, nk, SEED + i, dev))
         errs["block_join_probe"] = max(errs["block_join_probe"], e)
     for i, (p, n, s, nc) in enumerate([(4, 5000, 37, 2), (4, 3001, 4500, 3),
                                        (2, 700, 9000, 4), (3, 999, 16, 0),
@@ -483,6 +569,7 @@ class Capture:
         self.ops = ops
         self.saved = {}
         self.best: dict[str, tuple] = {}
+        self.join_builds: list[tuple] = []   # (P, NB) of each join call
 
     def _wrap(self, attr, kernel, work):
         fn = getattr(self.ops, attr)
@@ -492,6 +579,8 @@ class Capture:
             w = work(*args)
             if kernel not in self.best or w > self.best[kernel][0]:
                 self.best[kernel] = (w, args)
+            if kernel == "block_join_probe":
+                self.join_builds.append(tuple(args[1].shape))
             return fn(*args, **kw)
 
         setattr(self.ops, attr, wrapped)
@@ -530,6 +619,7 @@ def main_path(ex, spec, capture=None) -> list[dict]:
     from repro_torch.core import compile_query
     from repro_torch.core.presize import presized_config
     from repro_torch.core.queries import ALL
+    from repro_torch.kernels.hash_join import table_slots
     want = reference_results(spec)
     on_cuda = ex.device.type == "cuda"
     records = []
@@ -541,6 +631,8 @@ def main_path(ex, spec, capture=None) -> list[dict]:
         if on_cuda:
             torch.cuda.reset_peak_memory_stats(ex.device)
         _, _, cold_ms = run_query(ex, plan, cfg)
+        if capture is not None:
+            capture.join_builds.clear()
         with capture if capture is not None else contextlib.nullcontext():
             raw, rs, warm_ms = run_query(ex, plan, cfg)
         peak = torch.cuda.max_memory_allocated(ex.device) if on_cuda else 0
@@ -552,6 +644,11 @@ def main_path(ex, spec, capture=None) -> list[dict]:
         rec = {"query": name, "rows": len(rows), "cold_ms": cold_ms,
                "warm_ms": warm_ms, "plain_warm_ms": plain_ms,
                "peak_mib": peak / 2**20,
+               # the join kernel's hash-table scratch, the largest call's
+               "join_table_mib": max(
+                   [p * table_slots(nb) * 4 / 2**20 for p, nb in
+                    (capture.join_builds if capture is not None else [])],
+                   default=0.0),
                "caps": {k: getattr(cfg, k) for k in
                         ("scan_cap", "join_cap", "group_cap", "topk_cap")}}
         log("query " + json.dumps(rec))

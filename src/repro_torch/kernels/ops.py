@@ -68,8 +68,10 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, window=None,
 
 def hash_join_probe(build_keys, build_valid, probe_keys, probe_valid):
     """Same results as ``executor.hash_join_probe``: (pos, matched,
-    bucket overflow [P]). The probe is exact (no hashing), so there is
-    no bucket and the overflow flag is always False."""
+    bucket overflow [P]). The kernel probes a hash table that holds every
+    valid build row and verifies each hit on the keys themselves, so the
+    result is exact (the smallest matching build index); there is no
+    bucket to overflow and the flag is always False."""
     if build_valid.is_cuda:
         pos, matched = _hj.block_join_probe(tuple(build_keys), build_valid,
                                             tuple(probe_keys), probe_valid)

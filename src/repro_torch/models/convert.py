@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.executor import resolve_device
 from repro_torch.models.model import ModelConfig, Params, tree_map
 
 
@@ -21,9 +22,11 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def params_from_numpy(cfg: ModelConfig, tree: Params, device="cpu"
+def params_from_numpy(cfg: ModelConfig, tree: Params, device=None
                       ) -> Params:
-    """JAX-layout tree of numpy arrays -> the port's parameters."""
+    """JAX-layout tree of numpy arrays -> the port's parameters on
+    ``device`` (``None``: the GPU)."""
+    device = resolve_device(device)
     p, k = cfg.period, cfg.repeats
     if len(tree["blocks"]) != p:
         raise ValueError(f"{len(tree['blocks'])} block groups for a period "

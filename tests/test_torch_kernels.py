@@ -56,6 +56,53 @@ def join_case(p, nb, np_, nkeys, seed):
             tuple(pk), rng.random((p, np_)) > 0.15)
 
 
+I32_MIN, I32_MAX = -2**31, 2**31 - 1
+
+
+def join_edge_case(kind, p, nb, np_, nkeys, seed):
+    """The hash table's worst cases, ~15 % invalid rows on both sides:
+    ``equal`` every build key equal; ``miss`` no probe key present;
+    ``extreme`` keys at INT32_MIN/INT32_MAX and negative, duplicated;
+    ``k0`` k0 equal everywhere, k1 different, and probes that swap
+    (k0, k1); ``random`` the duplicate-heavy ``join_case``."""
+    if kind == "random":
+        return join_case(p, nb, np_, nkeys, seed)
+    rng = np.random.default_rng(seed)
+
+    def ints(lo, hi, n):
+        return rng.integers(lo, hi, (p, n), endpoint=True).astype(np.int32)
+
+    if kind == "equal":
+        bk = [np.full((p, nb), 7, np.int32), np.full((p, nb), -2, np.int32)]
+        hit = rng.random((p, np_)) < 0.5
+        pk = [np.where(hit, 7, ints(-9, 9, np_)).astype(np.int32),
+              np.where(hit, -2, ints(-3, 3, np_)).astype(np.int32)]
+    elif kind == "miss":
+        bk = [ints(0, nb, nb), ints(-5, 5, nb)]
+        pk = [ints(nb + 1, 3 * nb + 1, np_), ints(-5, 5, np_)]
+    elif kind == "extreme":
+        pool = np.asarray([I32_MIN, I32_MIN + 1, -2, -1, 0, 1, I32_MAX - 1,
+                           I32_MAX], np.int32)
+        bk = [pool[rng.integers(0, 8, (p, nb))],
+              pool[rng.integers(0, 8, (p, nb))]]
+        pk = [pool[rng.integers(0, 8, (p, np_))],
+              pool[rng.integers(0, 8, (p, np_))]]
+        neg = rng.random((p, nb)) < 0.3
+        bk[0] = np.where(neg, ints(I32_MIN, -1, nb), bk[0])
+        pk[0] = np.where(rng.random((p, np_)) < 0.3,
+                         bk[0][:, rng.integers(0, nb, np_)], pk[0])
+    elif kind == "k0":
+        bk = [np.full((p, nb), 3, np.int32), ints(0, nb, nb)]
+        pk = [np.full((p, np_), 3, np.int32), ints(0, 2 * nb, np_)]
+        swap = rng.random((p, np_)) < 0.3
+        pk = [np.where(swap, pk[1], pk[0]), np.where(swap, pk[0], pk[1])]
+    else:
+        raise ValueError(kind)
+    bk, pk = bk[:nkeys], pk[:nkeys]
+    return (tuple(bk), rng.random((p, nb)) > 0.15,
+            tuple(pk), rng.random((p, np_)) > 0.15)
+
+
 def agg_case(p, n, s, nc, seed):
     """Weather-like values in tenths, NaNs masked out through ``ok``,
     invalid rows, segment ids outside [0, S)."""
@@ -129,18 +176,35 @@ def test_registry_covers_every_tpu_kernel():
 # plain versions vs the Pallas kernels (interpret mode)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("nb,np_,nkeys", [(128, 256, 1), (200, 130, 2),
-                                          (512, 300, 2)])
-def test_block_join_probe_plain_vs_pallas(nb, np_, nkeys):
+JOIN_EDGES = [
+    # kind, nb, np_, nkeys
+    ("equal", 300, 200, 2), ("equal", 64, 100, 1), ("miss", 500, 300, 2),
+    ("extreme", 400, 300, 2), ("extreme", 257, 129, 1), ("k0", 300, 400, 2),
+    ("random", 1, 50, 2),
+    # a table-size boundary: 2 NB just past 2^21, so 2^22 slots
+    ("random", 2**20 + 3, 256, 1),
+]
+
+
+@pytest.mark.parametrize("kind,nb,np_,nkeys", [
+    pytest.param("random", 128, 256, 1, id="128-256-1"),
+    pytest.param("random", 200, 130, 2, id="200-130-2"),
+    pytest.param("random", 512, 300, 2, id="512-300-2"),
+    *[pytest.param(*e, id="-".join(map(str, e))) for e in JOIN_EDGES]])
+def test_block_join_probe_plain_vs_pallas(kind, nb, np_, nkeys):
     import jax.numpy as jnp
     from repro.kernels.hash_join import block_join_probe as jax_probe
-    bk, bv, pk, pv = join_case(2, nb, np_, nkeys, seed=nb + nkeys)
+    p_ = 1 if nb > 2**16 else 2
+    bk, bv, pk, pv = join_edge_case(kind, p_, nb, np_, nkeys,
+                                    seed=nb + nkeys)
+    # large build sides in few interpret-mode grid steps
+    block_b = 64 if nb <= 2**12 else 2**17
     want = []
-    for p in range(2):
+    for p in range(p_):
         pos, _ = jax_probe(tuple(jnp.asarray(k[p]) for k in bk),
                            jnp.asarray(bv[p]),
                            tuple(jnp.asarray(k[p]) for k in pk),
-                           jnp.asarray(pv[p]), block_p=64, block_b=64,
+                           jnp.asarray(pv[p]), block_p=64, block_b=block_b,
                            interpret=True)
         want.append(np.asarray(pos))
     pos, matched = ref.block_join_probe(tuple(map(T, bk)), T(bv),
@@ -361,17 +425,32 @@ def test_flash_strides_for_the_tma_maps():
 # CUDA kernels vs their plain versions (skip without a card)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("p,nb,np_,nkeys", [(4, 1000, 777, 1),
-                                            (4, 2049, 3000, 2),
-                                            (1, 5, 1, 2)])
-def test_cuda_block_join_probe(cuda, p, nb, np_, nkeys):
-    bk, bv, pk, pv = join_case(p, nb, np_, nkeys, seed=nb)
+@pytest.mark.parametrize("kind,p,nb,np_,nkeys", [
+    pytest.param("random", 4, 1000, 777, 1, id="4-1000-777-1"),
+    pytest.param("random", 4, 2049, 3000, 2, id="4-2049-3000-2"),
+    pytest.param("random", 1, 5, 1, 2, id="1-5-1-2"),
+    *[pytest.param(k, 2, nb, np_, nk, id=f"{k}-2-{nb}-{np_}-{nk}")
+      for k, nb, np_, nk in JOIN_EDGES],
+    pytest.param("equal", 4, 200000, 50000, 2, id="equal-4-200000-50000-2"),
+    pytest.param("random", 2, 0, 300, 2, id="random-2-0-300-2")])
+def test_cuda_block_join_probe(cuda, kind, p, nb, np_, nkeys):
+    bk, bv, pk, pv = join_edge_case(kind, p, nb, np_, nkeys, seed=nb)
     args = (tuple(T(k, cuda) for k in bk), T(bv, cuda),
             tuple(T(k, cuda) for k in pk), T(pv, cuda))
     pos, matched = hash_join.block_join_probe(*args)
     want, wm = ref.block_join_probe(*args)
     torch.cuda.synchronize()
     assert torch.equal(pos, want) and torch.equal(matched, wm)
+    assert torch.equal(hash_join.block_join_probe(*args)[0], pos)
+
+
+def test_join_table_slots():
+    """A power of two >= 2 NB (load factor <= 1/2), from NB alone."""
+    assert [hash_join.table_slots(n) for n in (0, 1, 2, 3, 5)] == \
+        [0, 2, 4, 8, 16]
+    assert hash_join.table_slots(800000) == 2**21
+    assert hash_join.table_slots(2**20) == 2**21
+    assert hash_join.table_slots(2**20 + 3) == 2**22
 
 
 @pytest.mark.parametrize("p,n,s,nc", [(4, 5000, 37, 2), (4, 3001, 4500, 3),
@@ -467,6 +546,11 @@ DECODE_CUDA_CASES = [
     (8, 333, 256, None, 50.0),
     (4, 2080, 128, 16, None),
     (2, 65, 128, 4096, 30.0),
+    (2, 20, 128, None, None),                     # one split per head
+    (4, 700, 64, 100, 20.0),                      # window and softcap
+    # head sizes off the tensor-core kernel (the smoke configs' 16)
+    (2, 100, 16, None, None),
+    (4, 257, 32, 50, None),
 ]
 
 
@@ -485,6 +569,51 @@ def test_cuda_decode_attention(cuda, dtype, g, smax, d, window, softcap):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     again = decode_attention.decode_attention_bhgd(q, k, v, kv_len, **kw)
     assert torch.equal(again, got)                 # fixed combine order
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_attention_many_heads(cuda, dtype):
+    """More heads than the card holds CTAs (at most two splits a head,
+    most heads one), and the fused combine's arrival counters reused
+    across calls."""
+    q, k, v = (T(x, cuda).to(dtype) for x in decode_case(400, 2, 300, 128,
+                                                          seed=13))
+    kv_len = T(np.random.default_rng(13).integers(0, 301, 400)
+               .astype(np.int32), cuda)
+    assert decode_attention.splits_for(400, 300, 32) == 2
+    got = decode_attention.decode_attention_bhgd(q, k, v, kv_len)
+    want = ref.decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    tol = CUDA_ATT_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(decode_attention.decode_attention_bhgd(q, k, v,
+                                                              kv_len), got)
+
+
+def test_cuda_decode_attention_refuses_misaligned(cuda):
+    """16-byte cp.async copies: a cache whose slot stride is not a
+    multiple of 8 bf16 elements raises; nothing falls back."""
+    k = torch.zeros(2, 40, 132, dtype=torch.bfloat16, device=cuda)[..., :128]
+    q = torch.zeros(2, 2, 128, dtype=torch.bfloat16, device=cuda)
+    kv_len = torch.full((2,), 5, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        decode_attention.decode_attention_bhgd(q, k, k, kv_len)
+
+
+def test_decode_tile_and_splits():
+    """Tiles of 32 slots on the tensor cores (bf16, D = 64, 128, 256),
+    else of 8 KB (8..64 slots); the grid allows a head up to twice its
+    share of the card's ~396 resident CTAs, at most one per tile."""
+    assert decode_attention.tile_slots(128, 2) == 32
+    assert decode_attention.tile_slots(256, 2) == 32
+    assert decode_attention.tile_slots(64, 2) == 32
+    assert decode_attention.tile_slots(256, 4) == 8
+    assert decode_attention.tile_slots(64, 4) == 32
+    assert decode_attention.tile_slots(16, 2) == 64
+    assert decode_attention.splits_for(64, 2080, 32) == 13
+    assert decode_attention.splits_for(6, 2080, 32) == 65
+    assert decode_attention.splits_for(400, 300, 32) == 2
+    assert decode_attention.splits_for(6, 20, 32) == 1
 
 
 def test_cuda_decode_attention_reads_cache_in_place(cuda):

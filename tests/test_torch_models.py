@@ -48,7 +48,7 @@ def configs(arch, **over):
 def carried_params(jcfg, pcfg, seed=0):
     jp = jax_model.init_params(jcfg, jax.random.key(seed))
     tree = jax.tree.map(np.asarray, jp)
-    return jp, convert.params_from_numpy(pcfg, tree)
+    return jp, convert.params_from_numpy(pcfg, tree, device="cpu")
 
 
 def prompts(vocab, b=3, s=12, seed=0):
@@ -270,7 +270,8 @@ def test_serve_batch_tokens_match_jax_f32(monkeypatch):
     want = jax_serve.serve_batch("qwen3-1.7b", num_requests=3,
                                  prompt_len=16, gen_len=6, seed=7)
     jp = jax_model.init_params(jcfg, jax.random.key(7))
-    pp = convert.params_from_numpy(pcfg, jax.tree.map(np.asarray, jp))
+    pp = convert.params_from_numpy(pcfg, jax.tree.map(np.asarray, jp),
+                                   device="cpu")
     got = serve.serve_batch("qwen3-1.7b", num_requests=3, prompt_len=16,
                             gen_len=6, seed=7, device="cpu", params=pp,
                             overrides={"compute_dtype": "float32"})
@@ -313,6 +314,15 @@ def test_model_init_defaults_to_cuda(monkeypatch, entry):
     assert getattr(model, entry)(*args, device="meta")
 
 
+def test_params_from_numpy_defaults_to_cuda(monkeypatch):
+    jcfg, pcfg = configs("qwen3-1.7b")
+    tree = jax.tree.map(np.asarray,
+                        jax_model.init_params(jcfg, jax.random.key(0)))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.params_from_numpy(pcfg, tree)
+
+
 @pytest.mark.parametrize("arch,what", [("mamba2-370m", "mamba"),
                                        ("granite-moe-1b-a400m", "moe"),
                                        ("jamba-v0.1-52b", "mamba"),
@@ -335,8 +345,8 @@ def test_params_round_trip_exact(arch):
     jcfg, pcfg = configs(arch)
     tree = jax.tree.map(np.asarray,
                         jax_model.init_params(jcfg, jax.random.key(3)))
-    back = convert.params_to_numpy(pcfg, convert.params_from_numpy(pcfg,
-                                                                   tree))
+    back = convert.params_to_numpy(pcfg, convert.params_from_numpy(
+        pcfg, tree, device="cpu"))
     flat_a = jax.tree_util.tree_leaves_with_path(tree)
     flat_b = jax.tree_util.tree_leaves_with_path(back)
     assert [p for p, _ in flat_a] == [p for p, _ in flat_b]

@@ -124,9 +124,14 @@ def test_chip_smoke_main_path_rehearsal_on_cpu():
     spec = WeatherSpec(num_stations=12, years=(1976, 1999, 2000, 2001, 2003),
                        days_per_year=3)
     ex = Executor(build_database(spec, 4), device="cpu")
-    recs = chip_smoke.main_path(ex, spec)
+    from repro_torch.kernels import ops
+    capture = chip_smoke.Capture(ops)
+    recs = chip_smoke.main_path(ex, spec, capture)
     assert [r["query"] for r in recs] == [f"Q{i}" for i in range(1, 13)]
     assert all(r["rows"] > 0 for r in recs)
+    # the CPU joins take the sorted-hash route, not the kernel entry point
+    assert set(capture.best) == {"segmented_aggregate", "segment_topk"}
+    assert all(r["join_table_mib"] == 0.0 for r in recs)
 
 
 def test_chip_smoke_lm_path_rehearsal_on_cpu():
