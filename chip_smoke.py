@@ -20,7 +20,11 @@ Phases, each printed as it runs:
    from launch to launch; decode in bf16 and float32 with kv_len in
    {0, 1, ragged, Smax}, an Smax that is no multiple of a tile, one
    split, more heads than resident CTAs, and two calls in a row (the
-   fused combine's counters); sum/count with all rows invalid);
+   fused combine's counters); both aggregate kernels also on
+   station-major sorted runs (97 equal ids in a row, across tiles), one
+   hot segment, 0.4 % valid rows in clusters, S = 1, N no multiple of
+   the flag vector or of a warp, and no row valid; sums the same bits
+   on a second launch);
 3. the query path: the NOAA-GHCN-shaped weather collections of the
    paper's §5 at 2000 stations x 50 years x 8 days (4,000,000 /sensors
    readings, P = 4 partitions), Q1–Q12 through ``compile_query`` ->
@@ -31,7 +35,9 @@ Phases, each printed as it runs:
 4. each executor kernel again, on the largest input the query path
    gave it, timed beside its plain version, a PyTorch library call
    where one computes the same function, and its bound
-   (``segmented_sum_count``, which no path launches, on the value
+   (``segmented_aggregate`` also on the input with the most valid rows,
+   its bound counting the flags and the valid rows only;
+   ``segmented_sum_count``, which no path launches, on the value
    column of the largest group-by input);
 5. the LM serving path: qwen3-1.7b at its full published size (28
    layers, d_model 2048, 16/8 heads, vocab 151936; seeded random
@@ -222,9 +228,34 @@ JOIN_EDGES = [
 ]
 
 
-def agg_inputs(p, n, s, nc, seed, dev):
-    """Tenths-valued columns, NaNs masked through ``ok``, invalid rows,
-    segment ids outside [0, S)."""
+def seg_layout(g, p, n, s, kind, dev):
+    """Segment ids and valid flags [P, N] of the aggregate edge cases:
+    ``runs`` station-major runs of 97 rows of one id (a run crosses the
+    kernels' 4096-row tiles), ids cycling over [-1, S], 20 % valid;
+    ``hot`` every valid row in segment 0 but a few ids outside [0, S);
+    ``sparse`` the runs with 0.4 % of rows valid, in clusters of two
+    (Q12's selection); ``none`` the runs with no row valid."""
+    import torch
+    rows = torch.arange(n, device=dev)[None, :]
+    part = torch.arange(p, device=dev)[:, None]
+    segs = ((rows // 97 + 13 * part) % (s + 2) - 1).to(torch.int32)
+    valid = torch.rand((p, n), generator=g, device=dev) < 0.2
+    if kind == "hot":
+        far = torch.rand((p, n), generator=g, device=dev) < 0.02
+        segs = torch.where(far, s, 0).to(torch.int32)
+        valid = torch.rand((p, n), generator=g, device=dev) < 0.9
+    elif kind == "sparse":
+        valid = (rows + 7 * part) % 500 < 2
+    elif kind == "none":
+        valid = torch.zeros((p, n), dtype=torch.bool, device=dev)
+    elif kind != "runs":
+        raise ValueError(kind)
+    return segs, valid
+
+
+def agg_inputs(p, n, s, nc, seed, dev, kind="random"):
+    """Tenths-valued columns, NaNs masked through ``ok``; ``random``:
+    invalid rows, segment ids outside [0, S); else ``seg_layout``."""
     import torch
     g = _gen(seed, dev)
     vals = torch.randint(-400, 400, (p, n, nc), generator=g,
@@ -232,6 +263,8 @@ def agg_inputs(p, n, s, nc, seed, dev):
     vals[torch.rand((p, n, nc), generator=g, device=dev) < 0.05] = float("nan")
     ok = (torch.rand((p, n, nc), generator=g, device=dev) > 0.1) \
         & ~torch.isnan(vals)
+    if kind != "random":
+        return (vals, ok) + seg_layout(g, p, n, s, kind, dev) + (s,)
     segs = torch.randint(-1, s + 2, (p, n), generator=g, device=dev,
                          dtype=torch.int32)
     valid = torch.rand((p, n), generator=g, device=dev) > 0.2
@@ -352,8 +385,25 @@ DECODE_EDGES = [
     (6, 2, 100, 16, None, None),     # bf16 off the tensor-core kernel
     (6, 4, 257, 32, 50, None),
 ]
+AGG_EDGES = [
+    # P, N, S, C, kind: uniform ids (some outside [0, S)); station-major
+    # runs with N no multiple of 16 (the flag vectors) and runs across
+    # tiles; one hot segment; Q12-like 0.4 % valid; S = 1; N below a warp;
+    # no row valid; runs at a large S (the global accumulator); C = 5 (the
+    # runtime column count)
+    (4, 5000, 37, 2, "random"), (4, 3001, 4500, 3, "random"),
+    (2, 700, 9000, 4, "random"), (3, 999, 16, 0, "random"),
+    (4, 300000, 2000, 1, "random"),
+    (4, 100003, 2000, 3, "runs"), (2, 50000, 64, 2, "hot"),
+    (4, 200000, 2000, 3, "sparse"), (2, 9000, 1, 1, "runs"),
+    (3, 33, 5, 4, "runs"), (3, 5000, 37, 2, "none"),
+    (2, 300000, 9000, 4, "runs"), (2, 3000, 50, 5, "random")]
+# P, N, S, valid share (``random`` ids) or a ``seg_layout`` kind
 SUM_COUNT_EDGES = [(4, 5000, 37, 0.8), (2, 3001, 9000, 0.8),
-                   (3, 999, 4096, 0.0), (4, 300000, 2000, 0.8)]
+                   (3, 999, 4096, 0.0), (4, 300000, 2000, 0.8),
+                   (4, 100003, 2000, "runs"), (2, 50000, 64, "hot"),
+                   (4, 200000, 2000, "sparse"), (2, 9000, 1, "runs"),
+                   (3, 33, 5, "runs"), (3, 5000, 37, "none")]
 
 
 def check_flash(q, k, v, kw) -> float:
@@ -427,9 +477,12 @@ def attention_edge_checks(dev, errs: dict) -> None:
         g = _gen(SEED + 90 + i, dev)
         vals = torch.randint(-400, 400, (p, n), generator=g,
                              device=dev).float() / 10
-        segs = torch.randint(-3, s + 3, (p, n), generator=g, device=dev,
-                             dtype=torch.int32)
-        valid = torch.rand((p, n), generator=g, device=dev) < share
+        if isinstance(share, str):
+            segs, valid = seg_layout(g, p, n, s, share, dev)
+        else:
+            segs = torch.randint(-3, s + 3, (p, n), generator=g, device=dev,
+                                 dtype=torch.int32)
+            valid = torch.rand((p, n), generator=g, device=dev) < share
         e = check_sum_count(vals, segs, valid, s)
         errs["segmented_sum_count"] = max(errs["segmented_sum_count"], e)
 
@@ -442,10 +495,8 @@ def edge_checks(dev) -> dict[str, float]:
     for i, (kind, p, nb, np_, nk) in enumerate(JOIN_EDGES):
         e = check_join(join_edge_inputs(kind, p, nb, np_, nk, SEED + i, dev))
         errs["block_join_probe"] = max(errs["block_join_probe"], e)
-    for i, (p, n, s, nc) in enumerate([(4, 5000, 37, 2), (4, 3001, 4500, 3),
-                                       (2, 700, 9000, 4), (3, 999, 16, 0),
-                                       (4, 300000, 2000, 1)]):
-        e = check_agg(agg_inputs(p, n, s, nc, SEED + 10 + i, dev))
+    for i, (p, n, s, nc, kind) in enumerate(AGG_EDGES):
+        e = check_agg(agg_inputs(p, n, s, nc, SEED + 10 + i, dev, kind))
         errs["segmented_aggregate"] = max(errs["segmented_aggregate"], e)
     # the last three span several sorted chunks (the merge runs)
     for i, (p, n, cap, fk, none_valid) in enumerate([
@@ -570,6 +621,7 @@ class Capture:
         self.saved = {}
         self.best: dict[str, tuple] = {}
         self.join_builds: list[tuple] = []   # (P, NB) of each join call
+        self.agg_calls: list[tuple] = []     # every aggregate call's args
 
     def _wrap(self, attr, kernel, work):
         fn = getattr(self.ops, attr)
@@ -581,6 +633,8 @@ class Capture:
                 self.best[kernel] = (w, args)
             if kernel == "block_join_probe":
                 self.join_builds.append(tuple(args[1].shape))
+            if kernel == "segmented_aggregate":
+                self.agg_calls.append(args)
             return fn(*args, **kw)
 
         setattr(self.ops, attr, wrapped)
@@ -758,12 +812,43 @@ def sum_count_library(vals, segs, valid, s):
     return fn
 
 
-def main_shape_timings(best: dict, launches: dict, edge_errs: dict) -> list:
+def agg_record(args, launches: dict, edge_errs: dict) -> dict:
+    """``segmented_aggregate`` on one main-path input. The bound counts
+    the bytes the work needs: every valid flag, the valid rows' segment
+    ids, values and ok flags, and the outputs; the shape record keeps
+    the earlier bound (every input read once) as ``bound_all_inputs_ms``
+    and the share of valid rows."""
+    from repro_torch.kernels import ref, seg_aggregate
+    vals, ok, segs, valid, s = args
+    err = check_agg(args)
+    p, n, nc = vals.shape
+    nvalid = int(valid.sum())
+    out_bytes = p * s * 4 * (1 + 3 * nc)
+    nbytes = valid.numel() + nvalid * (4 + 5 * nc) + out_bytes
+    every = vals.numel() * 4 + ok.numel() + segs.numel() * 4 \
+        + valid.numel() + out_bytes
+    shape = {"P": p, "N": n, "S": s, "C": nc,
+             "valid_share": nvalid / max(valid.numel(), 1),
+             "bound_all_inputs_ms": every / HBM_BYTES_PER_S * 1e3}
+    return kernel_record(
+        "segmented_aggregate", launches,
+        max(err, edge_errs["segmented_aggregate"]),
+        lambda: seg_aggregate.segmented_aggregate(*args),
+        lambda: ref.segmented_aggregate(*args), agg_library(*args), nbytes,
+        0.0, "float32", shape)
+
+
+def main_shape_timings(best: dict, agg_calls: list, launches: dict,
+                       edge_errs: dict) -> list:
     """Phase 4: each executor kernel on the largest input the query path
     gave it (``segmented_sum_count``: the first value column of the
     largest aggregate input, rows not ``ok`` invalid): parity with the
-    plain version, device times, and the bound."""
+    plain version, device times, and the bound. ``segmented_aggregate``
+    also on the input with the most valid rows (logged; the returned
+    record is the largest input's)."""
     from repro_torch.kernels import hash_join, ref, seg_aggregate, seg_topk
+    require(agg_calls, "the query path never reached segmented_aggregate")
+    dense = max(agg_calls, key=lambda a: (int(a[3].sum()), a[0].shape[2]))
     out = []
     for name in ("block_join_probe", "segmented_aggregate", "segment_topk",
                  "segmented_sum_count"):
@@ -771,6 +856,12 @@ def main_shape_timings(best: dict, launches: dict, edge_errs: dict) -> list:
         require(src in best, f"the query path never reached {src}")
         args = best[src][1]
         lib = None
+        if name == "segmented_aggregate":
+            log("kernel segmented_aggregate at the densest main-path input:")
+            agg_record(dense, launches, edge_errs)
+            log("kernel segmented_aggregate at the largest main-path input:")
+            out.append(agg_record(args, launches, edge_errs))
+            continue
         if name == "block_join_probe":
             bk, bv, pk, pv = args
             err = check_join((tuple(bk), bv, tuple(pk), pv))
@@ -787,21 +878,6 @@ def main_shape_timings(best: dict, launches: dict, edge_errs: dict) -> list:
                 + pv.numel() + pv.numel() * 5
             shape = {"P": pv.shape[0], "NP": pv.shape[1], "NB": bv.shape[1],
                      "keys": len(bk)}
-        elif name == "segmented_aggregate":
-            vals, ok, segs, valid, s = args
-            err = check_agg(args)
-
-            def run():
-                return seg_aggregate.segmented_aggregate(*args)
-
-            def plain():
-                return ref.segmented_aggregate(*args)
-
-            lib = agg_library(*args)
-            p, n, nc = vals.shape
-            nbytes = vals.numel() * 4 + ok.numel() + segs.numel() * 4 \
-                + valid.numel() + p * s * 4 * (1 + 3 * nc)
-            shape = {"P": p, "N": n, "S": s, "C": nc}
         elif name == "segment_topk":
             keys, cap = args
             err = check_topk(keys, cap)
@@ -831,8 +907,13 @@ def main_shape_timings(best: dict, launches: dict, edge_errs: dict) -> list:
 
             lib = sum_count_library(*sc)
             p, n = sc[0].shape
-            nbytes = p * n * 9 + p * s * 8
-            shape = {"P": p, "N": n, "S": s}
+            nvalid = int(sc[2].sum())
+            # the flags, the valid rows' ids and values, the outputs
+            nbytes = p * n + nvalid * 8 + p * s * 8
+            shape = {"P": p, "N": n, "S": s,
+                     "valid_share": nvalid / max(p * n, 1),
+                     "bound_all_inputs_ms":
+                         (p * n * 9 + p * s * 8) / HBM_BYTES_PER_S * 1e3}
         out.append(kernel_record(name, launches, max(err, edge_errs[name]),
                                  run, plain, lib, nbytes, 0.0, "float32",
                                  shape))
@@ -1066,6 +1147,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import Executor
+    from repro_torch.core.queries import GROUPED
     from repro_torch.data.weather import WeatherSpec, build_database
     from repro_torch.kernels import _build, decode_attention, flash_attention
     from repro_torch.kernels import hash_join, ops, seg_aggregate, seg_topk
@@ -1119,10 +1201,15 @@ def main() -> int:
     log(f"query path launches {json.dumps(launches)}")
     require(all(launches[k] > 0 for k in query_kernels),
             f"a kernel of the query path never launched: {launches}")
+    # one launch per group-by query run: cold and warm on the kernel route
+    require(launches["segmented_aggregate"] == 2 * len(GROUPED),
+            f"segmented_aggregate launched {launches['segmented_aggregate']}"
+            f" times, not once per run of {GROUPED}")
     require(all(launches[k] == 0 for k in lm_kernels),
             f"the query path launched an attention kernel: {launches}")
     records = {r["name"]: r for r in
-               main_shape_timings(capture.best, launches, edge_errs)}
+               main_shape_timings(capture.best, capture.agg_calls,
+                                  launches, edge_errs)}
     del ex, db, capture
     torch.cuda.empty_cache()
 

@@ -30,14 +30,14 @@ def _normal(shape, gen, device) -> torch.Tensor:
                        dtype=torch.float32)
 
 
-def dense_init(gen, d_in: int, d_out: int, dtype=torch.float32,
-               device="cpu") -> torch.Tensor:
+def dense_init(gen, d_in: int, d_out: int, dtype: torch.dtype,
+               device) -> torch.Tensor:
     scale = 1.0 / math.sqrt(d_in)
     return (_normal((d_in, d_out), gen, device) * scale).to(dtype)
 
 
-def embed_init(gen, vocab: int, d: int, dtype=torch.float32,
-               device="cpu") -> torch.Tensor:
+def embed_init(gen, vocab: int, d: int, dtype: torch.dtype,
+               device) -> torch.Tensor:
     return (_normal((vocab, d), gen, device) * 0.02).to(dtype)
 
 
@@ -45,7 +45,7 @@ def embed_init(gen, vocab: int, d: int, dtype=torch.float32,
 # RMSNorm
 # ---------------------------------------------------------------------------
 
-def rmsnorm_init(d: int, dtype=torch.float32, device="cpu") -> Params:
+def rmsnorm_init(d: int, dtype: torch.dtype, device) -> Params:
     return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
 
 
@@ -63,7 +63,7 @@ def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-6
 # Rotary position embeddings
 # ---------------------------------------------------------------------------
 
-def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     """Inverse frequencies, shape (head_dim // 2,)."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
@@ -88,8 +88,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # Gated MLP (SwiGLU / GeGLU)
 # ---------------------------------------------------------------------------
 
-def mlp_init(gen, d_model: int, d_ff: int, dtype=torch.float32,
-             device="cpu") -> Params:
+def mlp_init(gen, d_model: int, d_ff: int, dtype: torch.dtype,
+             device) -> Params:
     return {
         "wi_gate": dense_init(gen, d_model, d_ff, dtype, device),
         "wi_up": dense_init(gen, d_model, d_ff, dtype, device),

@@ -103,15 +103,47 @@ def join_edge_case(kind, p, nb, np_, nkeys, seed):
             tuple(pk), rng.random((p, np_)) > 0.15)
 
 
-def agg_case(p, n, s, nc, seed):
+def seg_layout(rng, p, n, s, kind, share=0.8):
+    """Segment ids and valid flags [P, N] of the aggregate edge cases:
+    ``random`` uniform ids in [-1, S + 1] (some outside [0, S)), rows
+    valid at ``share``; ``runs`` station-major runs of 97 rows of one id
+    (a run crosses the kernels' 4096-row tiles), ids cycling over
+    [-1, S], 20 % valid; ``hot`` every valid row in segment 0 but a few
+    ids outside [0, S); ``sparse`` the runs with 0.4 % of rows valid, in
+    clusters of two (Q12's selection); ``none`` the runs with no row
+    valid."""
+    if kind == "random":
+        segs = rng.integers(-1, s + 2, (p, n)).astype(np.int32)
+        return segs, rng.random((p, n)) < share
+    rows = np.arange(n)[None, :]
+    part = np.arange(p)[:, None]
+    segs = ((rows // 97 + 13 * part) % (s + 2) - 1).astype(np.int32)
+    valid = rng.random((p, n)) < 0.2
+    if kind == "hot":
+        segs = np.where(rng.random((p, n)) < 0.02, s, 0).astype(np.int32)
+        valid = rng.random((p, n)) < 0.9
+    elif kind == "sparse":
+        valid = (rows + 7 * part) % 500 < 2
+    elif kind == "none":
+        valid = np.zeros((p, n), bool)
+    elif kind != "runs":
+        raise ValueError(kind)
+    return segs, valid
+
+
+def agg_case(p, n, s, nc, seed, kind="random"):
     """Weather-like values in tenths, NaNs masked out through ``ok``,
-    invalid rows, segment ids outside [0, S)."""
+    then ``seg_layout``'s ids and flags (``random``: invalid rows,
+    segment ids outside [0, S))."""
     rng = np.random.default_rng(seed)
     vals = (rng.integers(-400, 400, (p, n, nc)) / 10.0).astype(np.float32)
     vals[rng.random((p, n, nc)) < 0.05] = np.nan
     ok = (rng.random((p, n, nc)) > 0.1) & ~np.isnan(vals)
-    segs = rng.integers(-1, s + 2, (p, n)).astype(np.int32)
-    valid = rng.random((p, n)) > 0.2
+    if kind == "random":
+        segs = rng.integers(-1, s + 2, (p, n)).astype(np.int32)
+        valid = rng.random((p, n)) > 0.2
+    else:
+        segs, valid = seg_layout(rng, p, n, s, kind)
     return vals, ok, segs, valid
 
 
@@ -213,12 +245,19 @@ def test_block_join_probe_plain_vs_pallas(kind, nb, np_, nkeys):
     np.testing.assert_array_equal(matched.numpy(), np.stack(want) >= 0)
 
 
-@pytest.mark.parametrize("n,s,nc,bn", [(512, 16, 2, 128), (256, 32, 1, 256),
-                                       (384, 7, 3, 128), (256, 8, 0, 128)])
-def test_segmented_aggregate_plain_vs_pallas(n, s, nc, bn):
+@pytest.mark.parametrize("n,s,nc,bn,kind", [
+    pytest.param(512, 16, 2, 128, "random", id="512-16-2-128"),
+    pytest.param(256, 32, 1, 256, "random", id="256-32-1-256"),
+    pytest.param(384, 7, 3, 128, "random", id="384-7-3-128"),
+    pytest.param(256, 8, 0, 128, "random", id="256-8-0-128"),
+    # sorted runs, one hot segment, 0.4 % valid in clusters
+    pytest.param(512, 16, 2, 128, "runs", id="runs-512-16-2-128"),
+    pytest.param(384, 7, 3, 128, "hot", id="hot-384-7-3-128"),
+    pytest.param(1024, 8, 1, 256, "sparse", id="sparse-1024-8-1-256")])
+def test_segmented_aggregate_plain_vs_pallas(n, s, nc, bn, kind):
     import jax.numpy as jnp
     from repro.kernels.seg_aggregate import segmented_aggregate as jax_agg
-    vals, ok, segs, valid = agg_case(2, n, s, nc, seed=n + s + nc)
+    vals, ok, segs, valid = agg_case(2, n, s, nc, seed=n + s + nc, kind=kind)
     jc = max(nc, 1)     # the Pallas kernel needs a column; C=0 uses one
     want = [[] for _ in range(4)]
     for p in range(2):
@@ -254,14 +293,22 @@ def test_segment_topk_plain_vs_pallas(n, cap, float_key):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("n,s", [(512, 32), (1024, 7)])
-def test_segmented_sum_count_plain_vs_pallas(n, s):
+@pytest.mark.parametrize("n,s,kind", [
+    pytest.param(512, 32, "random", id="512-32"),
+    pytest.param(1024, 7, "random", id="1024-7"),
+    pytest.param(1024, 16, "runs", id="runs-1024-16"),
+    pytest.param(512, 8, "hot", id="hot-512-8"),
+    pytest.param(1024, 8, "sparse", id="sparse-1024-8")])
+def test_segmented_sum_count_plain_vs_pallas(n, s, kind):
     import jax.numpy as jnp
     from repro.kernels.seg_aggregate import segmented_sum_count as jax_ssc
     rng = np.random.default_rng(n + s)
     vals = rng.normal(size=(2, n)).astype(np.float32)
-    segs = rng.integers(-1, s + 2, (2, n)).astype(np.int32)
-    valid = rng.random((2, n)) > 0.25
+    if kind == "random":
+        segs = rng.integers(-1, s + 2, (2, n)).astype(np.int32)
+        valid = rng.random((2, n)) > 0.25
+    else:
+        segs, valid = seg_layout(rng, 2, n, s, kind)
     want = [jax_ssc(jnp.asarray(vals[p]), jnp.asarray(segs[p]),
                     jnp.asarray(valid[p]), s, block_n=128, interpret=True)
             for p in range(2)]
@@ -453,17 +500,41 @@ def test_join_table_slots():
     assert hash_join.table_slots(2**20 + 3) == 2**22
 
 
-@pytest.mark.parametrize("p,n,s,nc", [(4, 5000, 37, 2), (4, 3001, 4500, 3),
-                                      (2, 700, 9000, 4), (3, 999, 16, 0)])
-def test_cuda_segmented_aggregate(cuda, p, n, s, nc):
-    vals, ok, segs, valid = agg_case(p, n, s, nc, seed=n + s)
+AGG_EDGES = [
+    # kind, P, N, S, C: station-major runs with N no multiple of 16 (the
+    # flag vectors) and runs across tiles; one hot segment; Q12-like 0.4 %
+    # valid; S = 1; N below a warp; no row valid; runs at a large S (the
+    # global accumulator); C = 5 (the runtime column count)
+    ("runs", 4, 100003, 2000, 3), ("hot", 2, 50000, 64, 2),
+    ("sparse", 4, 200000, 2000, 3), ("runs", 2, 9000, 1, 1),
+    ("runs", 3, 33, 5, 4), ("none", 3, 5000, 37, 2),
+    ("runs", 2, 300000, 9000, 4), ("random", 2, 3000, 50, 5)]
+
+
+@pytest.mark.parametrize("p,n,s,nc,kind", [
+    pytest.param(4, 5000, 37, 2, "random", id="4-5000-37-2"),
+    pytest.param(4, 3001, 4500, 3, "random", id="4-3001-4500-3"),
+    pytest.param(2, 700, 9000, 4, "random", id="2-700-9000-4"),
+    pytest.param(3, 999, 16, 0, "random", id="3-999-16-0"),
+    *[pytest.param(p, n, s, nc, k, id=f"{k}-{p}-{n}-{s}-{nc}")
+      for k, p, n, s, nc in AGG_EDGES]])
+def test_cuda_segmented_aggregate(cuda, p, n, s, nc, kind):
+    vals, ok, segs, valid = agg_case(p, n, s, nc, seed=n + s, kind=kind)
     args = (T(vals, cuda), T(ok, cuda), T(segs, cuda), T(valid, cuda), s)
     got = seg_aggregate.segmented_aggregate(*args)
     want = ref.segmented_aggregate(*args)
+    mag = ref.segmented_aggregate(args[0].abs(), *args[1:])[1]
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0])
-    torch.testing.assert_close(got[1], want[1], rtol=SUM_RTOL, atol=1e-4,
-                               equal_nan=True)
+    # every sum within SUM_RTOL of the sum of its values' magnitudes (the
+    # float-sum error bound, as chip_smoke.check_agg holds it); the
+    # uniform-id inputs are also held to rtol on the sum itself. The hot
+    # segment's sum of ~45000 signed values cancels to ~1/1000 of their
+    # magnitudes, where two summation orders differ by more than that.
+    assert bool(((got[1] - want[1]).abs() <= SUM_RTOL * mag + 1e-30).all())
+    if kind == "random":
+        torch.testing.assert_close(got[1], want[1], rtol=SUM_RTOL, atol=1e-4,
+                                   equal_nan=True)
     assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
     again = seg_aggregate.segmented_aggregate(*args)
     assert torch.equal(again[1], got[1])          # deterministic sums
@@ -600,6 +671,50 @@ def test_cuda_decode_attention_refuses_misaligned(cuda):
         decode_attention.decode_attention_bhgd(q, k, k, kv_len)
 
 
+@pytest.mark.parametrize("p,n,s,nc,full,resident,want", [
+    # Q12's shape: the accumulator in shared memory, two CTAs an SM, one
+    # wave of 248 CTAs of four tiles each
+    (4, 10**6, 2000, 3, True, None, (62, 16384, True, 2)),
+    # its sum/count input: eight small CTAs an SM, one tile each
+    (4, 10**6, 2000, 1, False, None, (245, 4096, True, 8)),
+    # S = 4500, C = 3: a 180 KB accumulator, one CTA an SM
+    (4, 3001, 4500, 3, True, None, (1, 4096, True, 1)),
+    # S = 9000, C = 4: 468 KB, kept in global memory; a chunk covers at
+    # least as many rows as its accumulator has slots
+    (2, 700, 9000, 4, True, None, (1, 4096, False, 8)),
+    (1, 2 * 10**6, 9000, 4, True, None, (16, 126976, False, 8)),
+    (3, 0, 16, 0, True, None, (1, 4096, True, 8)),
+    # the card's own count of resident CTAs (registers included) caps the
+    # wave: Q9's shape at three CTAs an SM instead of five
+    (4, 10**6, 2000, 1, True, None, (123, 8192, True, 5)),
+    (4, 10**6, 2000, 1, True, 3, (82, 12288, True, 3))])
+def test_seg_aggregate_plan(p, n, s, nc, full, resident, want):
+    """The launch plan from the shapes alone: chunks of whole 4096-row
+    tiles covering N, about one resident wave of the 132 SMs, and the
+    shared memory the kernel's layout asks for."""
+    pl = seg_aggregate.plan_for(p, n, s, nc, full, sms=132,
+                                resident=resident)
+    assert (pl.chunks, pl.chunk_rows, pl.smem_acc, pl.ctas_per_sm) == want
+    assert pl.chunk_rows % seg_aggregate.TILE_ROWS == 0
+    assert (pl.chunks - 1) * pl.chunk_rows < max(n, 1) <= \
+        pl.chunks * pl.chunk_rows
+    assert pl.chunks * p <= 132 * pl.ctas_per_sm + p
+    width = s * (1 + (3 if full else 1) * nc)
+    row_bytes = 4 + 4 * nc + (nc if full else 0)
+    assert pl.width == width and pl.scratch_floats == p * pl.chunks * width
+    assert pl.smem_bytes == pl.list_cap * row_bytes \
+        + (-(-4 * width // 16) * 16 if pl.smem_acc else 0)
+    assert pl.smem_bytes <= 232448 - seg_aggregate._STATIC_SMEM
+
+
+def test_seg_aggregate_plan_wide_columns():
+    """Many value columns shrink the row list; too many raise."""
+    pl = seg_aggregate.plan_for(2, 5000, 10, 64, True)
+    assert not pl.smem_acc and 32 <= pl.list_cap < seg_aggregate.LIST_CAP
+    with pytest.raises(ValueError, match="columns"):
+        seg_aggregate.plan_for(2, 5000, 10, 20000, True)
+
+
 def test_decode_tile_and_splits():
     """Tiles of 32 slots on the tensor cores (bf16, D = 64, 128, 256),
     else of 8 KB (8..64 slots); the grid allows a head up to twice its
@@ -634,15 +749,28 @@ def test_cuda_decode_attention_reads_cache_in_place(cuda):
                                atol=2e-2, rtol=2e-2)
 
 
-@pytest.mark.parametrize("p,n,s,valid_share", [(4, 5000, 37, 0.8),
-                                               (2, 3001, 9000, 0.8),
-                                               (3, 999, 4096, 0.0),
-                                               (4, 300000, 2000, 0.8)])
-def test_cuda_segmented_sum_count(cuda, p, n, s, valid_share):
+SUM_COUNT_EDGES = [
+    # kind, P, N, S (as AGG_EDGES)
+    ("runs", 4, 100003, 2000), ("hot", 2, 50000, 64),
+    ("sparse", 4, 200000, 2000), ("runs", 2, 9000, 1), ("runs", 3, 33, 5),
+    ("none", 3, 5000, 37)]
+
+
+@pytest.mark.parametrize("p,n,s,valid_share,kind", [
+    pytest.param(4, 5000, 37, 0.8, "random", id="4-5000-37-0.8"),
+    pytest.param(2, 3001, 9000, 0.8, "random", id="2-3001-9000-0.8"),
+    pytest.param(3, 999, 4096, 0.0, "random", id="3-999-4096-0.0"),
+    pytest.param(4, 300000, 2000, 0.8, "random", id="4-300000-2000-0.8"),
+    *[pytest.param(p, n, s, 0.0, k, id=f"{k}-{p}-{n}-{s}")
+      for k, p, n, s in SUM_COUNT_EDGES]])
+def test_cuda_segmented_sum_count(cuda, p, n, s, valid_share, kind):
     rng = np.random.default_rng(n + s)
     vals = (rng.integers(-400, 400, (p, n)) / 10.0).astype(np.float32)
-    segs = rng.integers(-3, s + 3, (p, n)).astype(np.int32)
-    valid = rng.random((p, n)) < valid_share
+    if kind == "random":
+        segs = rng.integers(-3, s + 3, (p, n)).astype(np.int32)
+        valid = rng.random((p, n)) < valid_share
+    else:
+        segs, valid = seg_layout(rng, p, n, s, kind)
     args = (T(vals, cuda), T(segs, cuda), T(valid, cuda), s)
     sums, counts = seg_aggregate.segmented_sum_count(*args)
     wsums, wcounts = ref.segmented_sum_count(*args)

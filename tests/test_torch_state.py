@@ -131,7 +131,35 @@ def test_chip_smoke_main_path_rehearsal_on_cpu():
     assert all(r["rows"] > 0 for r in recs)
     # the CPU joins take the sorted-hash route, not the kernel entry point
     assert set(capture.best) == {"segmented_aggregate", "segment_topk"}
+    assert len(capture.agg_calls) == 4          # Q9-Q12, phase 4's inputs
     assert all(r["join_table_mib"] == 0.0 for r in recs)
+
+
+@pytest.mark.parametrize("kind,share", [("runs", (0.1, 0.3)),
+                                        ("hot", (0.8, 1.0)),
+                                        ("sparse", (0.003, 0.005)),
+                                        ("none", (0.0, 0.0))])
+def test_chip_smoke_aggregate_edge_inputs_on_cpu(kind, share):
+    """chip_smoke.py's aggregate edge inputs (phase 2) on the CPU: the
+    station-major runs cross the 4096-row tiles, the hot case puts every
+    valid row of [0, S) in segment 0, the sparse case keeps 0.4 % of the
+    rows in clusters; the plain version accepts them."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from repro_torch.kernels import ref
+    vals, ok, segs, valid, s = chip_smoke.agg_inputs(2, 10007, 50, 3, 1,
+                                                     "cpu", kind)
+    assert vals.shape == (2, 10007, 3) and segs.dtype == torch.int32
+    lo, hi = share
+    assert lo <= float(valid.float().mean()) <= hi
+    kept = segs[valid & (segs >= 0) & (segs < s)]
+    if kind == "hot":
+        assert kept.numel() > 0 and bool((kept == 0).all())
+    if kind == "runs":
+        # 97-row runs of one id: a run spans the tile boundary at 4096
+        assert bool((segs[:, 4095] == segs[:, 4096]).all())
+    counts = ref.segmented_aggregate(vals, ok, segs, valid, s)[0]
+    assert int(counts.sum()) == kept.numel()
 
 
 def test_chip_smoke_lm_path_rehearsal_on_cpu():
