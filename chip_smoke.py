@@ -16,7 +16,7 @@ Phases, each printed as it runs:
    cap == N, tie-heavy keys, N over several sorted chunks (the top-k
    merge), all rows invalid; attention causal and not, windows 4096,
    100 and 16, softcap 50, GQA g in {1, 2, 8}, ragged Sq/Sk and Sq < Sk,
-   head_dim 64/128/256 at several tiles, bf16 and float32, the same bits
+   head_dim 64/80/128/256 at several tiles, bf16 and float32, the same bits
    from launch to launch; decode in bf16 and float32 with kv_len in
    {0, 1, ragged, Smax}, an Smax that is no multiple of a tile, one
    split, more heads than resident CTAs, and two calls in a row (the
@@ -50,8 +50,25 @@ Phases, each printed as it runs:
    must agree within LOGIT_ATOL. Then the two attention kernels, as in
    phase 4, on the inputs the serve gave them.
 
+6. the service path, on phase 3's database once phase 3's executor is
+   freed: Q1–Q12 through ``QueryService(db).execute`` cold and warm,
+   against the numpy reference and against a service whose base config
+   pins the plain routes; the 64 constant-variants of
+   ``workload.make_workload`` through ``execute`` (one compile per
+   template, each variant equal to an executor run of its baked plan)
+   and through ``execute_batch`` (one batch per template, equal to the
+   per-request results); Q8, Q10 and Q11 regrown from caps of 1;
+   64 requests of multi-tenant traffic through ``submit``/``drain``,
+   each equal to a direct ``execute``; ``explain(Q8, profile=True)``
+   with the same operator rows on both routes. The three query kernels
+   must launch on this path and the attention kernels not.
+
 Phase 3's ``query`` lines also give each query's peak device memory and
-the join kernel's hash-table scratch (``join_table_mib``).
+the join kernel's hash-table scratch (``join_table_mib``); phase 6's
+``service`` lines give cold and warm ms, caps, retries, compiles, peak
+memory and the bytes copied to the host. Phase 4 also times the flash
+kernel at hubert-xlarge's attention shape (16 heads, head_dim 80,
+2048 frames, not causal, bf16) beside ``scaled_dot_product_attention``.
 
 Then one JSON line with the six kernels' numbers, the card's name and
 power limit, and the last line ``{"ok": true, "device": {...}}``. Any
@@ -369,7 +386,17 @@ FLASH_EDGES = [
     (True, 100, None, 2, 700, 700, 128, "bfloat16"),      # window across tiles
     (True, None, None, 1, 640, 640, 64, "bfloat16"),
     (True, None, None, 2, 600, 600, 256, "bfloat16"),
+    # head_dim 80 (hubert-xlarge): the 128-wide tiling, zero-padded
+    (False, None, None, 1, 256, 256, 80, "bfloat16"),
+    (False, None, None, 1, 256, 256, 80, "float32"),
+    (True, 100, 50.0, 2, 700, 700, 80, "bfloat16"),
+    (True, 100, 50.0, 2, 300, 300, 80, "float32"),
+    (False, None, None, 2, 100, 77, 80, "bfloat16"),     # ragged Sq, Sk
+    (True, None, None, 1, 100, 300, 80, "float32"),      # Sq < Sk
 ]
+# hubert-xlarge's attention (configs/hubert_xlarge.py): 16 heads of 80,
+# not causal; 2048 frames of one utterance
+HUBERT_FLASH = dict(bh=16, s=2048, d=80)
 DECODE_EDGES = [
     # heads, g, smax, d, window, softcap; each in bf16 and float32. Six
     # heads with kv_len 1, 2, ragged, Smax - 1, Smax and 0 (no live slot):
@@ -711,6 +738,221 @@ def main_path(ex, spec, capture=None) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the service path
+# ---------------------------------------------------------------------------
+
+# caps of 1 (2 groups) regrow by x4 a rung: the scan cap needs nine rungs
+# to pass a million rows per partition, and a join or group cap may start
+# growing only once the scan feeds it, so the default of 8 retries (sized
+# for presized first caps) is too few from here
+TINY_CAPS = dict(scan_cap=1, join_bucket=1, join_cap=1, group_cap=2)
+TINY_RETRIES = 24
+
+
+def host_bytes(raw: dict) -> int:
+    """Bytes of a raw-output dict copied to the host."""
+    return sum(a.nbytes for v in raw.values()
+               for a in (v if isinstance(v, tuple) else (v,)))
+
+
+def raw_identical(a: dict, b: dict) -> bool:
+    """Two raw-output dicts of one plan at one config, bit for bit (the
+    arrays are compared whole: decoding 4M slots into rows on the host
+    would take seconds a result)."""
+    import numpy as np
+
+    def parts(v):
+        return v if isinstance(v, tuple) else (v,)
+
+    return set(a) == set(b) and all(
+        len(parts(a[k])) == len(parts(b[k])) and all(
+            x.shape == y.shape and np.array_equal(
+                x, y, equal_nan=x.dtype.kind == "f")
+            for x, y in zip(parts(a[k]), parts(b[k])))
+        for k in a)
+
+
+def rows_agree(name: str, got: list, want: list, what: str) -> None:
+    """Row for row: strings and ints exact, floats within SUM_RTOL."""
+    import numpy as np
+    require(len(got) == len(want),
+            f"{name}: {len(got)} rows vs {len(want)} ({what})")
+    for g, w in zip(got, want):
+        ok = len(g) == len(w) and all(
+            np.isclose(x, y, rtol=SUM_RTOL, atol=0)
+            if isinstance(x, float) and isinstance(y, float) else x == y
+            for x, y in zip(g, w))
+        require(ok, f"{name}: {g} vs {w} ({what})")
+
+
+def profile_rows(prof) -> list:
+    return [(o.index, o.label, o.rows, o.rows_peak) for o in prof.ops]
+
+
+def service_path(db, spec, dev, exec_ms: dict | None = None,
+                 total: int = 64, counters: dict | None = None) -> dict:
+    """Phase 6: the serving tier on ``db``. One service holds the tables
+    at a time: the plain-route service runs first and is freed, then
+    the kernel-route service, the workload service and the regrowth
+    service in turn. ``exec_ms``: phase 3's warm ms per query, printed
+    beside the service's; ``counters``: the query kernels' wrappers,
+    whose launches during each query's cold and warm runs go into its
+    ``service`` line."""
+    import torch
+    from repro_torch.core import ExecConfig, QueryService, compile_query
+    from repro_torch.core.queries import ALL
+    from repro_torch.core.workload import (DEFAULT_TENANTS,
+                                           make_tenant_traffic, make_workload)
+    want = reference_results(spec)
+    on_cuda = dev.type == "cuda"
+
+    def sync():
+        if on_cuda:
+            torch.cuda.synchronize(dev)
+
+    def free():
+        if on_cuda:
+            torch.cuda.empty_cache()
+
+    # the plain routes: raw dicts and Q8's operator rows
+    plain_cfg = ExecConfig(use_kernel_join=False, use_kernel_segments=False)
+    svc = QueryService(db, plain_cfg, device=dev)
+    plain = {name: svc.execute(text).raw for name, text in ALL.items()}
+    plain_prof = profile_rows(svc.explain(ALL["Q8"], profile=True))
+    del svc
+    free()
+
+    # the kernel routes: Q1-Q12 cold and warm
+    svc = QueryService(db, device=dev)
+    records, results = [], {}
+    for name, text in ALL.items():
+        if on_cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        before = svc.stats.snapshot()
+        launched = {k: w.launches for k, w in (counters or {}).items()}
+        sync()
+        t0 = time.perf_counter()
+        svc.execute(text)
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        rs = svc.execute(text)
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        d = svc.stats.diff(before)
+        pq = svc.prepare(text)
+        require(not rs.overflow, f"{name}: the service returned an overflow")
+        raw_agree(name, pq.plan, rs.raw, plain[name])
+        rows = rs.rows()
+        check_reference(name, rows, want[name])
+        results[name] = rows
+        cfg = svc._good_cfg[pq.signature]
+        rec = {"query": name, "rows": len(rows), "cold_ms": cold_ms,
+               "warm_ms": warm_ms, "retries": d.retries,
+               "compiles": d.compiles,
+               "peak_mib": (torch.cuda.max_memory_allocated(dev) / 2**20
+                            if on_cuda else 0.0),
+               "host_bytes": host_bytes(rs.raw),
+               "caps": {k: getattr(cfg, k) for k in
+                        ("scan_cap", "join_cap", "group_cap", "topk_cap")},
+               "launches": {k: w.launches - launched[k]
+                            for k, w in (counters or {}).items()}}
+        if exec_ms is not None:
+            rec["executor_warm_ms"] = exec_ms[name]
+        log("service " + json.dumps(rec))
+        records.append(rec)
+    if exec_ms is not None:
+        q6 = next(r for r in records if r["query"] == "Q6")
+        log(f"service Q6 warm {q6['warm_ms']:.3f} ms through the service, "
+            f"{exec_ms['Q6']:.3f} ms through the bare executor (phase 3); "
+            f"{q6['host_bytes']} bytes to the host")
+    kernel_prof = profile_rows(svc.explain(ALL["Q8"], profile=True))
+    require(kernel_prof == plain_prof and any(r[2] for r in kernel_prof),
+            f"Q8 operator rows differ between routes: {kernel_prof} vs "
+            f"{plain_prof}")
+    log(f"service explain Q8 profile: {len(kernel_prof)} operators, the "
+        "same rows on both routes")
+
+    # the admission runtime: multi-tenant traffic, each ticket equal to
+    # a direct execute
+    stations = [spec.station_id(i) for i in range(spec.num_stations)]
+    years = sorted({y for y, _, _ in spec.dates()})
+    traffic = make_tenant_traffic(DEFAULT_TENANTS, stations, years,
+                                  total=total, seed=SEED)
+    before = svc.stats.snapshot()
+    t0 = time.perf_counter()
+    for at, tenant, template, text in traffic:
+        svc.submit(text, tenant=tenant, at=at, template=template)
+    tickets = svc.drain()
+    drain_s = time.perf_counter() - t0
+    d = svc.stats.diff(before)
+    require(len(tickets) == len(traffic), "the runtime lost tickets")
+    for t, (_, _, template, text) in zip(tickets, traffic):
+        require(t.error is None, f"runtime {template}: {t.error!r}")
+        require(raw_identical(t.result.raw, svc.execute(text).raw),
+                f"runtime {template}: the ticket differs from execute")
+    log("service runtime " + json.dumps(
+        {"requests": len(traffic), "drain_s": drain_s,
+         "batches": d.batches, "batched_requests": d.batched_requests,
+         "compiles": d.compiles, "tenants": sorted({t.tenant
+                                                    for t in tickets})}))
+    del svc, tickets
+    free()
+
+    # prepared constant-variants: one compile per template, each equal to
+    # the executor's run of its baked plan; then the same requests batched
+    wl = make_workload(stations, years, total=total)
+    texts = [text for _, text in wl]
+    templates = {t for t, _ in wl}
+    svc = QueryService(db, device=dev)
+    t0 = time.perf_counter()
+    singles = [svc.execute(text) for text in texts]
+    exec_s = time.perf_counter() - t0
+    compiles = svc.stats.compiles
+    require(compiles == len(templates),
+            f"{compiles} compiles for {len(templates)} templates")
+    for (template, text), rs in zip(wl, singles):
+        pq = svc.prepare(text)
+        require(not rs.overflow, f"{template}: overflow")
+        raw_agree(template, pq.plan, rs.raw, svc.executor.run(
+            compile_query(text), config=svc._good_cfg[pq.signature]).raw)
+    before = svc.stats.snapshot()
+    t0 = time.perf_counter()
+    batched = svc.execute_batch(texts)
+    batch_s = time.perf_counter() - t0
+    d = svc.stats.diff(before)
+    require(d.batches == len(templates),
+            f"{d.batches} batches for {len(templates)} templates")
+    for (template, _), a, b in zip(wl, singles, batched):
+        require(raw_identical(a.raw, b.raw),
+                f"{template}: execute_batch differs from execute")
+    workload = {"requests": len(wl), "templates": len(templates),
+                "compiles": compiles, "execute_s": exec_s,
+                "batch_s": batch_s, "batches": d.batches,
+                "batch_compiles": d.compiles}
+    log("service workload " + json.dumps(workload))
+    del svc, singles, batched
+    free()
+
+    # regrowth from caps of 1
+    svc = QueryService(db, ExecConfig(**TINY_CAPS), presize=False,
+                       max_retries=TINY_RETRIES, device=dev)
+    regrowth = {}
+    for name in ("Q8", "Q10", "Q11"):
+        before = svc.stats.snapshot()
+        rs = svc.execute(ALL[name])
+        require(not rs.overflow, f"{name}: overflow after regrowth")
+        rows_agree(name, rs.rows(), results[name], "regrown vs presized")
+        cfg = svc._good_cfg[svc.prepare(ALL[name]).signature]
+        regrowth[name] = {"retries": svc.stats.diff(before).retries,
+                          "caps": {k: getattr(cfg, k) for k in (
+                              "scan_cap", "join_cap", "group_cap",
+                              "topk_cap", "join_bucket")}}
+    log("service regrowth " + json.dumps(regrowth))
+    del svc
+    free()
+    return {"queries": records, "workload": workload, "regrowth": regrowth}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the kernels at the main path's shapes
 # ---------------------------------------------------------------------------
 
@@ -774,8 +1016,8 @@ def agg_library(vals, ok, segs, valid, s):
 
 
 def kernel_record(name: str, launches: dict, err: float, run, plain, lib,
-                  nbytes: float, flops: float, dtype: str, shape: dict
-                  ) -> dict:
+                  nbytes: float, flops: float, dtype: str, shape: dict,
+                  where: str = "main-path shape") -> dict:
     """Time one kernel beside its plain version and library call; the
     bound is the larger of bytes over the memory rate and operations
     over the peak rate of the input type."""
@@ -789,8 +1031,7 @@ def kernel_record(name: str, launches: dict, err: float, run, plain, lib,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "operations" if t_ops > t_bytes else "bytes",
            "library_ms": cuda_ms(lib) if lib is not None else None}
-    log(f"kernel {name} at main-path shape {json.dumps(shape)}: "
-        + json.dumps(rec))
+    log(f"kernel {name} at {where} {json.dumps(shape)}: " + json.dumps(rec))
     return rec
 
 
@@ -1133,6 +1374,34 @@ def lm_kernel_timings(calls: dict, launches: dict, edge_errs: dict) -> list:
     return out
 
 
+def hubert_flash_record(dev) -> dict:
+    """The flash kernel at hubert-xlarge's attention shape, seeded
+    inputs, beside its plain version and scaled_dot_product_attention.
+    No path of the port runs this model yet (its front end waits), so
+    the record's launches are 0."""
+    import torch.nn.functional as F
+    import torch
+    from repro_torch.kernels import flash_attention, ref
+    bh, s, d = (HUBERT_FLASH[k] for k in ("bh", "s", "d"))
+    q, k, v = (normal((bh, s, d), SEED + 120 + i, dev, torch.bfloat16)
+               for i in range(3))
+    kw = dict(g=1, causal=False)
+    err = attn_err(flash_attention.flash_attention_bhsd(q, k, v, **kw),
+                   ref.flash_attention(q, k, v, **kw), "bfloat16",
+                   "flash_attention (hubert-xlarge shape)")
+    q4, k4, v4 = (x[None] for x in (q, k, v))
+    nbytes = 4 * q.numel() * q.element_size()
+    flops = 4.0 * d * bh * s * s
+    return kernel_record(
+        "flash_attention", {"flash_attention": 0}, err,
+        lambda: flash_attention.flash_attention_bhsd(q, k, v, **kw),
+        lambda: ref.flash_attention(q, k, v, **kw),
+        lambda: F.scaled_dot_product_attention(q4, k4, v4), nbytes, flops,
+        "bfloat16", {"B*Hq": bh, "Sq": s, "Sk": s, "D": d, "g": 1,
+                     "causal": False, "dtype": "bfloat16"},
+        where="hubert-xlarge's shape")
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -1196,7 +1465,7 @@ def main() -> int:
     for w in wrappers.values():
         w.launches = 0
     capture = Capture(ops)
-    main_path(ex, spec, capture)
+    query_records = main_path(ex, spec, capture)
     launches = {k: w.launches for k, w in wrappers.items()}
     log(f"query path launches {json.dumps(launches)}")
     require(all(launches[k] > 0 for k in query_kernels),
@@ -1210,7 +1479,26 @@ def main() -> int:
     records = {r["name"]: r for r in
                main_shape_timings(capture.best, capture.agg_calls,
                                   launches, edge_errs)}
-    del ex, db, capture
+    hubert_flash_record(dev)
+    del ex, capture
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    for w in wrappers.values():
+        w.launches = 0
+    service_path(db, spec, dev, {r["query"]: r["warm_ms"]
+                                 for r in query_records},
+                 counters={k: wrappers[k] for k in query_kernels})
+    service_launches = {k: w.launches for k, w in wrappers.items()}
+    log(f"service path launches {json.dumps(service_launches)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    require(all(service_launches[k] > 0 for k in query_kernels),
+            f"a query kernel never launched on the service path: "
+            f"{service_launches}")
+    require(all(service_launches[k] == 0 for k in lm_kernels),
+            f"the service path launched an attention kernel: "
+            f"{service_launches}")
+    del db
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()

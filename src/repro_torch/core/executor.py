@@ -60,6 +60,19 @@ class ExecConfig:
     use_kernel_segments: Optional[bool] = None  # fused group-by/top-k
                                                 # segment kernels
 
+    def signature(self) -> tuple:
+        """Every config field in declaration order, derived from
+        ``dataclasses.fields`` — a new capacity knob joins the
+        plan-cache key by construction rather than by remembering to
+        extend a hand-maintained tuple."""
+        return tuple(getattr(self, f.name)
+                     for f in dataclasses.fields(self))
+
+    def cap_key(self) -> tuple:
+        """The fields that change compiled shapes/semantics — the
+        plan-cache key component (service.py)."""
+        return self.signature()
+
 
 # Executor-side overflow-flag registry: for every capacity-bounded
 # stage, the ExecConfig knob that bounds it -> the output flag that
@@ -103,6 +116,18 @@ def resolve_kernel_policy(plan: A.Op, cfg: ExecConfig,
                                use_kernel_join=join)
 
 
+def example_params(param_specs: tuple, batch: Optional[int] = None,
+                   device="cpu") -> tuple:
+    """Canonical example arguments, one per spec, of the dtypes and
+    shapes ``prepared.bind_params`` (0-d) and ``prepared.stack_params``
+    ([B]-leading) give at serving time: float32 for "num", int32 for
+    "str"/"date"."""
+    shape = () if batch is None else (batch,)
+    return tuple(torch.zeros(shape, dtype=F32 if spec.typ == "num"
+                             else I32, device=device)
+                 for spec in param_specs)
+
+
 @dataclasses.dataclass
 class EvalCtx:
     """Per-run evaluation context: the active config plus per-stage
@@ -112,6 +137,14 @@ class EvalCtx:
     cfg: ExecConfig
     ovf: dict[str, list] = dataclasses.field(
         default_factory=lambda: {f: [] for f in OVERFLOW_FLAGS.values()})
+    # profile mode (Executor.compile(profile=True)): per-op [P] valid-row
+    # counts keyed by the plan's pre-order index, plus the host-side
+    # meta dict the run fills in (obs/profile.py joins it with the
+    # static plan). None on normal compiles — the warm path never pays
+    # for profiling.
+    prof: Optional[dict] = None          # pre-order index -> [P] count
+    op_index: Optional[dict] = None      # id(op) -> pre-order index
+    prof_meta: Optional[dict] = None     # filled at run time
 
     def note(self, flag: str, value: torch.Tensor) -> None:
         """Record one stage's overflow predicate under its registry
@@ -329,6 +362,8 @@ class Executor:
         parts = {len(c.partitions) for c in db.collections.values()}
         assert len(parts) == 1, "collections must agree on partitioning"
         self.num_partitions = parts.pop()
+        # observability for the service layer's cache assertions
+        self.compile_count = 0      # Executor.compile invocations
 
     # -- plan compilation ----------------------------------------------------
 
@@ -340,51 +375,119 @@ class Executor:
         """Returns a CompiledPlan whose fn maps tables -> the raw-output
         dict; the static column schema is filled in on each call.
         ``config`` overrides the executor's default ExecConfig for this
-        compilation only. Only the partition-simulating ``sim`` mode is
-        ported; the other options wait for later slices and raise."""
+        compilation only (the service recompiles one plan with grown
+        capacities against the same device tables).
+
+        ``param_specs`` enables the prepared-query calling convention:
+        the plan may hold ``algebra.Param`` leaves, and fn takes
+        ``(tables, params)`` with one 0-d tensor per spec — a binding
+        change is a new argument, never a new compilation. ``batch=B``
+        makes fn take [B]-leading parameter tensors and evaluate the B
+        bindings in turn, stacking every output to [B, P, ...]: the
+        bindings share one call and one host copy of the outputs, not
+        one device pass.
+
+        ``profile=True`` adds a per-operator valid-row count to the
+        outputs (``prof_rows`` [P, ops], one slot per pre-order plan op
+        that executes unfused) — the runtime half of
+        ``QueryService.explain(profile=True)``.
+
+        "Compile" builds an eager closure; nothing is traced or
+        captured. Only the partition-simulating ``sim`` mode is ported;
+        ``spmd``, ``aot`` and ``donate`` wait for later slices and
+        raise."""
         if mode != "sim":
             raise NotImplementedError(
-                f"mode={mode!r} is not ported yet ({_LATER}SPMD mode)")
-        if param_specs or batch is not None or profile:
-            raise NotImplementedError(
-                "param_specs/batch/profile are not ported yet "
-                f"({_LATER}prepared, batched and profile compiles)")
+                f"mode={mode!r} is not ported yet ({_LATER}item 6, "
+                "SPMD mode)")
         if aot or donate:
             raise NotImplementedError(
-                f"aot/donate are not ported yet ({_LATER}core/persist.py)")
+                f"aot/donate are not ported yet ({_LATER}item 4, "
+                "core/persist.py)")
+        if batch is not None and not param_specs:
+            raise ValueError("batched compilation needs parameters")
         cfg = resolve_kernel_policy(plan, config or self.config,
                                     self.device)
+        self.compile_count += 1
         schema: dict[int, tuple] = {}
+        prof_meta: Optional[dict] = {} if profile else None
+        op_index = ({id(op): i for i, op in enumerate(A.walk(plan))}
+                    if profile else None)
 
-        def fn(tables: dict) -> dict:
-            ev = ExprEval(self.db, tables, self.device)
+        def local(tables: dict, params: tuple) -> dict:
+            ev = ExprEval(self.db, tables, self.device, params=params)
             comm = Comm(self.num_partitions, self.device)
-            ctx = EvalCtx(cfg)
+            ctx = (EvalCtx(cfg, prof={}, op_index=op_index,
+                           prof_meta=prof_meta) if profile
+                   else EvalCtx(cfg))
             with torch.no_grad():
                 tile = self._eval(plan, ev, comm, None, ctx)
                 return self._outputs(plan, tile, ev, schema, ctx, comm)
 
-        return CompiledPlan(fn, schema, plan, cfg)
+        if batch is None:
+            def fn(tables: dict, params: tuple = ()) -> dict:
+                return local(tables, tuple(params))
+        else:
+            def fn(tables: dict, params: tuple) -> dict:
+                outs = [local(tables, tuple(p[b] for p in params))
+                        for b in range(batch)]
+                return {k: (tuple(torch.stack([o[k][i] for o in outs])
+                                  for i in range(len(v)))
+                            if isinstance(v, tuple) else
+                            torch.stack([o[k] for o in outs]))
+                        for k, v in outs[0].items()}
+
+        return CompiledPlan(fn, schema, plan, cfg,
+                            param_specs=tuple(param_specs), batch=batch,
+                            profile_meta=prof_meta)
 
     def run(self, plan: A.Op, mode: str = "sim",
             config: Optional[ExecConfig] = None) -> "ResultSet":
         return self.run_compiled(self.compile(plan, mode=mode,
                                               config=config))
 
-    def run_raw(self, cp: "CompiledPlan") -> dict:
-        """The raw-output dict of one run, as device tensors."""
+    def run_raw(self, cp: "CompiledPlan",
+                params: Optional[tuple] = None) -> dict:
+        """The raw-output dict of one (unbatched) run, as device
+        tensors."""
+        if cp.batch is not None:
+            raise RuntimeError("batched plans go through "
+                               "run_compiled_batch")
+        if cp.param_specs:
+            if params is None or len(params) != len(cp.param_specs):
+                raise ValueError(
+                    f"plan expects {len(cp.param_specs)} parameters, "
+                    f"got {None if params is None else len(params)}")
+            return cp.fn(self.tables, tuple(params))
         return cp.fn(self.tables)
 
     def run_compiled(self, cp: "CompiledPlan",
                      params: Optional[tuple] = None) -> "ResultSet":
         """Execute an already-compiled plan against the bound tables and
-        decode the result on the host."""
-        if params is not None:
-            raise NotImplementedError(
-                f"parameters are not ported yet ({_LATER}prepared, "
-                "batched and profile compiles)")
-        return ResultSet(self.db, cp.plan, to_numpy(self.run_raw(cp)),
-                         cp.schema)
+        decode the result on the host. Parameterized plans take their
+        binding via ``params`` (0-d tensors matching
+        ``cp.param_specs``)."""
+        return ResultSet(self.db, cp.plan, to_numpy(self.run_raw(cp, params)),
+                         cp.schema, profile_meta=cp.profile_meta)
+
+    def run_compiled_batch(self, cp: "CompiledPlan", stacked: tuple,
+                           count: int) -> list["ResultSet"]:
+        """One batched call: ``stacked`` holds [B]-leading parameter
+        tensors (B = cp.batch); the first ``count`` slices are real
+        requests, the rest padding. The [B, P, ...] outputs reach the
+        host in one copy each. Returns one ResultSet per real
+        request."""
+        assert cp.batch is not None and count <= cp.batch
+        raw = to_numpy(cp.fn(self.tables, tuple(stacked)))
+
+        def take(v, b):
+            return tuple(d[b] for d in v) if isinstance(v, tuple) \
+                else v[b]
+
+        return [ResultSet(self.db, cp.plan,
+                          {k: take(v, b) for k, v in raw.items()},
+                          cp.schema, profile_meta=cp.profile_meta)
+                for b in range(count)]
 
     # -- recursive evaluation -------------------------------------------------
 
@@ -398,6 +501,20 @@ class Executor:
 
     def _eval(self, op: A.Op, ev: ExprEval, comm: Comm,
               nts_input: Optional[Tile], ctx: EvalCtx) -> Tile:
+        tile = self._eval_op(op, ev, comm, nts_input, ctx)
+        if ctx.prof is not None:
+            # profile mode: record each op's per-partition valid-row
+            # count. Ops that execute fused into a parent (OrderBy
+            # under Limit, Aggregate under Subplan) never pass through
+            # here and stay absent — obs/profile marks them fused.
+            idx = ctx.op_index.get(id(op))
+            if idx is not None:
+                ctx.prof[idx] = tile.valid.reshape(
+                    self.num_partitions, -1).sum(dim=1, dtype=I32)
+        return tile
+
+    def _eval_op(self, op: A.Op, ev: ExprEval, comm: Comm,
+                 nts_input: Optional[Tile], ctx: EvalCtx) -> Tile:
         if isinstance(op, A.EmptyTupleSource):
             return self._trivial_tile()
         if isinstance(op, A.NestedTupleSource):
@@ -830,6 +947,14 @@ class Executor:
             for f in ctx.ovf[flag]:
                 acc = acc | f
             out[flag] = acc
+        if ctx.prof is not None:
+            # per-op profile counts in pre-order, [P, ops]; the static
+            # order list reaches the host through the meta dict (as
+            # ``schema`` does)
+            order = sorted(ctx.prof)
+            out["prof_rows"] = torch.stack([ctx.prof[i] for i in order],
+                                           dim=1)
+            ctx.prof_meta["order"] = order
         for v in plan.vars:
             c = tile.cols[v]
             if c.kind == "node":
@@ -867,6 +992,10 @@ class CompiledPlan:
     schema: dict[int, tuple]
     plan: A.Op
     config: Optional[ExecConfig] = None   # resolved config of this plan
+    param_specs: tuple = ()               # prepared-query parameter types
+    batch: Optional[int] = None           # B of a batched fn
+    profile_meta: Optional[dict] = None   # profile=True: op order,
+    #                                       filled at run time
 
 
 class ResultSet:
@@ -875,14 +1004,46 @@ class ResultSet:
     differential tests can compare against the tree-walking baseline."""
 
     def __init__(self, db: xdm.Database, plan: A.Op, raw: dict,
-                 schema: dict[int, tuple]):
+                 schema: dict[int, tuple], profile_meta: dict = None):
         self.db = db
         self.plan = plan
         self.raw = raw
         self.schema = schema
+        self.profile_meta = profile_meta
         self.overflow = bool(np.any(raw["overflow"]))
         for flag in OVERFLOW_FLAGS.values():    # overflow_scan, ...
             setattr(self, flag, bool(np.any(raw.get(flag, False))))
+
+    def _prof_rows(self) -> Optional[tuple[list, np.ndarray]]:
+        if self.profile_meta is None or "prof_rows" not in self.raw:
+            return None
+        order = self.profile_meta.get("order")
+        if order is None:
+            return None
+        pr = np.asarray(self.raw["prof_rows"])
+        return order, pr.reshape(-1, pr.shape[-1])
+
+    def op_rows(self) -> Optional[dict]:
+        """Profile-mode runs only: pre-order plan-op index -> global
+        valid rows out of that operator (partition axis summed). None
+        on normal runs."""
+        got = self._prof_rows()
+        if got is None:
+            return None
+        order, pr = got
+        per_op = pr.sum(axis=0)
+        return {idx: int(per_op[j]) for j, idx in enumerate(order)}
+
+    def op_rows_peak(self) -> Optional[dict]:
+        """Profile-mode runs only: pre-order plan-op index -> valid
+        rows out of that operator on the busiest partition (caps are
+        per-partition tile sizes). None on normal runs."""
+        got = self._prof_rows()
+        if got is None:
+            return None
+        order, pr = got
+        per_op = pr.max(axis=0)
+        return {idx: int(per_op[j]) for j, idx in enumerate(order)}
 
     def rows(self) -> list[tuple]:
         assert isinstance(self.plan, A.DistributeResult)

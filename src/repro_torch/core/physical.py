@@ -129,10 +129,14 @@ class ExprEval:
     """
 
     def __init__(self, db: xdm.Database, tables: dict,
-                 device: torch.device):
+                 device: torch.device, params: tuple = ()):
         self.db = db
         self.tables = tables
         self.device = device
+        # prepared-query parameter vector: 0-d tensors on the device
+        # (one per algebra.Param slot), so a binding change is a new
+        # input, not a new compilation
+        self.params = params
 
     def _scalar(self, value, dtype) -> torch.Tensor:
         # a fill on the device, not a blocking host-to-device copy
@@ -229,14 +233,21 @@ class ExprEval:
             return Col("bool", self._scalar(c.value == "true", torch.bool))
         raise TypeError(c)
 
+    def param(self, e: A.Param) -> Col:
+        p = self.params[e.idx]
+        if e.typ == "str":
+            return Col("str", p)
+        if e.typ == "num":
+            return Col("const", p)
+        if e.typ == "date":
+            return Col("date", p)
+        raise TypeError(e.typ)
+
     def eval(self, e: A.Expr, env: dict[int, Col]) -> Col:
         if isinstance(e, A.Const):
             return self.const(e)
         if isinstance(e, A.Param):
-            raise NotImplementedError(
-                "parameterized plans arrive with prepared compiles "
-                "(ROADMAP.md, modules to port: prepared, batched and "
-                "profile compiles)")
+            return self.param(e)
         if isinstance(e, A.Var):
             return env[e.n]
         if isinstance(e, A.Some):
@@ -315,6 +326,13 @@ class ExprEval:
         if fn in _ARITH:
             a = self.atom_num(self.eval(e.args[0], env))
             b = self.atom_num(self.eval(e.args[1], env))
+            if fn == "divide" and isinstance(e.args[1],
+                                             (A.Const, A.Param)):
+                # division by a literal or a parameter is a multiply by
+                # its float32 reciprocal, as the JAX package computes a
+                # lifted divisor: a prepared plan then gives the baked
+                # plan's bits
+                return Col("num", a * (1.0 / b))
             return Col("num", _ARITH[fn](a, b))
         if fn == "iterate":
             # singleton pass-through (the executor handles sequence

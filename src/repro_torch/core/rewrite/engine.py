@@ -12,6 +12,7 @@ whole-plan analyses the rules key on:
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Optional
 
 from repro_torch.core.algebra import (Aggregate, Assign, Call, Const, DataScan,
@@ -196,12 +197,36 @@ def apply_rule_once(root: Op, rule: Rule) -> tuple[Op, bool]:
     return transform_bottom_up(root, f), fired[0]
 
 
+# -- rewrite soundness (debug/CI mode) ---------------------------------------
+
+_CHECK_REWRITES = os.environ.get("REPRO_CHECK_REWRITES", "") not in ("",
+                                                                    "0")
+
+
+def set_soundness_checks(on: bool) -> bool:
+    """Toggle per-firing soundness checks (analysis/check.py): after
+    every rule application the plan's result schema must be equivalent
+    and its capacity set monotone.  Debug/CI mode — the default-off
+    path adds zero work.  Returns the previous setting.  Also
+    switchable via the ``REPRO_CHECK_REWRITES=1`` environment
+    variable."""
+    global _CHECK_REWRITES
+    prev = _CHECK_REWRITES
+    _CHECK_REWRITES = bool(on)
+    return prev
+
+
+def soundness_checks_enabled() -> bool:
+    return _CHECK_REWRITES
+
+
 def run_rules(root: Op, rules: list[Rule], max_iters: int = 200) -> Op:
     """Apply a rule stage to fixpoint (one rule firing per pass so
     analyses stay fresh — plans here are small, clarity wins)."""
     root = remove_identity_assigns(root)
     for _ in range(max_iters):
         for rule in rules:
+            prev = root
             root, fired = apply_rule_once(root, rule)
             if fired:
                 root = remove_identity_assigns(root)
@@ -211,6 +236,10 @@ def run_rules(root: Op, rules: list[Rule], max_iters: int = 200) -> Op:
                 obs_trace.current().event(
                     "rewrite-rule", cat="rewrite",
                     rule=getattr(rule, "__name__", str(rule)))
+                if _CHECK_REWRITES:
+                    from repro_torch.core.analysis.check import check_rewrite
+                    check_rewrite(prev, root,
+                                  getattr(rule, "__name__", str(rule)))
                 break
         else:
             return root

@@ -50,7 +50,18 @@
 // of 8 elements, 16 bytes). Query head h of batch b reads key/value head
 // h / g of batch b. Any Sq and Sk: ragged tiles are zero-filled (by TMA
 // out of bounds, or by the loads) and their keys excluded with -inf;
-// head_dim 64, 128 or 256.
+// head_dim 64, 80, 128 or 256.
+//
+// head_dim 80 (hubert-xlarge) runs the head_dim-128 tiling with the
+// columns past 80 zero, as the TPU kernel pads 64/80-dim heads to 128.
+// Nothing is copied to pad: in the bf16 kernel the TMA maps describe the
+// 80 real columns and the second 64-column box of each row reads past
+// them, which TMA fills with zeros in shared memory; S = Q K^T takes the
+// first five 16-column steps only, P V runs over all 128 columns of the
+// zero-padded V and the store writes the first 80. The float32 kernel
+// loads the 80 columns and leaves the rest zero in the same way. The
+// softmax scale is the caller's (80^-1/2 by default), not the padded
+// width's.
 //
 // Masking follows the TPU kernel exactly: masked scores are NEG_INF =
 // -2e38 (not -inf), the denominator is max(l, 1e-30). Key tiles wholly
@@ -106,14 +117,14 @@ __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 
-// rows x D elements at src (row stride `ld` elements) -> dst[d][row]
+// rows x DR elements at src (row stride `ld` elements) -> dst[d][row]
 // (leading dimension 64), times `mul`; rows >= `rows` are zero. Row-fastest
 // mapping: a warp writes 32 consecutive rows of one d (no bank conflict).
-template <int D>
+template <int DR>
 __device__ __forceinline__ void load_transposed(float* dst, const float* src,
                                                 long long ld, int rows,
                                                 float mul) {
-  for (int c = threadIdx.x; c < 64 * (D / 4); c += kThreads) {
+  for (int c = threadIdx.x; c < 64 * (DR / 4); c += kThreads) {
     const int r = c % 64;
     const int d = (c / 64) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -125,21 +136,22 @@ __device__ __forceinline__ void load_transposed(float* dst, const float* src,
   }
 }
 
-// rows x D elements -> dst[row][d] (leading dimension D); dim-fastest
-// mapping, so the global reads are coalesced.
-template <int D>
+// rows x DR elements -> dst[row][d] (leading dimension D, columns DR..D
+// zero); dim-fastest mapping, so the global reads are coalesced.
+template <int D, int DR>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           long long ld, int rows) {
   for (int c = threadIdx.x; c < 64 * (D / 4); c += kThreads) {
     const int r = c / (D / 4);
     const int d = (c % (D / 4)) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows) x = load4(src + r * ld + d);
+    if (r < rows && d < DR) x = load4(src + r * ld + d);
     store4(dst + r * D + d, x);
   }
 }
 
-template <int D>
+// D: the tiling's head width (64, 128, 256); DR <= D: the real one
+template <int D, int DR>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32(Params p) {
   extern __shared__ float4 smem4[];
@@ -167,7 +179,7 @@ flash_fwd_f32(Params p) {
   const int ri = tid >> 4;
   const int ci = tid & 15;
 
-  load_transposed<D>(qt, qg, p.q_ss, q_rows, p.scale);
+  load_transposed<DR>(qt, qg, p.q_ss, q_rows, p.scale);
 
   // key range: skip tiles no row of the CTA can see (see the header)
   int k_begin = 0;
@@ -191,8 +203,8 @@ flash_fwd_f32(Params p) {
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();   // previous tile's P.V done with kt/vs/pt
     const int k_rows = min(kBK, p.sk - k0);
-    load_transposed<D>(kt, kg + k0 * p.k_ss, p.k_ss, k_rows, 1.f);
-    load_rows<D>(vs, vg + k0 * p.v_ss, p.v_ss, k_rows);
+    load_transposed<DR>(kt, kg + k0 * p.k_ss, p.k_ss, k_rows, 1.f);
+    load_rows<D, DR>(vs, vg + k0 * p.v_ss, p.v_ss, k_rows);
     __syncthreads();
 
     float s[4][4];
@@ -201,7 +213,7 @@ flash_fwd_f32(Params p) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DR; ++d) {
       const float4 a = *reinterpret_cast<const float4*>(qt + d * kBQ + ri * 4);
       const float4 c = *reinterpret_cast<const float4*>(kt + d * kBK + ci * 4);
       const float av[4] = {a.x, a.y, a.z, a.w};
@@ -285,29 +297,32 @@ flash_fwd_f32(Params p) {
     if (r >= q_rows) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int t = 0; t < kCols; ++t)
+    for (int t = 0; t < kCols; ++t) {
+      if (t * 64 + ci * 4 >= DR) continue;
       store4(og + r * p.o_ss + t * 64 + ci * 4,
              make_float4(acc[i][t * 4 + 0] * inv, acc[i][t * 4 + 1] * inv,
                          acc[i][t * 4 + 2] * inv, acc[i][t * 4 + 3] * inv));
+    }
   }
 }
 
-template <int D>
+template <int D, int DR = D>
 int launch(const Params& p, int batch, cudaStream_t st) {
   const size_t smem = (static_cast<size_t>(3 * kBQ) * D + kBK * kBQ)
                       * sizeof(float);
   int err = static_cast<int>(cudaFuncSetAttribute(
-      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_f32<D, DR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem)));
   if (err) return err;
   dim3 grid((p.sq + kBQ - 1) / kBQ, batch * p.hq);
-  flash_fwd_f32<D><<<grid, kThreads, smem, st>>>(p);
+  flash_fwd_f32<D, DR><<<grid, kThreads, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_f32(const Params& p, int batch, int d, cudaStream_t st) {
   switch (d) {
     case 64: return launch<64>(p, batch, st);
+    case 80: return launch<128, 80>(p, batch, st);
     case 128: return launch<128>(p, batch, st);
     case 256: return launch<256>(p, batch, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -622,16 +637,17 @@ __device__ __forceinline__ void produce(const Params& p, const Tile& t) {
   }
 }
 
-// S = Q K^T for one key tile: D / 16 steps of 16 along D; a step moves 32
-// bytes within a swizzled row, or to the next 64-column block.
-template <int D, int BK>
+// S = Q K^T for one key tile: DR / 16 steps of 16 along the real head
+// width DR; a step moves 32 bytes within a swizzled row, or to the next
+// 64-column block.
+template <int DR, int BK>
 __device__ __forceinline__ void qk(float (&sc)[BK / 2], uint32_t s_qw,
                                    uint32_t s_k) {
 #pragma unroll
   for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DR / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
     wgmma_ss(sc,
              smem_desc(s_qw + (kk / 4) * kBQ * kRowBytes + off, 16, 1024),
@@ -705,7 +721,7 @@ __device__ __forceinline__ void softmax_tile(
 }
 
 // A consumer warpgroup: query rows q0 + 64 wg .. + 63.
-template <int D>
+template <int D, int DR>
 __device__ __forceinline__ void consume(const Params& p, const Tile& t) {
   using L = Layout<D>;
   constexpr int BK = L::kBK;
@@ -733,7 +749,7 @@ __device__ __forceinline__ void consume(const Params& p, const Tile& t) {
     const uint32_t parity = (j / kStages) & 1;
     const uint32_t s_k = t.s_kv + s * 2 * L::kTileBytes;
     mbar_wait(t.full_k + 8 * s, parity);
-    qk<D, BK>(sc, s_qw, s_k);
+    qk<DR, BK>(sc, s_qw, s_k);
     softmax_tile<BK>(p, sc, pa, m, l, corr, t.k_begin + j * BK, row0, col,
                      wg_first, wg_last);
 #pragma unroll
@@ -762,7 +778,7 @@ __device__ __forceinline__ void consume(const Params& p, const Tile& t) {
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     __nv_bfloat16* orow = p.o + t.b * p.o_sb + t.h * p.o_sh + qp * p.o_ss;
 #pragma unroll
-    for (int jj = 0; jj < D / 8; ++jj)
+    for (int jj = 0; jj < DR / 8; ++jj)
       *reinterpret_cast<uint32_t*>(orow + 8 * jj + col) =
           pack_bf16(o[4 * jj + 2 * r] * inv, o[4 * jj + 2 * r + 1] * inv);
   }
@@ -775,7 +791,9 @@ constexpr int kConsumerRegs = 232;
 static_assert(kProducerRegs * 128 + kConsumerRegs * kConsumers <= 65536,
               "register file");
 
-template <int D>
+// D: the tiling's head width (64, 128, 256); DR <= D: the real one, the
+// inner dimension of the TMA maps (columns DR..D arrive as zeros)
+template <int D, int DR>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_tc(const __grid_constant__ Params p) {
   using L = Layout<D>;
@@ -828,7 +846,7 @@ flash_fwd_tc(const __grid_constant__ Params p) {
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
                  :: "n"(kConsumerRegs));
-    consume<D>(p, t);
+    consume<D, DR>(p, t);
   }
 }
 
@@ -884,7 +902,7 @@ int encode(CUtensorMap* map, const void* ptr, int d, int s, int h, int b,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int D>
+template <int D, int DR = D>
 int launch(const void* q, const void* k, const void* v, void* o,
            const long long* st, int batch, int hq, int g, int sq, int sk,
            int causal, int window, float scale, float softcap,
@@ -892,10 +910,10 @@ int launch(const void* q, const void* k, const void* v, void* o,
   using L = Layout<D>;
   Params p;
   const int hkv = hq / g;
-  int err = encode(&p.q, q, D, sq, hq, batch, st[0], st[1], st[2], kBQ);
-  if (!err) err = encode(&p.k, k, D, sk, hkv, batch, st[3], st[4], st[5],
+  int err = encode(&p.q, q, DR, sq, hq, batch, st[0], st[1], st[2], kBQ);
+  if (!err) err = encode(&p.k, k, DR, sk, hkv, batch, st[3], st[4], st[5],
                          L::kBK);
-  if (!err) err = encode(&p.v, v, D, sk, hkv, batch, st[6], st[7], st[8],
+  if (!err) err = encode(&p.v, v, DR, sk, hkv, batch, st[6], st[7], st[8],
                          L::kBK);
   if (err) return err;
   p.o = static_cast<__nv_bfloat16*>(o);
@@ -911,11 +929,11 @@ int launch(const void* q, const void* k, const void* v, void* o,
   p.scale = scale;
   p.softcap = softcap;
   err = static_cast<int>(cudaFuncSetAttribute(
-      flash_fwd_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_tc<D, DR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       L::kBytes));
   if (err) return err;
   dim3 grid((sq + kBQ - 1) / kBQ, batch * hq);
-  flash_fwd_tc<D><<<grid, kThreads, L::kBytes, stream>>>(p);
+  flash_fwd_tc<D, DR><<<grid, kThreads, L::kBytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -943,6 +961,9 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     switch (d) {
       case 64: return tc::launch<64>(q, k, v, o, strides, batch, hq, g, sq,
                                      sk, causal, window, scale, softcap, st);
+      case 80: return tc::launch<128, 80>(q, k, v, o, strides, batch, hq, g,
+                                          sq, sk, causal, window, scale,
+                                          softcap, st);
       case 128: return tc::launch<128>(q, k, v, o, strides, batch, hq, g, sq,
                                        sk, causal, window, scale, softcap,
                                        st);

@@ -136,11 +136,16 @@ def test_port_q11_topk_routes(port, jax_runs, oracle, topk_cap, fused):
 
 
 def test_port_later_slices_raise(port):
+    """SPMD mode, AOT and donation wait for later slices; prepared,
+    batched and profile compiles are ported (a batch without parameters
+    is refused, as in the JAX package)."""
     plan = compile_query(ALL["Q1"])
-    for kw in ({"mode": "spmd"}, {"batch": 2}, {"profile": True},
-               {"aot": True}):
+    for kw in ({"mode": "spmd"}, {"aot": True}, {"donate": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             port.compile(plan, **kw)
+    with pytest.raises(ValueError, match="needs parameters"):
+        port.compile(plan, batch=2)
+    assert port.run_compiled(port.compile(plan, profile=True)).op_rows()
 
 
 @pytest.fixture(scope="module")

@@ -456,6 +456,25 @@ def test_segment_topk_chunk_rows(n, nkeys, want):
     assert chunk * 16 * ((nkeys + 4) // 4) <= seg_topk.SORT_SMEM
 
 
+def test_flash_head_dim_80_admitted_with_its_own_scale():
+    """head_dim 80 (hubert-xlarge) is a kernel path, not a refusal, and
+    the kernel gets 80 and the default scale 80 ** -0.5, not the width
+    of the padded tiling."""
+    assert 80 in flash_attention.HEAD_DIMS
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros(4, 10, 80, dtype=dtype)
+        k = torch.zeros(2, 12, 80, dtype=dtype)
+        args = flash_attention.launch_args(q, k, k, torch.empty_like(q), g=2,
+                                           causal=False)
+        b, hq, g, sq, sk, d, _, causal, window, scale, softcap, _ = args[5:]
+        assert (b, hq, g, sq, sk, d, causal, window, softcap) == \
+            (1, 4, 2, 10, 12, 80, 0, 0, 0.0)
+        assert scale == 80 ** -0.5
+    with pytest.raises(ValueError, match="head_dim 96"):
+        q = torch.zeros(2, 8, 96)
+        flash_attention.launch_args(q, q, q, torch.empty_like(q), g=1)
+
+
 def test_flash_strides_for_the_tma_maps():
     """bf16 strides must be multiples of 8 elements (16 bytes) for the
     tensor-core kernel's TMA maps, float32 ones of 4."""
@@ -590,6 +609,29 @@ def test_cuda_flash_attention(cuda, dtype, causal, window, softcap, g, sq, sk,
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     again = flash_attention.flash_attention_bhsd(q, k, v, **kw)
     assert torch.equal(again, got)                 # no atomics, fixed order
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window,softcap,g,sq,sk", [
+    (False, None, None, 1, 256, 256),             # hubert-xlarge's kind
+    (True, None, None, 2, 300, 300),
+    (True, 100, 50.0, 2, 700, 700),               # window and softcap
+    (False, None, None, 2, 100, 77),              # ragged Sq and Sk
+    (True, None, None, 1, 100, 300),              # Sq < Sk
+])
+def test_cuda_flash_attention_head_dim_80(cuda, dtype, causal, window,
+                                          softcap, g, sq, sk):
+    """head_dim 80 on the 128-wide tiling (zero-padded in shared memory)
+    against the plain version at D = 80."""
+    q, k, v = (T(x, cuda).to(dtype) for x in
+               attn_case(2 * g, 2, sq, sk, 80, seed=sq * sk + 80))
+    kw = dict(g=g, causal=causal, window=window, softcap=softcap)
+    got = flash_attention.flash_attention_bhsd(q, k, v, **kw)
+    want = ref.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = CUDA_ATT_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
 def test_cuda_flash_attention_reads_model_layout_in_place(cuda):
