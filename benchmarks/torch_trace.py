@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where the time goes on the PyTorch/CUDA port's main path, one GPU.
 
-    python3 benchmarks/torch_trace.py       # from the repository root
-    python3 benchmarks/torch_trace.py --lm  # the LM serving path
+    python3 benchmarks/torch_trace.py         # from the repository root
+    python3 benchmarks/torch_trace.py --lm    # the LM serving path
+    python3 benchmarks/torch_trace.py --spmd  # sim vs spmd mode, P = 1
 
 Builds the data of ``chip_smoke.py`` (same spec, P = 4), runs each of
 Q1–Q12 once on the kernel route with statistics-presized caps, then
@@ -11,7 +12,11 @@ one JSON line per query. With ``--lm``: qwen3-1.7b at full size with
 seeded random weights (``chip_smoke.py``'s phase 5), one warm
 ``serve_batch`` of 8 x 2048-token prompts, then a traced prefill step
 (8 x 2048 tokens) and four traced decode steps of the same batch, one
-JSON line each. Every line has:
+JSON line each. With ``--spmd``: the same data built with P = 1, each
+query traced once in sim mode and once in spmd mode over an in-process
+NCCL group of one rank, through ``run_compiled`` (the run and the copy
+of its outputs to the host), one JSON line per query and mode. Every
+line has:
 
 - ``wall_ms``: host clock around the traced run (ends in a sync);
 - ``device_ms``: the sum of the device time of every kernel the run
@@ -123,6 +128,40 @@ def trace_lm() -> None:
                           **traced(run_decode)}), flush=True)
 
 
+def trace_spmd() -> None:
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke
+    from repro_torch.core import Executor, compile_query
+    from repro_torch.core.presize import presized_config
+    from repro_torch.core.queries import ALL
+    from repro_torch.data.weather import WeatherSpec, build_database
+    from repro_torch.launch.mesh import make_data_mesh
+
+    db = build_database(WeatherSpec(**chip_smoke.SPEC), 1)
+    dist.init_process_group("nccl", init_method="tcp://127.0.0.1:"
+                            f"{chip_smoke.free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_data_mesh()
+        ex = Executor(db, device="cuda")
+        ex.tables               # spmd's partition tables are views of these
+        for name, text in ALL.items():
+            plan = compile_query(text)
+            cfg = presized_config(db, plan)
+            for mode in ("sim", "spmd"):
+                cp = ex.compile(plan, mode=mode, config=cfg,
+                                mesh=mesh if mode == "spmd" else None)
+                for _ in range(2):              # cold, then warm
+                    ex.run_compiled(cp)
+                rec = traced(lambda: ex.run_compiled(cp))
+                rec["top"] = rec["top"][:3]
+                print(json.dumps({"query": name, "mode": mode, **rec}),
+                      flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -132,6 +171,10 @@ def main() -> int:
     print(f"device {torch.cuda.get_device_name(0)}", flush=True)
     if "--lm" in sys.argv[1:]:
         trace_lm()
+        print(subprocess_smi())
+        return 0
+    if "--spmd" in sys.argv[1:]:
+        trace_spmd()
         print(subprocess_smi())
         return 0
 

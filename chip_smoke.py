@@ -60,13 +60,31 @@ Phases, each printed as it runs:
    per-request results); Q8, Q10 and Q11 regrown from caps of 1;
    64 requests of multi-tenant traffic through ``submit``/``drain``,
    each equal to a direct ``execute``; ``explain(Q8, profile=True)``
-   with the same operator rows on both routes. The three query kernels
-   must launch on this path and the attention kernels not.
+   with the same operator rows on both routes; a restart: Q1–Q12
+   through a service on a persistent plan cache, then through a second
+   service on the same directory with no compile, 12 disk loads and the
+   same raw dicts. The three query kernels must launch on this path and
+   the attention kernels not.
+7. spmd: the same ``SPEC`` built with P = 1, Q1–Q12 through
+   ``Executor.run(mode="spmd")`` over an in-process NCCL process group
+   of one rank (``launch.mesh.make_data_mesh``), presized caps, kernel
+   route cold and warm, plain route, both join strategies for Q5–Q8,
+   then through ``QueryService(mode="spmd")`` cold and warm; every
+   result against the numpy reference, the routes against each other,
+   then each raw dict against sim mode's on the same database. The
+   three query kernels must launch on this path. No fallback: a group
+   that does not start fails the phase.
+8. the MRQL-like baseline (``core/baselines/mrql_like.py``) on phase
+   3's database: Q1–Q12, rows against the numpy reference, its ms and
+   MapReduce jobs beside the service's warm ms (phase 6).
 
 Phase 3's ``query`` lines also give each query's peak device memory and
 the join kernel's hash-table scratch (``join_table_mib``); phase 6's
 ``service`` lines give cold and warm ms, caps, retries, compiles, peak
-memory and the bytes copied to the host. Phase 4 also times the flash
+memory and the bytes copied to the host; phase 7's ``spmd`` lines the
+same for spmd mode plus the bytes all-gathered; phase 8's ``mrql``
+lines the baseline's ms and jobs. Phases run in the order 1–4, 6, 7, 8,
+5: one database's tables on the card at a time. Phase 4 also times the flash
 kernel at hubert-xlarge's attention shape (16 heads, head_dim 80,
 2048 frames, not causal, bf16) beside ``scaled_dot_product_attention``.
 
@@ -149,6 +167,18 @@ def cuda_ms(fn, budget_s: float = 0.25, max_iters: int = 50) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def release(dev) -> None:
+    """Free what dropped objects held on the card: a collection first (a
+    service and its admission runtime refer to each other, so a deleted
+    service's device tables live on until the cyclic collector runs),
+    then the caching allocator's free blocks."""
+    import gc
+    import torch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -680,12 +710,12 @@ class Capture:
             setattr(self.ops, attr, fn)
 
 
-def run_query(ex, plan, cfg) -> tuple:
+def run_query(ex, plan, cfg, mode: str = "sim", mesh=None) -> tuple:
     """(numpy raw dict, ResultSet, ms) of one ``Executor.run_compiled``:
     the device run and the copy of its raw outputs to the host (rows
     are decoded from them afterwards, outside the time)."""
     import torch
-    cp = ex.compile(plan, config=cfg)
+    cp = ex.compile(plan, mode=mode, mesh=mesh, config=cfg)
     if ex.device.type == "cuda":
         torch.cuda.synchronize(ex.device)
     t0 = time.perf_counter()
@@ -810,17 +840,13 @@ def service_path(db, spec, dev, exec_ms: dict | None = None,
         if on_cuda:
             torch.cuda.synchronize(dev)
 
-    def free():
-        if on_cuda:
-            torch.cuda.empty_cache()
-
     # the plain routes: raw dicts and Q8's operator rows
     plain_cfg = ExecConfig(use_kernel_join=False, use_kernel_segments=False)
     svc = QueryService(db, plain_cfg, device=dev)
     plain = {name: svc.execute(text).raw for name, text in ALL.items()}
     plain_prof = profile_rows(svc.explain(ALL["Q8"], profile=True))
     del svc
-    free()
+    release(dev)
 
     # the kernel routes: Q1-Q12 cold and warm
     svc = QueryService(db, device=dev)
@@ -895,7 +921,7 @@ def service_path(db, spec, dev, exec_ms: dict | None = None,
          "compiles": d.compiles, "tenants": sorted({t.tenant
                                                     for t in tickets})}))
     del svc, tickets
-    free()
+    release(dev)
 
     # prepared constant-variants: one compile per template, each equal to
     # the executor's run of its baked plan; then the same requests batched
@@ -930,7 +956,7 @@ def service_path(db, spec, dev, exec_ms: dict | None = None,
                 "batch_compiles": d.compiles}
     log("service workload " + json.dumps(workload))
     del svc, singles, batched
-    free()
+    release(dev)
 
     # regrowth from caps of 1
     svc = QueryService(db, ExecConfig(**TINY_CAPS), presize=False,
@@ -948,8 +974,244 @@ def service_path(db, spec, dev, exec_ms: dict | None = None,
                               "topk_cap", "join_bucket")}}
     log("service regrowth " + json.dumps(regrowth))
     del svc
-    free()
-    return {"queries": records, "workload": workload, "regrowth": regrowth}
+    release(dev)
+    restart = restart_path(db, dev)
+    return {"queries": records, "workload": workload, "regrowth": regrowth,
+            "restart": restart}
+
+
+def restart_path(db, dev) -> dict:
+    """Phase 6's restart: a service on a persistent plan cache runs
+    Q1–Q12 (each compile stores an entry); a second service on the same
+    directory runs them again with no compile, twelve disk loads, and
+    the same raw dicts bit for bit."""
+    import tempfile
+    from repro_torch.core import QueryService
+    from repro_torch.core.queries import ALL
+    with tempfile.TemporaryDirectory(prefix="plan-cache-") as d:
+        # the build (its table upload) and the queries timed apart
+        t0 = time.perf_counter()
+        svc = QueryService(db, persist_dir=d, device=dev)
+        t1 = time.perf_counter()
+        first = {name: svc.execute(text).raw for name, text in ALL.items()}
+        first_build_s, first_s = t1 - t0, time.perf_counter() - t1
+        stores = svc.stats.persist_stores
+        del svc
+        release(dev)
+        t0 = time.perf_counter()
+        svc = QueryService(db, persist_dir=d, device=dev)
+        t1 = time.perf_counter()
+        again = {name: svc.execute(text).raw for name, text in ALL.items()}
+        restart_build_s, restart_s = t1 - t0, time.perf_counter() - t1
+        st = svc.stats
+        require(stores == len(ALL), f"{stores} entries stored for "
+                f"{len(ALL)} queries")
+        require((st.compiles, svc.executor.compile_count, st.persist_hits,
+                 st.persist_invalidations) == (0, 0, len(ALL), 0),
+                f"restart: {st.compiles} compiles, "
+                f"{svc.executor.compile_count} executor compiles, "
+                f"{st.persist_hits} persist hits, "
+                f"{st.persist_invalidations} invalidations")
+        for name in ALL:
+            require(raw_identical(again[name], first[name]),
+                    f"{name}: the restarted service's result differs")
+        info = svc.persist_info()
+        out = {"queries": len(ALL), "stores": stores, "compiles":
+               st.compiles, "persist_hits": st.persist_hits,
+               "entries": info.entries, "bytes": info.bytes,
+               "first_build_s": first_build_s, "first_queries_s": first_s,
+               "restart_build_s": restart_build_s,
+               "restart_queries_s": restart_s}
+        del svc, first, again
+        release(dev)
+    log("service restart " + json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: spmd over a process group
+# ---------------------------------------------------------------------------
+
+def free_port() -> int:
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spmd_path(spec, dev, backend: str, counters: dict | None = None,
+              exec_ms: dict | None = None, capture=None) -> dict:
+    """Phase 7: the database at ``spec`` with P = 1, Q1–Q12 in spmd mode
+    over an in-process process group of one rank (``backend``: NCCL on
+    the card, gloo in the CPU rehearsal) through
+    ``Executor.run(mode="spmd")`` with presized caps, on the kernel route
+    (cold, warm) and the plain route, both join strategies for Q5–Q8,
+    then through ``QueryService(mode="spmd")`` cold and warm. Every
+    result must agree with ``reference_results``, the routes with each
+    other, and afterwards each raw dict with sim mode's on the same
+    database. ``counters``: the query kernels' wrappers, set to 0 before
+    the spmd runs and read after them (the sim comparison comes later);
+    ``exec_ms``: phase 3's warm ms per query, printed beside;
+    ``capture``: a ``Capture`` that sees the kernel route's warm spmd
+    runs (the kernels' P = 1 inputs)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import (ExecConfig, Executor, QueryService,
+                                  compile_query)
+    from repro_torch.core.presize import presized_config
+    from repro_torch.core.queries import ALL, JOINS
+    from repro_torch.data.weather import build_database
+    from repro_torch.launch.mesh import make_data_mesh
+    on_cuda = dev.type == "cuda"
+    want = reference_results(spec)
+
+    def sync():
+        if on_cuda:
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    db = build_database(spec, 1)
+    log(f"spmd data P=1: ingest {time.perf_counter() - t0:.1f} s")
+    for w in (counters or {}).values():
+        w.launches = 0
+    dist.init_process_group(backend, init_method="tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_data_mesh(dev)
+        ex = Executor(db, device=dev)
+        t0 = time.perf_counter()
+        ex.partition_tables(0)
+        sync()
+        log(f"spmd rank 0 of {mesh.size()} ({dist.get_backend()}): upload "
+            f"{time.perf_counter() - t0:.1f} s, "
+            f"{(torch.cuda.memory_allocated(dev) / 2**30) if on_cuda else 0:.3f}"
+            " GiB on the card")
+        records, kept = {}, {}
+        for strategy in ("broadcast", "repartition"):
+            for name, text in ALL.items():
+                if strategy == "repartition" and name not in JOINS:
+                    continue
+                plan = compile_query(text)
+                cfg = presized_config(db, plan,
+                                      ExecConfig(join_strategy=strategy))
+                plain = dataclasses.replace(cfg, use_kernel_join=False,
+                                            use_kernel_segments=False)
+                if on_cuda:
+                    torch.cuda.reset_peak_memory_stats(dev)
+                _, _, cold_ms = run_query(ex, plan, cfg, "spmd", mesh)
+                g0 = ex.gathered_bytes
+                with capture if capture is not None \
+                        else contextlib.nullcontext():
+                    raw, rs, warm_ms = run_query(ex, plan, cfg, "spmd", mesh)
+                gathered = ex.gathered_bytes - g0
+                peak = (torch.cuda.max_memory_allocated(dev) / 2**20
+                        if on_cuda else 0.0)
+                praw, _, plain_ms = run_query(ex, plan, plain, "spmd", mesh)
+                require(not rs.overflow,
+                        f"spmd {name}: overflow at presized caps {cfg}")
+                raw_agree(f"spmd {name} {strategy}", plan, raw, praw)
+                rows = rs.rows()
+                check_reference(name, rows, want[name])
+                kept[strategy, name] = (plan, cfg, raw)
+                if strategy == "repartition":
+                    records[name]["repartition_warm_ms"] = warm_ms
+                    continue
+                records[name] = {
+                    "query": name, "rows": len(rows), "cold_ms": cold_ms,
+                    "warm_ms": warm_ms, "plain_warm_ms": plain_ms,
+                    "peak_mib": peak, "host_bytes": host_bytes(raw),
+                    "gathered_bytes": gathered}
+        del ex
+        release(dev)
+        svc = QueryService(db, mode="spmd", mesh=mesh, device=dev)
+        served = {}
+        for name, text in ALL.items():
+            sync()
+            t0 = time.perf_counter()
+            svc.execute(text)
+            cold_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            rs = svc.execute(text)
+            warm_ms = (time.perf_counter() - t0) * 1e3
+            require(not rs.overflow, f"spmd service {name}: overflow")
+            check_reference(name, rs.rows(), want[name])
+            # held against sim mode at the service's own config below
+            served[name] = (compile_query(text),
+                            svc._good_cfg[svc.prepare(text).signature],
+                            rs.raw)
+            records[name].update(service_cold_ms=cold_ms,
+                                 service_warm_ms=warm_ms)
+        compiles = svc.stats.compiles
+        del svc
+        release(dev)
+        launches = {k: w.launches for k, w in (counters or {}).items()}
+        # afterwards, not counted: sim mode on the same database
+        ex = Executor(db, device=dev)
+        for (strategy, name), (plan, cfg, raw) in kept.items():
+            sraw, _, _ = run_query(ex, plan, cfg)
+            raw_agree(f"{name} {strategy} spmd vs sim", plan, raw, sraw)
+        for name, (plan, cfg, raw) in served.items():
+            sraw, _, _ = run_query(ex, plan, cfg)
+            raw_agree(f"{name} spmd service vs sim", plan, raw, sraw)
+        del ex
+        release(dev)
+    finally:
+        dist.destroy_process_group()
+    for name, rec in records.items():
+        if exec_ms is not None:
+            rec["phase3_warm_ms"] = exec_ms[name]
+        log("spmd " + json.dumps(rec))
+    out = {"queries": list(records.values()), "launches": launches,
+           "service_compiles": compiles}
+    log("spmd path " + json.dumps({"launches": launches,
+                                   "service_compiles": compiles}))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the MRQL-like baseline
+# ---------------------------------------------------------------------------
+
+def mrql_path(db, spec, dev, service_ms: dict | None = None) -> list:
+    """Phase 8: Q1–Q12 through ``MrqlLike`` (map tasks one partition at a
+    time on ``dev``, every job boundary on the host, joins and grouping
+    in host reducers) on ``db``; rows must agree with
+    ``reference_results``. ``service_ms``: the service's warm ms per
+    query (phase 6), printed beside: the paper's §5.3.2 comparison on
+    one card, with no claim."""
+    import torch
+    from repro_torch.core import compile_query
+    from repro_torch.core.baselines import MrqlLike
+    from repro_torch.core.queries import ALL
+    want = reference_results(spec)
+    mr = MrqlLike(db, device=dev)
+    t0 = time.perf_counter()
+    for part in range(mr.ex.num_partitions):     # outside the query times
+        mr.ex.partition_tables(part)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    log(f"mrql tables of {mr.ex.num_partitions} partitions uploaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    records = []
+    for name, text in ALL.items():
+        plan = compile_query(text)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = mr.run(plan)
+        ms = (time.perf_counter() - t0) * 1e3
+        require(not res.overflow, f"mrql {name}: overflow")
+        check_reference(name, res.rows(), want[name])
+        rec = {"query": name, "rows": len(res.rows()), "ms": ms,
+               "jobs": res.jobs}
+        if service_ms is not None:
+            rec["service_warm_ms"] = service_ms[name]
+            rec["mrql_over_service"] = ms / service_ms[name]
+        log("mrql " + json.dumps(rec))
+        records.append(rec)
+    del mr
+    release(dev)
+    return records
 
 
 # ---------------------------------------------------------------------------
@@ -1053,7 +1315,8 @@ def sum_count_library(vals, segs, valid, s):
     return fn
 
 
-def agg_record(args, launches: dict, edge_errs: dict) -> dict:
+def agg_record(args, launches: dict, edge_errs: dict,
+               where: str = "main-path shape") -> dict:
     """``segmented_aggregate`` on one main-path input. The bound counts
     the bytes the work needs: every valid flag, the valid rows' segment
     ids, values and ok flags, and the outputs; the shape record keeps
@@ -1076,11 +1339,12 @@ def agg_record(args, launches: dict, edge_errs: dict) -> dict:
         max(err, edge_errs["segmented_aggregate"]),
         lambda: seg_aggregate.segmented_aggregate(*args),
         lambda: ref.segmented_aggregate(*args), agg_library(*args), nbytes,
-        0.0, "float32", shape)
+        0.0, "float32", shape, where)
 
 
 def main_shape_timings(best: dict, agg_calls: list, launches: dict,
-                       edge_errs: dict) -> list:
+                       edge_errs: dict, where: str = "main-path shape"
+                       ) -> list:
     """Phase 4: each executor kernel on the largest input the query path
     gave it (``segmented_sum_count``: the first value column of the
     largest aggregate input, rows not ``ok`` invalid): parity with the
@@ -1098,10 +1362,10 @@ def main_shape_timings(best: dict, agg_calls: list, launches: dict,
         args = best[src][1]
         lib = None
         if name == "segmented_aggregate":
-            log("kernel segmented_aggregate at the densest main-path input:")
-            agg_record(dense, launches, edge_errs)
-            log("kernel segmented_aggregate at the largest main-path input:")
-            out.append(agg_record(args, launches, edge_errs))
+            log(f"kernel segmented_aggregate at the densest input ({where}):")
+            agg_record(dense, launches, edge_errs, where)
+            log(f"kernel segmented_aggregate at the largest input ({where}):")
+            out.append(agg_record(args, launches, edge_errs, where))
             continue
         if name == "block_join_probe":
             bk, bv, pk, pv = args
@@ -1157,7 +1421,7 @@ def main_shape_timings(best: dict, agg_calls: list, launches: dict,
                          (p * n * 9 + p * s * 8) / HBM_BYTES_PER_S * 1e3}
         out.append(kernel_record(name, launches, max(err, edge_errs[name]),
                                  run, plain, lib, nbytes, 0.0, "float32",
-                                 shape))
+                                 shape, where))
     return out
 
 
@@ -1445,9 +1709,9 @@ def main() -> int:
     ingest_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     ex = Executor(db, device=dev)
-    torch.cuda.synchronize()
     nodes = sum(t["kind"].numel() for k, t in ex.tables.items()
-                if k != "__derived__")
+                if k != "__derived__")            # the upload
+    torch.cuda.synchronize()
     log(f"data {json.dumps(SPEC)} P={PARTITIONS}: {nodes} padded nodes, "
         f"{len(db.strings)} strings, ingest {ingest_s:.1f} s, upload "
         f"{time.perf_counter() - t0:.1f} s, "
@@ -1481,14 +1745,14 @@ def main() -> int:
                                   launches, edge_errs)}
     hubert_flash_record(dev)
     del ex, capture
-    torch.cuda.empty_cache()
+    release(dev)
 
     t0 = time.perf_counter()
     for w in wrappers.values():
         w.launches = 0
-    service_path(db, spec, dev, {r["query"]: r["warm_ms"]
-                                 for r in query_records},
-                 counters={k: wrappers[k] for k in query_kernels})
+    served = service_path(db, spec, dev, {r["query"]: r["warm_ms"]
+                                          for r in query_records},
+                          counters={k: wrappers[k] for k in query_kernels})
     service_launches = {k: w.launches for k, w in wrappers.items()}
     log(f"service path launches {json.dumps(service_launches)} "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -1498,8 +1762,32 @@ def main() -> int:
     require(all(service_launches[k] == 0 for k in lm_kernels),
             f"the service path launched an attention kernel: "
             f"{service_launches}")
+
+    t0 = time.perf_counter()
+    capture = Capture(ops)
+    spmd = spmd_path(spec, dev, "nccl", {k: wrappers[k] for k in wrappers},
+                     {r["query"]: r["warm_ms"] for r in query_records},
+                     capture)
+    require(all(spmd["launches"][k] > 0 for k in query_kernels),
+            f"a query kernel never launched on the spmd path: "
+            f"{spmd['launches']}")
+    require(all(spmd["launches"][k] == 0 for k in lm_kernels),
+            f"the spmd path launched an attention kernel: "
+            f"{spmd['launches']}")
+    # the three query kernels at the P = 1 shapes spmd gave them (logged;
+    # the JSON line keeps phase 4's records)
+    main_shape_timings(capture.best, capture.agg_calls, spmd["launches"],
+                       edge_errs, where="spmd P=1 shape")
+    del capture
+    release(dev)
+    log(f"spmd path ok ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    mrql_path(db, spec, dev, {r["query"]: r["warm_ms"]
+                              for r in served["queries"]})
+    log(f"mrql path ok ({time.perf_counter() - t0:.1f} s)")
     del db
-    torch.cuda.empty_cache()
+    release(dev)
 
     t0 = time.perf_counter()
     last = LastCall(ops)

@@ -1,12 +1,22 @@
 """Plan executor: logical plan -> one eager PyTorch function.
 
-Execution model: a query compiles to a function over the node tables
-of all P partitions at once. Where the JAX package runs one partition's
-function under ``jax.vmap(axis_name="data")``, every tensor here carries
-a leading ``[P]`` dimension, and the collectives of a Hyracks job become
-reductions over that dimension (``Comm``): psum for two-step
-aggregation, all_gather for the hybrid-hash build broadcast, an
-all_gather + own-slot select for grace-style repartition.
+Execution model, two modes as in the JAX package:
+
+* ``sim``: a query compiles to a function over the node tables of all
+  P partitions at once. Where the JAX package runs one partition's
+  function under ``jax.vmap(axis_name="data")``, every tensor here
+  carries a leading ``[P]`` dimension, and the collectives of a
+  Hyracks job become reductions over that dimension (``Comm``): psum
+  for two-step aggregation, all_gather for the hybrid-hash build
+  broadcast, an all_gather + own-slot select for grace-style
+  repartition.
+* ``spmd``: one partition a rank of a ``torch.distributed`` group (the
+  JAX package's ``shard_map`` over a "data" mesh). Each rank holds only
+  its own partition on its device, every tensor carries a leading
+  dimension of 1, and ``SpmdComm`` computes the same collectives over
+  the group: an all_gather, then the reduction sim mode runs, so both
+  modes give the same bits. The outputs are all-gathered before the
+  function returns, so every rank returns sim mode's [P, ...] dict.
 
 "Compile" in this slice builds an eager closure over the device tables;
 nothing is traced or captured. The raw-output dict it returns has the
@@ -16,7 +26,9 @@ so port and reference compare dict to dict.
 
 Entry points run on the GPU unless the caller asks for the CPU:
 ``Executor(db)`` takes ``device="cuda"`` and raises where there is no
-CUDA device; tests pass ``device="cpu"``.
+CUDA device; tests pass ``device="cpu"``. The device tables are
+uploaded at first use: all P partitions for sim mode, one partition a
+rank for spmd mode.
 """
 from __future__ import annotations
 
@@ -36,7 +48,7 @@ from repro_torch.kernels import ref as kref
 I32 = torch.int32
 F32 = torch.float32
 I32_MAX = 2**31 - 1
-_LATER = "ROADMAP.md, modules to port: "
+MODES = ("sim", "spmd")
 
 
 @dataclasses.dataclass
@@ -155,10 +167,14 @@ class EvalCtx:
 class Comm:
     """Collectives over the leading partition dimension: what
     ``lax.psum``/``all_gather``/``axis_index`` give each partition under
-    ``vmap``, computed for all partitions at once."""
+    ``vmap``, computed for all partitions at once.
+
+    ``local`` is the leading size of every tensor of a run (P here, 1
+    under ``SpmdComm``); ``size()`` is the number of partitions the
+    collectives span."""
 
     def __init__(self, num_partitions: int, device: torch.device):
-        self.p = num_partitions
+        self.local = num_partitions
         self.device = device
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
@@ -172,14 +188,64 @@ class Comm:
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """[P, ...] -> [P, P, ...]: every partition sees the stack."""
-        return x.unsqueeze(0).expand((self.p,) + tuple(x.shape))
+        return x.unsqueeze(0).expand((self.local,) + tuple(x.shape))
 
     def index(self) -> torch.Tensor:
         """[P, 1]: each partition's own index, shaped to broadcast."""
-        return torch.arange(self.p, device=self.device).view(self.p, 1)
+        return torch.arange(self.local, device=self.device).view(
+            self.local, 1)
 
     def size(self) -> int:
-        return self.p
+        return self.local
+
+
+class SpmdComm(Comm):
+    """The same collectives over a ``torch.distributed`` group, one
+    partition a rank (leading dimension 1). Every reduction is an
+    all_gather followed by the reduction ``Comm`` runs over the
+    gathered [P, ...] stack, so sums add in sim mode's order and both
+    modes give the same bits; bools travel as uint8 (NCCL and gloo
+    reduce no bool, and NCCL's SUM is no OR). ``nbytes`` counts the
+    bytes each rank receives."""
+
+    def __init__(self, group, rank: int, world: int, device: torch.device):
+        super().__init__(1, device)
+        self.group = group
+        self.rank = rank
+        self.world = world
+        self.nbytes = 0
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """[1, ...] on each rank -> [P, ...], rank order, on every
+        rank."""
+        import torch.distributed as dist
+        wire = (x.to(torch.uint8) if x.dtype == torch.bool else x
+                ).contiguous()
+        out = torch.empty((self.world,) + tuple(wire.shape[1:]),
+                          dtype=wire.dtype, device=wire.device)
+        dist.all_gather_into_tensor(out, wire, group=self.group)
+        self.nbytes += out.numel() * out.element_size()
+        return out.bool() if x.dtype == torch.bool else out
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        return self.gather(x).sum(dim=0, keepdim=True)
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        return self.gather(x).amax(dim=0, keepdim=True)
+
+    def pmin(self, x: torch.Tensor) -> torch.Tensor:
+        return self.gather(x).amin(dim=0, keepdim=True)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """[1, ...] -> [1, P, ...]."""
+        return self.gather(x).unsqueeze(0)
+
+    def index(self) -> torch.Tensor:
+        return torch.full((1, 1), self.rank, dtype=torch.int64,
+                          device=self.device)
+
+    def size(self) -> int:
+        return self.world
 
 
 # ---------------------------------------------------------------------------
@@ -283,13 +349,13 @@ def _capped_uniques(masked_sid: torch.Tensor, k: int,
     partition's smallest k distinct), then all-gathers only [P, k]."""
     local = _sorted_distinct(masked_sid, k)
     gathered = comm.all_gather(local)
-    return _sorted_distinct(gathered.reshape(comm.p, -1), k)
+    return _sorted_distinct(gathered.reshape(comm.local, -1), k)
 
 
 def _flat(x: torch.Tensor, comm: Comm) -> torch.Tensor:
     """all_gather then merge the source-partition dimension:
     [P, N, ...] -> [P, P * N, ...]."""
-    return comm.all_gather(x).reshape((comm.p, -1) + tuple(x.shape[2:]))
+    return comm.all_gather(x).reshape((comm.local, -1) + tuple(x.shape[2:]))
 
 
 def _exchange(keys: tuple, valid, cols: dict, comm: Comm,
@@ -358,16 +424,111 @@ class Executor:
         self.db = db
         self.config = config or ExecConfig()
         self.device = resolve_device(device)
-        self.tables = device_tables(db, self.device)
         parts = {len(c.partitions) for c in db.collections.values()}
         assert len(parts) == 1, "collections must agree on partitioning"
         self.num_partitions = parts.pop()
+        # the derived per-sid arrays intern every uppercase string, so
+        # the string dictionary is final from here on (the service's
+        # group ceiling reads its size); the upload waits for first use
+        self._derived = db.derived()
+        self._tables: Optional[dict] = None        # sim: all partitions
+        self._rank_tables: dict[int, dict] = {}    # spmd: rank -> slice
+        # set once a donated run released the tables (they are shared
+        # by every compiled variant, so donation spends the executor)
+        self._tables_donated = False
         # observability for the service layer's cache assertions
         self.compile_count = 0      # Executor.compile invocations
+        # spmd: bytes all-gathered by this rank over every run
+        self.gathered_bytes = 0
+
+    # -- table plumbing ------------------------------------------------------
+
+    @property
+    def tables(self) -> dict:
+        """Sim mode's device tables, all P partitions, uploaded at first
+        use."""
+        self._check_tables()
+        if self._tables is None:
+            self._tables = device_tables(self.db, self.device,
+                                         derived=self._derived)
+        return self._tables
+
+    def partition_tables(self, rank: int) -> dict:
+        """Spmd mode's device tables of one rank: partition ``rank``
+        alone ([1, N] a column; views of sim mode's tables when those
+        are already on the device) and the shared derived arrays."""
+        self._check_tables()
+        got = self._rank_tables.get(rank)
+        if got is None:
+            part = slice(rank, rank + 1)
+            if self._tables is not None:
+                got = {k: v if k == "__derived__" else _slice_tree(v, part)
+                       for k, v in self._tables.items()}
+            else:
+                got = device_tables(self.db, self.device, parts=part,
+                                    derived=self._derived)
+            self._rank_tables[rank] = got
+        return got
+
+    def padded_rows(self) -> int:
+        """Widest padded per-partition node table: the scan-capacity
+        ceiling, read from the database without an upload."""
+        return max(c.padded_width() for c in self.db.collections.values())
+
+    def _check_tables(self) -> None:
+        if self._tables_donated:
+            raise RuntimeError(
+                "this executor's tables were released by a donated run; "
+                "build a new Executor to keep querying")
+
+    def _release_tables(self) -> None:
+        self._tables = None
+        self._rank_tables = {}
+        self._tables_donated = True
+
+    def spmd_group(self, mesh) -> tuple[Any, int, int]:
+        """(group, rank, size) of a 1-D ``DeviceMesh`` (the "data" axis
+        of ``launch.mesh.make_data_mesh``), checked against this
+        executor: one partition a rank, on the mesh's device type."""
+        import torch.distributed as dist
+        if mesh is None:
+            raise ValueError("mode='spmd' needs a mesh "
+                             "(repro_torch.launch.mesh.make_data_mesh)")
+        if mesh.ndim != 1:
+            raise ValueError(f"spmd runs over a 1-D mesh, got the "
+                             f"{mesh.ndim}-D {mesh.mesh_dim_names}")
+        if mesh.device_type != self.device.type:
+            raise ValueError(
+                f"the mesh is on {mesh.device_type!r}, the executor on "
+                f"{self.device.type!r}")
+        group = mesh.get_group(0)
+        world = dist.get_world_size(group)
+        if world != self.num_partitions:
+            raise ValueError(
+                f"spmd runs one partition a rank: the database has "
+                f"{self.num_partitions} partitions, the group {world} "
+                f"ranks")
+        return group, dist.get_rank(group), world
+
+    def _call(self, cp: "CompiledPlan", params: tuple = ()) -> dict:
+        """One run of a compiled plan against its mode's tables; a
+        donated plan releases the tables when it returns."""
+        self._check_tables()
+        if cp.donated and cp.spent:
+            raise RuntimeError(
+                "a donated CompiledPlan runs once; recompile without "
+                "donate to run it again")
+        tables = (self.partition_tables(cp.rank) if cp.mode == "spmd"
+                  else self.tables)
+        out = cp.fn(tables, tuple(params))
+        if cp.donated:
+            cp.spent = True
+            self._release_tables()
+        return out
 
     # -- plan compilation ----------------------------------------------------
 
-    def compile(self, plan: A.Op, mode: str = "sim",
+    def compile(self, plan: A.Op, mode: str = "sim", mesh=None,
                 config: Optional[ExecConfig] = None,
                 param_specs: tuple = (), batch: Optional[int] = None,
                 profile: bool = False, aot: bool = False,
@@ -377,6 +538,14 @@ class Executor:
         ``config`` overrides the executor's default ExecConfig for this
         compilation only (the service recompiles one plan with grown
         capacities against the same device tables).
+
+        ``mode="spmd"`` runs one partition a rank of ``mesh`` (a 1-D
+        ``DeviceMesh`` over an initialized process group; the database
+        must have one partition per rank, else ``ValueError``): the
+        rank's own partition is its only table upload, the collectives
+        go over the group, and the outputs are all-gathered, so every
+        rank returns the same [P, ...] dict sim mode returns. Every rank
+        must compile and run the same plans in the same order.
 
         ``param_specs`` enables the prepared-query calling convention:
         the plan may hold ``algebra.Param`` leaves, and fn takes
@@ -393,42 +562,80 @@ class Executor:
         ``QueryService.explain(profile=True)``.
 
         "Compile" builds an eager closure; nothing is traced or
-        captured. Only the partition-simulating ``sim`` mode is ported;
-        ``spmd``, ``aot`` and ``donate`` wait for later slices and
-        raise."""
-        if mode != "sim":
-            raise NotImplementedError(
-                f"mode={mode!r} is not ported yet ({_LATER}item 6, "
-                "SPMD mode)")
-        if aot or donate:
-            raise NotImplementedError(
-                f"aot/donate are not ported yet ({_LATER}item 4, "
-                "core/persist.py)")
+        captured. ``aot=True`` runs it once at compile time against the
+        executor's tables and canonical example parameters
+        (``example_params``), so the column schema is known before the
+        caller's first run: what the persistent plan cache
+        (core/persist.py) stores beside the plan. ``donate=True`` makes
+        a one-shot plan: its run releases the executor's device tables,
+        and every later run of this executor raises (aot is ignored)."""
         if batch is not None and not param_specs:
             raise ValueError("batched compilation needs parameters")
         cfg = resolve_kernel_policy(plan, config or self.config,
                                     self.device)
+        cp = self._build(plan, mode, mesh, cfg, tuple(param_specs), batch,
+                         profile, schema={})
         self.compile_count += 1
-        schema: dict[int, tuple] = {}
+        cp.donated = donate
+        if aot and not donate:
+            self.prime(cp)
+        return cp
+
+    def prime(self, cp: "CompiledPlan") -> None:
+        """Run ``cp`` once against the canonical example parameters
+        (``example_params``) and drop the outputs: its column schema is
+        filled in. Under spmd it is a collective run, so every rank
+        primes the same plans in the same order."""
+        self._call(cp, example_params(cp.param_specs, cp.batch, self.device))
+
+    def load(self, plan: A.Op, schema: dict, config: ExecConfig,
+             mode: str = "sim", mesh=None, param_specs: tuple = (),
+             batch: Optional[int] = None) -> "CompiledPlan":
+        """Rebuild the closure of a plan compiled earlier (a persistent
+        plan-cache entry: ``config`` resolved, ``schema`` as its compile
+        left it). Not a compile: ``compile_count`` stays as it is."""
+        return self._build(plan, mode, mesh, config, tuple(param_specs),
+                           batch, False, schema=dict(schema))
+
+    def _build(self, plan: A.Op, mode: str, mesh, cfg: ExecConfig,
+               param_specs: tuple, batch: Optional[int], profile: bool,
+               schema: dict) -> "CompiledPlan":
+        if mode not in MODES:
+            raise ValueError(f"mode={mode!r}; one of {MODES}")
+        rank = None
+        if mode == "spmd":
+            group, rank, world = self.spmd_group(mesh)
         prof_meta: Optional[dict] = {} if profile else None
         op_index = ({id(op): i for i, op in enumerate(A.walk(plan))}
                     if profile else None)
 
         def local(tables: dict, params: tuple) -> dict:
             ev = ExprEval(self.db, tables, self.device, params=params)
-            comm = Comm(self.num_partitions, self.device)
+            comm = (SpmdComm(group, rank, world, self.device)
+                    if mode == "spmd" else
+                    Comm(self.num_partitions, self.device))
             ctx = (EvalCtx(cfg, prof={}, op_index=op_index,
                            prof_meta=prof_meta) if profile
                    else EvalCtx(cfg))
             with torch.no_grad():
                 tile = self._eval(plan, ev, comm, None, ctx)
-                return self._outputs(plan, tile, ev, schema, ctx, comm)
+                out = self._outputs(plan, tile, ev, schema, ctx, comm)
+                if mode == "spmd":
+                    # the host sees global [P, ...] arrays, as under
+                    # the reference's out_specs=P("data")
+                    out = {k: tuple(comm.gather(d) for d in v)
+                           if isinstance(v, tuple) else comm.gather(v)
+                           for k, v in out.items()}
+                    self.gathered_bytes += comm.nbytes
+            return out
 
         if batch is None:
             def fn(tables: dict, params: tuple = ()) -> dict:
                 return local(tables, tuple(params))
         else:
             def fn(tables: dict, params: tuple) -> dict:
+                # the bindings in turn: under spmd every rank issues
+                # its collectives in the same order
                 outs = [local(tables, tuple(p[b] for p in params))
                         for b in range(batch)]
                 return {k: (tuple(torch.stack([o[k][i] for o in outs])
@@ -437,13 +644,13 @@ class Executor:
                             torch.stack([o[k] for o in outs]))
                         for k, v in outs[0].items()}
 
-        return CompiledPlan(fn, schema, plan, cfg,
-                            param_specs=tuple(param_specs), batch=batch,
-                            profile_meta=prof_meta)
+        return CompiledPlan(fn, schema, plan, cfg, param_specs=param_specs,
+                            batch=batch, profile_meta=prof_meta, mode=mode,
+                            rank=rank)
 
-    def run(self, plan: A.Op, mode: str = "sim",
+    def run(self, plan: A.Op, mode: str = "sim", mesh=None,
             config: Optional[ExecConfig] = None) -> "ResultSet":
-        return self.run_compiled(self.compile(plan, mode=mode,
+        return self.run_compiled(self.compile(plan, mode=mode, mesh=mesh,
                                               config=config))
 
     def run_raw(self, cp: "CompiledPlan",
@@ -458,8 +665,8 @@ class Executor:
                 raise ValueError(
                     f"plan expects {len(cp.param_specs)} parameters, "
                     f"got {None if params is None else len(params)}")
-            return cp.fn(self.tables, tuple(params))
-        return cp.fn(self.tables)
+            return self._call(cp, tuple(params))
+        return self._call(cp)
 
     def run_compiled(self, cp: "CompiledPlan",
                      params: Optional[tuple] = None) -> "ResultSet":
@@ -478,7 +685,7 @@ class Executor:
         host in one copy each. Returns one ResultSet per real
         request."""
         assert cp.batch is not None and count <= cp.batch
-        raw = to_numpy(cp.fn(self.tables, tuple(stacked)))
+        raw = to_numpy(self._call(cp, tuple(stacked)))
 
         def take(v, b):
             return tuple(d[b] for d in v) if isinstance(v, tuple) \
@@ -491,8 +698,8 @@ class Executor:
 
     # -- recursive evaluation -------------------------------------------------
 
-    def _trivial_tile(self) -> Tile:
-        p = self.num_partitions
+    def _trivial_tile(self, comm: Comm) -> Tile:
+        p = comm.local
         return Tile(cols={},
                     valid=torch.ones((p, 1), dtype=torch.bool,
                                      device=self.device),
@@ -510,16 +717,16 @@ class Executor:
             idx = ctx.op_index.get(id(op))
             if idx is not None:
                 ctx.prof[idx] = tile.valid.reshape(
-                    self.num_partitions, -1).sum(dim=1, dtype=I32)
+                    comm.local, -1).sum(dim=1, dtype=I32)
         return tile
 
     def _eval_op(self, op: A.Op, ev: ExprEval, comm: Comm,
                  nts_input: Optional[Tile], ctx: EvalCtx) -> Tile:
         if isinstance(op, A.EmptyTupleSource):
-            return self._trivial_tile()
+            return self._trivial_tile(comm)
         if isinstance(op, A.NestedTupleSource):
             return nts_input if nts_input is not None \
-                else self._trivial_tile()
+                else self._trivial_tile(comm)
         if isinstance(op, A.DataScan):
             below = self._eval(op.child, ev, comm, nts_input, ctx)
             if below.cols:
@@ -599,7 +806,7 @@ class Executor:
         valid = t.valid & (sid >= 0)
         cap = ctx.cfg.group_cap
         fused = bool(ctx.cfg.use_kernel_segments)
-        p = comm.p
+        p = comm.local
         if cap is not None and cap < dict_size:
             # capped segment space: dense dynamic key dictionary
             nseg = cap
@@ -715,7 +922,7 @@ class Executor:
             elif fn in ("min", "max"):
                 safe = seg.clamp(0, nseg - 1).long()
                 fill = float("inf") if fn == "min" else float("-inf")
-                init = torch.full((comm.p, nseg), fill, dtype=F32,
+                init = torch.full((comm.local, nseg), fill, dtype=F32,
                                   device=seg.device)
                 vv = torch.where(ok, v, torch.full_like(v, fill))
                 local = init.scatter_reduce(
@@ -826,7 +1033,7 @@ class Executor:
         arg = expr.args[0]
         if isinstance(arg, A.Call) and arg.fn == "treat":
             arg = arg.args[0]
-        p = comm.p
+        p = comm.local
 
         def local(x):               # per-partition reduction input
             return x.reshape(p, -1)
@@ -943,7 +1150,8 @@ class Executor:
         out: dict[str, Any] = {"valid": tile.valid,
                                "overflow": tile.overflow}
         for flag in OVERFLOW_FLAGS.values():
-            acc = torch.zeros(comm.p, dtype=torch.bool, device=self.device)
+            acc = torch.zeros(comm.local, dtype=torch.bool,
+                              device=self.device)
             for f in ctx.ovf[flag]:
                 acc = acc | f
             out[flag] = acc
@@ -973,6 +1181,12 @@ class Executor:
         return out
 
 
+def _slice_tree(tree, part: slice):
+    if isinstance(tree, dict):
+        return {k: _slice_tree(v, part) for k, v in tree.items()}
+    return tree[part]
+
+
 def to_numpy(raw: dict) -> dict:
     """Raw-output dict of tensors -> the same dict of numpy arrays."""
     def conv(x):
@@ -996,6 +1210,10 @@ class CompiledPlan:
     batch: Optional[int] = None           # B of a batched fn
     profile_meta: Optional[dict] = None   # profile=True: op order,
     #                                       filled at run time
+    mode: str = "sim"
+    rank: Optional[int] = None            # spmd: this process's rank
+    donated: bool = False                 # one-shot: tables die with run 1
+    spent: bool = dataclasses.field(default=False, repr=False)
 
 
 class ResultSet:

@@ -35,23 +35,31 @@ NEG = -1
 # Device-side table bundle
 # ---------------------------------------------------------------------------
 
-def device_tables(db: xdm.Database, device: torch.device) -> dict:
+def device_tables(db: xdm.Database, device: torch.device,
+                  parts: slice = slice(None),
+                  derived: Optional[dict] = None) -> dict:
     """Pack a Database into tensors on ``device``:
     {collection: {col: [P, ...]}} plus the shared per-sid derived
-    arrays under ``__derived__``."""
+    arrays under ``__derived__``. ``parts`` keeps a slice of the
+    partitions (spmd mode: one rank's own); ``derived`` is
+    ``db.derived()`` when the caller already has it."""
     def put(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+    if derived is None:
+        derived = db.derived()
     out: dict[str, Any] = {"__derived__": {
-        k: put(v) for k, v in db.derived().items()}}
+        k: put(v) for k, v in derived.items()}}
     for name, coll in db.collections.items():
         t = coll.padded()
         out[name] = {
-            "kind": put(t.kind), "name": put(t.name),
-            "parent": put(t.parent), "text_sid": put(t.text_sid),
-            "text_num": put(t.text_num), "text_date": put(t.text_date),
-            "field_map": put(t.field_map),
-            "multi": {k: put(v) for k, v in t.multi.items()},
+            "kind": put(t.kind[parts]), "name": put(t.name[parts]),
+            "parent": put(t.parent[parts]),
+            "text_sid": put(t.text_sid[parts]),
+            "text_num": put(t.text_num[parts]),
+            "text_date": put(t.text_date[parts]),
+            "field_map": put(t.field_map[parts]),
+            "multi": {k: put(v[parts]) for k, v in t.multi.items()},
         }
     return out
 

@@ -47,9 +47,21 @@ service adds:
    counts, with the top-k pushdown (``pushdown_topk=False`` restores
    full-sort-then-slice).
 
-Not ported yet: the persistent disk cache (``persist_dir``, ROADMAP
-item 4) and SPMD mode (``mode != "sim"``, item 6) raise
-``NotImplementedError``.
+6. **Restart survival.** With ``persist_dir`` set, every serving
+   variant's compiled plan is written to a disk cache
+   (core/persist.py) after its first run; a restarted service on the
+   same directory loads it instead of compiling (``stats.compiles``
+   stays 0). A corrupt or foreign-fingerprint entry is invalidated and
+   recompiled, never served. A load and a compile are followed by the
+   same runs, so spmd ranks whose disk caches differ stay in
+   lockstep.
+
+7. **SPMD.** ``mode="spmd", mesh=...`` runs every plan one partition a
+   rank of the mesh's process group (``launch.mesh.make_data_mesh``).
+   Every rank's service must receive the same requests in the same
+   order; each reads the same all-gathered outputs and flags, so the
+   plan cache, the regrowth ladder, batching and the admission runtime
+   stay in lockstep across ranks.
 
 The service builds its ``Executor`` on the GPU unless the caller asks
 for the CPU (``device="cpu"``); the executor's three query kernels
@@ -65,10 +77,12 @@ from collections import OrderedDict
 from typing import Optional, Sequence, Union
 
 from repro_torch.core import algebra as A
+from repro_torch.core import persist as persist_mod
 from repro_torch.core import xdm
 from repro_torch.core.errors import InvalidArgumentError
-from repro_torch.core.executor import (CompiledPlan, ExecConfig, Executor,
-                                       ResultSet)
+from repro_torch.core.executor import (MODES, CompiledPlan, ExecConfig,
+                                       Executor, ResultSet,
+                                       resolve_kernel_policy)
 from repro_torch.core.obs import trace as obs_trace
 from repro_torch.core.obs.metrics import (MetricsRegistry, stats_diff,
                                           stats_snapshot)
@@ -105,9 +119,9 @@ class ServiceStats:
     exact_misses: int = 0   # new binding (shared plan may still hit)
     batches: int = 0        # batched device dispatches
     batched_requests: int = 0   # requests served by those dispatches
-    # persistent compiled-plan cache (not ported yet: ROADMAP item 4);
-    # the counters stay so the metrics registry exports the JAX
-    # package's names
+    # persistent compiled-plan cache (core/persist.py): disk loads
+    # that replaced a compile, probes that found nothing, entries
+    # found unsafe (corrupt, foreign fingerprint) and deleted, stores
     persist_hits: int = 0
     persist_misses: int = 0
     persist_invalidations: int = 0
@@ -149,8 +163,9 @@ class QueryService:
     constant-variant compiles separately) — kept for ablation.
     ``warmup(templates)`` pre-loads the workload mix at boot.
     ``device=None`` runs on the GPU and raises without one; tests pass
-    ``device="cpu"``. ``persist_dir`` and ``mode != "sim"`` are not
-    ported yet and raise ``NotImplementedError``.
+    ``device="cpu"``. ``persist_dir`` attaches the disk-backed plan
+    cache (``persist_max_bytes`` bounds it); ``mode="spmd"`` with a
+    ``mesh`` runs one partition a rank of the mesh's process group.
     """
 
     def __init__(self, db: xdm.Database,
@@ -183,17 +198,15 @@ class QueryService:
             raise InvalidArgumentError(
                 f"persist_max_bytes={persist_max_bytes} must be "
                 f">= 0 (or None for unbounded)")
-        if persist_dir is not None:
-            raise NotImplementedError(
-                "the persistent plan cache is not ported yet (ROADMAP.md, "
-                "modules to port: item 4, core/persist.py)")
-        if mode != "sim" or mesh is not None:
-            raise NotImplementedError(
-                f"mode={mode!r} with a mesh is not ported yet (ROADMAP.md, "
-                "modules to port: item 6, SPMD mode)")
+        if mode not in MODES:
+            raise InvalidArgumentError(f"mode={mode!r}; one of {MODES}")
+        if (mode == "spmd") != (mesh is not None):
+            raise InvalidArgumentError(
+                "mode='spmd' runs over a mesh, and only spmd takes one")
         self.db = db
         self.base_config = config or ExecConfig()
         self.mode = mode
+        self.mesh = mesh
         self.max_retries = max_retries
         self.growth = growth
         self.presize = presize
@@ -210,6 +223,15 @@ class QueryService:
         # path free of it. Off only for ablation/benchmark isolation.
         self.verify = verify
         self.executor = Executor(db, self.base_config, device=device)
+        # the tables go to the device here, at build time, so the first
+        # request's latency holds no upload: sim mode's P partitions,
+        # or under spmd (one partition a rank, checked before any
+        # request) this rank's own
+        if mesh is not None:
+            _, rank, _ = self.executor.spmd_group(mesh)
+            self.executor.partition_tables(rank)
+        else:
+            self.executor.tables
         self.stats = ServiceStats()
         # observability: spans go to the attached tracer (default: the
         # shared no-op NULL_TRACER — the pre-instrumentation warm
@@ -238,6 +260,29 @@ class QueryService:
         # bug), and profile entries are never persisted to disk
         self._profile_cache: OrderedDict[tuple, CompiledPlan] = \
             OrderedDict()
+        # disk-backed persistent compiled-plan cache (core/persist.py).
+        # A fresh compile is stored after its first run, which fills
+        # the column schema: a disk hit and a compile then issue the
+        # same runs (and, under spmd, the same collectives). Loads are
+        # fingerprint-checked (torch/CUDA versions, device, world size,
+        # partitions, kernel sources, db digest) so a foreign
+        # environment's entry is invalidated and recompiled, never
+        # served
+        self._persist = None
+        self._fingerprint: Optional[dict] = None
+        # id(cp) -> (cp, sig, batch): compiled, not yet run or stored
+        self._unstored: dict[int, tuple] = {}
+        if persist_dir is not None:
+            self._persist = persist_mod.PlanDiskCache(
+                persist_dir, max_bytes=persist_max_bytes)
+            self._fingerprint = persist_mod.service_fingerprint(
+                db, persist_mod.host_tables(db), mode,
+                self.executor.num_partitions, self.executor.device,
+                mesh.size() if mesh is not None else 1)
+            self.metrics.gauge(
+                "persist_entries",
+                help="entries in the disk-backed compiled-plan cache",
+                fn=lambda: self._persist.info().entries)
         # level-1 cache: erased signature -> compiled plan, LRU-bounded
         self._cache: OrderedDict[tuple, CompiledPlan] = OrderedDict()
         # level-2, stats only: exact (signature, binding) -> hit count,
@@ -263,9 +308,7 @@ class QueryService:
         # scan caps are clamped to the padded per-partition table size,
         # where rows_from_mask can no longer overflow — the regrowth
         # ceiling and the proof the retry loop terminates exactly
-        self._scan_ceiling = max(
-            t["kind"].shape[1] for name, t in self.executor.tables.items()
-            if name != "__derived__")
+        self._scan_ceiling = self.executor.padded_rows()
         # join_cap's ceiling: the widest possible probe side is every
         # partition's padded rows gathered to one partition, where
         # compaction can no longer overflow
@@ -277,7 +320,7 @@ class QueryService:
         # collisions, and regrowth cannot fix those
         self._bucket_ceiling = 64
         # group_cap's ceiling: the full string dictionary (frozen by
-        # the executor's device_tables build above), where every
+        # the executor's derived-array build above), where every
         # possible key sid has its own segment slot and group-cap
         # overflow is impossible by construction
         self._group_ceiling = len(db.strings)
@@ -396,8 +439,12 @@ class QueryService:
             self.stats.cache_hits += 1
             return cp
         self.stats.cache_misses += 1
-        cp = self._compile(plan, cfg, sig, param_specs, batch,
-                           profile=False)
+        cp = self._persist_load(plan, cfg, sig, param_specs, batch)
+        if cp is None:
+            cp = self._compile(plan, cfg, sig, param_specs, batch,
+                               profile=False)
+            if self._persist is not None:
+                self._unstored[id(cp)] = (cp, sig, batch)
         self._cache[key] = cp
         before = len(self._cache)
         self._evict(self._cache, self.cache_capacity, "plans")
@@ -411,7 +458,7 @@ class QueryService:
         t0 = time.perf_counter()  # lint: allow(DET001) — compile-time metric, cold path only
         with self.tracer.span("compile", cat="service") as span:
             cp = self.executor.compile(
-                plan, mode=self.mode, config=cfg,
+                plan, mode=self.mode, mesh=self.mesh, config=cfg,
                 param_specs=param_specs, batch=batch, profile=profile)
             span.set(sig=sig_digest(sig), batch=batch,
                      profile=profile)
@@ -426,9 +473,69 @@ class QueryService:
         h["compile_s"] += time.perf_counter() - t0  # lint: allow(DET001)
         return cp
 
+    # -- persistent cache plumbing ---------------------------------------
+
+    def _persist_load(self, plan: A.Op, cfg: ExecConfig, sig: str,
+                      param_specs: tuple,
+                      batch: Optional[int]) -> Optional[CompiledPlan]:
+        """Disk probe for one compiled variant. Any unsafe state —
+        corrupt file, foreign fingerprint, an entry of another plan —
+        invalidates the entry and returns None (the caller compiles),
+        so the persistent tier can degrade but never mis-serve."""
+        if self._persist is None:
+            return None
+        rcfg = resolve_kernel_policy(plan, cfg, self.executor.device)
+        pkey = persist_mod.entry_key(sig, rcfg, self.mode,
+                                     self.executor.num_partitions, batch)
+        status, entry = self._persist.lookup(pkey, self._fingerprint)
+        if status == "invalid":
+            self.stats.persist_invalidations += 1
+            return None
+        if status == "miss":
+            self.stats.persist_misses += 1
+            return None
+        try:
+            cp = persist_mod.load_compiled(self.executor, entry, plan,
+                                           self.mode, self.mesh)
+        except Exception:
+            self._persist.invalidate(pkey)
+            self.stats.persist_invalidations += 1
+            return None
+        self.stats.persist_hits += 1
+        self.tracer.event("persist-hit", cat="service",
+                          sig=sig_digest(sig), batch=batch)
+        return cp
+
+    def _ran(self, cp: CompiledPlan) -> None:
+        """After a run of ``cp``: a fresh compile's schema is now
+        filled, so its entry goes to disk (once)."""
+        pending = self._unstored.pop(id(cp), None)
+        if pending is not None and pending[0] is cp:
+            self._persist_store(cp, pending[1], pending[2])
+
+    def _persist_store(self, cp: CompiledPlan, sig: str,
+                       batch: Optional[int]) -> None:
+        """Persist a freshly compiled serving variant after its first
+        run (best-effort: a failing disk skips the store, serving is
+        unaffected)."""
+        entry = persist_mod.pack_compiled(cp)
+        if entry is None:
+            return
+        pkey = persist_mod.entry_key(sig, cp.config, self.mode,
+                                     self.executor.num_partitions, batch)
+        pruned = self._persist.store(pkey, self._fingerprint, entry)
+        if pruned is None:
+            return
+        self.stats.persist_stores += 1
+        if pruned:
+            self.stats.evictions_by_cache["persist"] = \
+                self.stats.evictions_by_cache.get("persist", 0) + pruned
+
     def persist_info(self):
-        """None: the persistent disk cache is not ported yet."""
-        return None
+        """``persist.DiskCacheInfo`` of the attached disk cache, or
+        None when persistence is off."""
+        return (self._persist.info() if self._persist is not None
+                else None)
 
     def cache_size(self) -> int:
         return len(self._cache)
@@ -586,6 +693,7 @@ class QueryService:
                 cp = self.compiled(pq.plan, cfg, sig=pq.signature,
                                    param_specs=pq.specs)
                 rs = self.executor.run_compiled(cp, params=params)
+                self._ran(cp)
                 self.stats.runs += 1
                 if not rs.overflow:
                     self._note_good_cfg(pq.signature, cfg)
@@ -633,6 +741,7 @@ class QueryService:
                                    param_specs=pq.specs, batch=bucket)
                 rss = self.executor.run_compiled_batch(cp, stacked,
                                                        len(bound))
+                self._ran(cp)
                 self.stats.runs += 1
                 if not any(rs.overflow for rs in rss):
                     self._note_good_cfg(sig, cfg)
@@ -707,6 +816,10 @@ class QueryService:
         same known-good/presized configs serving would use, so the
         warmed executables ARE the ones requests hit.
 
+        With ``persist_dir`` set, each variant new to the in-memory
+        cache also runs once against example parameters, so a fresh
+        compile's entry reaches the disk.
+
         Returns a summary dict: templates prepared, variants warmed,
         compiles actually paid, persist/in-memory hits, and wall
         seconds."""
@@ -735,8 +848,18 @@ class QueryService:
                     if k in seen:
                         continue
                     seen.add(k)
-                    self.compiled(pq.plan, cfg, sig=pq.signature,
-                                  param_specs=pq.specs, batch=w)
+                    misses = self.stats.cache_misses
+                    cp = self.compiled(pq.plan, cfg, sig=pq.signature,
+                                       param_specs=pq.specs, batch=w)
+                    if (self._persist is not None
+                            and self.stats.cache_misses > misses):
+                        # a variant new to memory runs once, so a fresh
+                        # compile can be stored; whether it runs does
+                        # not depend on the disk's answer, which may
+                        # differ between spmd ranks, so their
+                        # collectives stay paired
+                        self.executor.prime(cp)
+                        self._ran(cp)
                     warmed += 1
             span.set(variants=warmed)
         d = self.stats.diff(snap)

@@ -365,11 +365,15 @@ class Collection:
     name: str
     partitions: list[NodeTable]
 
+    def padded_width(self) -> int:
+        """Nmax of ``padded``: the largest partition, rounded up to a
+        multiple of 128 for alignment."""
+        nmax = max(t.num_nodes for t in self.partitions)
+        return int(math.ceil(nmax / 128) * 128)
+
     def padded(self) -> NodeTable:
         """Stack partitions into [P, Nmax] arrays (SPMD-ready)."""
-        nmax = max(t.num_nodes for t in self.partitions)
-        # round up for alignment
-        nmax = int(math.ceil(nmax / 128) * 128)
+        nmax = self.padded_width()
         tables = [t.pad_to(nmax) for t in self.partitions]
 
         def stack(get):

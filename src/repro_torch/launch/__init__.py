@@ -1,1 +1,3 @@
-"""Entry points of the port's LM stack (``serve``)."""
+"""Entry points of the port: the LM server (``serve``), the "data" mesh
+of spmd query execution (``mesh``) and the cluster-mode XQuery CLI
+(``xquery_cluster``)."""

@@ -135,14 +135,27 @@ def test_port_q11_topk_routes(port, jax_runs, oracle, topk_cap, fused):
     assert rs.rows() == want
 
 
-def test_port_later_slices_raise(port):
-    """SPMD mode, AOT and donation wait for later slices; prepared,
-    batched and profile compiles are ported (a batch without parameters
-    is refused, as in the JAX package)."""
+def test_port_later_slices_raise(port, weather_db):
+    """The options that once waited for later slices: spmd mode needs a
+    mesh (tests/test_torch_spmd.py runs it over gloo ranks); ``aot``
+    fills the column schema at compile time with the run's own
+    results; ``donate`` runs once and releases the tables, after which
+    the executor raises. A batch without parameters is refused, as in
+    the JAX package, and profile compiles are ported."""
     plan = compile_query(ALL["Q1"])
-    for kw in ({"mode": "spmd"}, {"aot": True}, {"donate": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw in ({"mode": "spmd"}, {"mode": "spmd", "mesh": None},
+               {"mode": "cluster"}):
+        with pytest.raises(ValueError, match="mesh|mode"):
             port.compile(plan, **kw)
+    cp = port.compile(plan, aot=True)
+    assert cp.schema and not cp.donated
+    assert port.run_compiled(cp).rows() == port.run(plan).rows()
+    db = xdm.database_from_arrays(*xdm.database_to_arrays(weather_db))
+    ex = Executor(db, device="cpu")
+    rows = ex.run_compiled(ex.compile(plan, donate=True)).rows()
+    assert rows == port.run(plan).rows()
+    with pytest.raises(RuntimeError, match="donated"):
+        ex.run(plan)
     with pytest.raises(ValueError, match="needs parameters"):
         port.compile(plan, batch=2)
     assert port.run_compiled(port.compile(plan, profile=True)).op_rows()

@@ -21,8 +21,8 @@ from repro.core.analysis import verify_plan as jax_verify
 from repro.core.obs import costmodel as jax_costmodel
 from repro.core.obs import recorder as jax_recorder
 from repro.core.queries import ALL
-from repro_torch.core import (ExecConfig, Executor, QueryService,
-                              compile_query, xdm)
+from repro_torch.core import (ExecConfig, Executor, InvalidArgumentError,
+                              QueryService, compile_query, xdm)
 from repro_torch.core.analysis import analyze_capflow, verify_plan
 from repro_torch.core.obs import (FlightRecorder, MetricsRegistry,
                                   fit_cost_model)
@@ -199,19 +199,36 @@ def test_warmup_compiles_before_first_request(db):
     assert svc.stats.compiles == 3
 
 
-def test_not_ported_options_raise(db):
-    with pytest.raises(NotImplementedError, match="item 4"):
-        QueryService(db, persist_dir="plans", device="cpu")
-    for kw in ({"mode": "spmd"}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="item 6"):
+def test_not_ported_options_raise(db, tmp_path):
+    """The options that once raised as not ported: ``persist_dir``
+    attaches the disk cache (tests/test_torch_persist.py); spmd mode
+    runs over a mesh (tests/test_torch_spmd.py) and is refused without
+    one, as is a mesh without spmd mode or an unknown mode; ``aot`` and
+    ``donate`` compile (tests/test_torch_executor.py)."""
+    svc = QueryService(db, persist_dir=str(tmp_path / "plans"),
+                       device="cpu")
+    assert svc.persist_info().entries == 0
+    svc.execute(ALL["Q2"])
+    assert svc.persist_info().entries == svc.stats.persist_stores == 1
+    for kw in ({"mode": "spmd"}, {"mesh": object()}, {"mode": "x"}):
+        with pytest.raises(InvalidArgumentError, match="mode"):
             QueryService(db, device="cpu", **kw)
     ex = Executor(db, device="cpu")
     plan = compile_query(ALL["Q2"])
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="mesh"):
         ex.compile(plan, mode="spmd")
-    for kw in ({"aot": True}, {"donate": True}):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            ex.compile(plan, **kw)
+    assert ex.compile(plan, aot=True).schema
+    assert ex.compile(plan, donate=True).donated
+
+
+def test_service_uploads_tables_at_build(db):
+    """A sim-mode service puts its tables on the device when it is
+    built, so its first request holds no upload; a bare Executor
+    uploads at its first run."""
+    svc = QueryService(db, device="cpu")
+    assert svc.executor._tables is not None
+    assert svc.stats.executions == svc.executor.compile_count == 0
+    assert Executor(db, device="cpu")._tables is None
 
 
 def test_service_defaults_to_cuda(db, monkeypatch):
@@ -344,7 +361,8 @@ def test_chip_smoke_service_path_rehearsal_on_cpu():
     """chip_smoke.py's phase 6 at a tiny scale on the CPU (the plain
     versions stand in for the kernels): both routes, the numpy
     reference, the workload's compiles and batches, regrowth from caps
-    of 1 and the admission runtime."""
+    of 1, the admission runtime and the restart on a persistent plan
+    cache."""
     import sys
     from pathlib import Path
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -359,3 +377,5 @@ def test_chip_smoke_service_path_rehearsal_on_cpu():
                for r in out["queries"])
     assert (out["workload"]["compiles"], out["workload"]["batches"]) == (3, 3)
     assert all(r["retries"] > 0 for r in out["regrowth"].values())
+    assert (out["restart"]["stores"], out["restart"]["compiles"],
+            out["restart"]["persist_hits"]) == (len(ALL), 0, len(ALL))

@@ -109,6 +109,10 @@ def test_no_reference_imports_in_source():
     assert len(files) > 20
     for sub in ("models", "configs", "launch", "kernels", "core"):
         assert any(f.parent.name == sub for f in files), sub
+    for new in ("launch/mesh.py", "launch/xquery_cluster.py",
+                "core/baselines/__init__.py", "core/baselines/saxon_like.py",
+                "core/baselines/mrql_like.py", "core/persist.py"):
+        assert PORT / new in files, new
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
@@ -174,3 +178,49 @@ def test_chip_smoke_lm_path_rehearsal_on_cpu():
     assert max(out["logit_max_abs_err"].values()) <= chip_smoke.LOGIT_ATOL
     assert out["plain_argmax_agrees"] == 1.0
     assert out["cold_warm_tokens_equal"]
+
+
+TINY_SPEC = dict(num_stations=12, years=(1976, 1999, 2000, 2001, 2003),
+                 days_per_year=3)
+
+
+def test_chip_smoke_spmd_path_rehearsal_on_cpu():
+    """chip_smoke.py's phase 7 at a tiny scale on the CPU: the database
+    with P = 1, Q1–Q12 in spmd mode over an in-process gloo group of one
+    rank (NCCL on the card), both routes and join strategies, the
+    service cold and warm, the numpy reference and sim mode's raw
+    dicts; the group is destroyed afterwards."""
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from repro_torch.kernels import hash_join, ops
+    spec = WeatherSpec(**TINY_SPEC)
+    counters = {"block_join_probe": hash_join.block_join_probe}
+    capture = chip_smoke.Capture(ops)
+    out = chip_smoke.spmd_path(spec, torch.device("cpu"), "gloo", counters,
+                               capture=capture)
+    assert not dist.is_initialized()
+    # P = 1 inputs of the segment entry points, for the kernel timings
+    assert set(capture.best) == {"segmented_aggregate", "segment_topk"}
+    assert all(a[0].shape[0] == 1 for a in capture.agg_calls)
+    recs = out["queries"]
+    assert [r["query"] for r in recs] == [f"Q{i}" for i in range(1, 13)]
+    assert all(r["rows"] > 0 and r["gathered_bytes"] > 0 for r in recs)
+    assert all("repartition_warm_ms" in r for r in recs[4:8])
+    assert out["service_compiles"] == 12
+    # the CPU joins take the sorted-hash route
+    assert out["launches"] == {"block_join_probe": 0}
+
+
+def test_chip_smoke_mrql_path_rehearsal_on_cpu():
+    """chip_smoke.py's phase 8 at a tiny scale on the CPU: MrqlLike on
+    Q1–Q12 against the numpy reference, beside given service times."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    spec = WeatherSpec(**TINY_SPEC)
+    recs = chip_smoke.mrql_path(build_database(spec, 4), spec,
+                                torch.device("cpu"),
+                                {f"Q{i}": 1.0 for i in range(1, 13)})
+    assert [r["query"] for r in recs] == [f"Q{i}" for i in range(1, 13)]
+    assert [r["jobs"] for r in recs] == [1, 1, 2, 2, 3, 3, 4, 4, 2, 2, 3, 2]
+    assert all(r["mrql_over_service"] == r["ms"] for r in recs)
