@@ -24,6 +24,8 @@ Phases, each printed as it runs:
    station-major sorted runs (97 equal ids in a row, across tiles), one
    hot segment, 0.4 % valid rows in clusters, S = 1, N no multiple of
    the flag vector or of a warp, and no row valid; sums the same bits
+   on a second launch; the flash backward on every flash edge shape
+   (rows with no live key included) in bf16 and float32, the same bits
    on a second launch);
 3. the query path: the NOAA-GHCN-shaped weather collections of the
    paper's §5 at 2000 stations x 50 years x 8 days (4,000,000 /sensors
@@ -77,18 +79,35 @@ Phases, each printed as it runs:
 8. the MRQL-like baseline (``core/baselines/mrql_like.py``) on phase
    3's database: Q1–Q12, rows against the numpy reference, its ms and
    MapReduce jobs beside the service's warm ms (phase 6).
+9. the LM training path, after phase 5's params are freed: qwen3-1.7b
+   at full width (1,720,574,976 params, seeded), first
+   ``steps.value_and_grad`` of batch 0 on the kernel route and on the
+   plain route (dense attention), loss, grad norm and every leaf's
+   gradient within the TRAIN_* constants and none zero; then
+   ``launch.train.train`` for 4 steps of 8 x 2048 tokens (the config's
+   2 microbatches, remat and 8 CE chunks, nothing cut), each step with
+   112 flash forward and 56 flash backward launches (2 x 28 layers x 2
+   microbatches under remat, 28 x 2), its ms, tokens/s, MFU and peak
+   MiB; the backward kernel timed at the training shape (phase 4's
+   kind of record, beside the autograd backward of
+   ``scaled_dot_product_attention``); and a checkpoint resume at the
+   smoke config (head_dim 64): 8 steps against a run that fails at
+   step 6 and resumes from step 4, the params within RESUME_ATOL.
 
 Phase 3's ``query`` lines also give each query's peak device memory and
 the join kernel's hash-table scratch (``join_table_mib``); phase 6's
 ``service`` lines give cold and warm ms, caps, retries, compiles, peak
 memory and the bytes copied to the host; phase 7's ``spmd`` lines the
 same for spmd mode plus the bytes all-gathered; phase 8's ``mrql``
-lines the baseline's ms and jobs. Phases run in the order 1–4, 6, 7, 8,
-5: one database's tables on the card at a time. Phase 4 also times the flash
+lines the baseline's ms and jobs; phase 9's ``train`` lines the steps,
+the routes' agreement and the resume. Phases run in the order 1–4, 6,
+7, 8, 5, 9: one database's tables, or one model, on the card at a
+time. Phase 4 also times the flash
 kernel at hubert-xlarge's attention shape (16 heads, head_dim 80,
 2048 frames, not causal, bf16) beside ``scaled_dot_product_attention``.
 
-Then one JSON line with the six kernels' numbers, the card's name and
+Then one JSON line with the seven kernels' numbers (the six ports of
+the Pallas kernels and the flash backward), the card's name and
 power limit, and the last line ``{"ok": true, "device": {...}}``. Any
 failure exits non-zero without that line, as does a machine without
 CUDA or a directory without the port's sources.
@@ -98,6 +117,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -124,6 +144,33 @@ LM_REQUESTS, LM_PROMPT, LM_GEN = 8, 2048, 32
 # bf16; the attention outputs differ in the last bf16 bit here and there,
 # and 28 layers carry that into logits of standard deviation ~1.
 LOGIT_ATOL = 0.25
+# the LM training path (phase 9): launch.train.train at full width
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 8, 2048
+# kernel route vs plain route (dense attention): value_and_grad of the
+# same params and batch 0 in bf16 compute, loss and global grad norm
+# relative, each leaf's largest difference over its own largest |g|.
+# Measured on the H100: 4.0e-6, 2.3e-4 and 0.049 (the attention outputs
+# differ in the last bf16 bit here and there, and 28 layers of bf16
+# matmuls carry that into the gradients); the limits leave 2x or more.
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_NORM_RTOL = 1e-2
+TRAIN_GRAD_TOL = 0.1
+# the backward kernel at the training shape against its plain version,
+# each output held to its own size (its gradients are far below ATT_TOL's
+# order-1 scale): largest |err| over largest |g|, and RMS of err over
+# RMS of g, which shows an error in the bulk of the rows. In bf16 the
+# outputs round to bf16 (2^-9 relative) and P and dS enter the tensor-
+# core products in bf16; float32 runs the FP32-core kernels on the same
+# inputs cast to float32, another summation order only. Measured on the
+# H100 (largest |g| 3.5-8.1, RMS 0.08-0.13): bf16 at most 2.2e-3 and
+# 7.8e-5, float32 3.5e-6 and 1.6e-6.
+TRAIN_BWD_TOL = {"bfloat16": {"max": 2e-2, "rms": 1e-2},
+                 "float32": {"max": 1e-4, "rms": 1e-4}}
+# resume at the smoke config (head_dim 64, the flash kernels' smallest):
+# the resumed run's params against the uninterrupted run's
+RESUME_ATOL = 1e-6
+RESUME = dict(steps=8, ckpt_every=4, fail_at=6, batch=2, seq=64)
 # result positions (DistributeResult order) that are sums, averages or
 # divisions: compared to SUM_RTOL between routes, all else exactly
 TOLERANT = {"Q3": {0}, "Q4": {0}, "Q7": {0}, "Q8": {0}, "Q9": {2},
@@ -509,6 +556,23 @@ def check_sum_count(vals, segs, valid, s) -> float:
     return worst
 
 
+def check_flash_bwd(q, k, v, do, kw) -> float:
+    """dQ, dK, dV of the backward kernel against the plain backward on
+    the forward kernel's output; the same bits on a second launch."""
+    import torch
+    from repro_torch.kernels import flash_attention, ref
+    o = flash_attention.flash_attention_bhsd(q, k, v, **kw)
+    got = flash_attention.flash_attention_bwd_bhsd(q, k, v, o, do, **kw)
+    want = ref.flash_attention_bwd(q, k, v, o, do, **kw)
+    dt = str(q.dtype).split(".")[1]
+    err = max(attn_err(a, b, dt, f"flash_attention_bwd d{name}")
+              for a, b, name in zip(got, want, "qkv"))
+    again = flash_attention.flash_attention_bwd_bhsd(q, k, v, o, do, **kw)
+    require(all(torch.equal(a, b) for a, b in zip(again, got)),
+            "flash_attention_bwd differs from run to run")
+    return err
+
+
 def attention_edge_checks(dev, errs: dict) -> None:
     import torch
     for i, (causal, window, cap, g, sq, sk, d, dt) in enumerate(FLASH_EDGES):
@@ -516,9 +580,15 @@ def attention_edge_checks(dev, errs: dict) -> None:
         q = normal((2 * g, sq, d), SEED + 30 + i, dev, dtype)
         k = normal((2, sk, d), SEED + 40 + i, dev, dtype)
         v = normal((2, sk, d), SEED + 50 + i, dev, dtype)
-        e = check_flash(q, k, v, dict(g=g, causal=causal, window=window,
-                                      softcap=cap))
+        kw = dict(g=g, causal=causal, window=window, softcap=cap)
+        e = check_flash(q, k, v, kw)
         errs["flash_attention"] = max(errs["flash_attention"], e)
+        # the backward on the same edges, in both dtypes
+        for dtype in (torch.bfloat16, torch.float32):
+            qq, kk, vv = (x.to(dtype) for x in (q, k, v))
+            do = normal((2 * g, sq, d), SEED + 130 + i, dev, dtype)
+            e = check_flash_bwd(qq, kk, vv, do, kw)
+            errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], e)
     for i, (bh, g, smax, d, window, cap) in enumerate(DECODE_EDGES):
         for dtype in (torch.bfloat16, torch.float32):
             q = normal((bh, g, d), SEED + 60 + i, dev, dtype)
@@ -548,7 +618,8 @@ def edge_checks(dev) -> dict[str, float]:
     import torch
     errs = {"block_join_probe": 0.0, "segmented_aggregate": 0.0,
             "segment_topk": 0.0, "segmented_sum_count": 0.0,
-            "flash_attention": 0.0, "decode_attention": 0.0}
+            "flash_attention": 0.0, "flash_attention_bwd": 0.0,
+            "decode_attention": 0.0}
     for i, (kind, p, nb, np_, nk) in enumerate(JOIN_EDGES):
         e = check_join(join_edge_inputs(kind, p, nb, np_, nk, SEED + i, dev))
         errs["block_join_probe"] = max(errs["block_join_probe"], e)
@@ -1667,6 +1738,305 @@ def hubert_flash_record(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the LM training path
+# ---------------------------------------------------------------------------
+
+class LastFlash:
+    """Wraps ``FlashAttention.forward`` and keeps the inputs of its last
+    call: q, k, v (the model's transposed (B, H, S, D) views) and the
+    options of one layer of the training run, for the backward kernel's
+    timing at the training shape."""
+
+    def __init__(self):
+        from repro_torch.kernels import flash_attention
+        self.fn = flash_attention.FlashAttention
+        self.call = None
+
+    def __enter__(self):
+        self.saved = self.fn.forward
+
+        def forward(ctx, q, k, v, *opts):
+            self.call = (q.detach(), k.detach(), v.detach(), opts)
+            return self.saved(ctx, q, k, v, *opts)
+
+        self.fn.forward = staticmethod(forward)
+        return self
+
+    def __exit__(self, *exc):
+        self.fn.forward = staticmethod(self.saved)
+
+
+def route_grads(cfg, dev, batch: int, seq: int, kernel_impl: str) -> dict:
+    """``steps.value_and_grad`` of the same seeded params and batch 0 on
+    the kernel route and on the plain route (dense attention): loss,
+    global grad norm and each leaf's gradient must agree within the
+    TRAIN_* constants, and every leaf's gradient must be nonzero on both
+    routes (the attention's weights get theirs only through the
+    backward)."""
+    import torch
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.models import model, steps
+    from repro_torch.optim.adamw import global_norm
+    params = model.init_params(cfg, SEED, dev)
+    bt = batch_at(cfg, 0, batch=batch, seq=seq, seed=SEED, device=dev)
+    got = {}
+    for route, impl in (("kernel", kernel_impl), ("plain", "dense")):
+        t0 = time.perf_counter()
+        loss, _, grads = steps.value_and_grad(
+            dataclasses.replace(cfg, attn_impl=impl), params, bt)
+        norm = float(global_norm(grads))
+        got[route] = (float(loss), norm, grads, time.perf_counter() - t0)
+    del params
+    (kl, kn, kg, ks), (pl, pn, pg, ps) = got["kernel"], got["plain"]
+    require(all(math.isfinite(x) for x in (kl, kn, pl, pn)),
+            f"train routes: non-finite loss or norm {kl} {kn} {pl} {pn}")
+    worst, zero = 0.0, []
+    for path, a, b in zip(model_paths(kg), model._leaves(kg),
+                          model._leaves(pg)):
+        scale = float(b.abs().max())
+        if float(a.abs().max()) == 0.0 or scale == 0.0:
+            zero.append(path)
+            continue
+        worst = max(worst, float((a - b).abs().max()) / scale)
+    rec = {"loss": {"kernel": kl, "plain": pl},
+           "grad_norm": {"kernel": kn, "plain": pn},
+           "loss_rel_err": abs(kl - pl) / abs(pl),
+           "norm_rel_err": abs(kn - pn) / pn,
+           "grad_leaf_rel_err": worst, "leaves": len(list(model._leaves(kg))),
+           "zero_grad_leaves": zero,
+           "tolerances": {"loss": TRAIN_LOSS_RTOL, "norm": TRAIN_NORM_RTOL,
+                          "leaf": TRAIN_GRAD_TOL},
+           "kernel_s": ks, "plain_s": ps}
+    log("train routes " + json.dumps(rec))
+    require(not zero, f"train routes: leaves with no gradient: {zero}")
+    require(rec["loss_rel_err"] <= TRAIN_LOSS_RTOL
+            and rec["norm_rel_err"] <= TRAIN_NORM_RTOL
+            and worst <= TRAIN_GRAD_TOL,
+            f"train kernel and plain routes disagree: {rec}")
+    return rec
+
+
+def model_paths(tree, prefix: str = "") -> list[str]:
+    """The leaves' paths, in ``model._leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in model_paths(v, f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in model_paths(v, f"{prefix}{i}/")]
+    return [prefix.rstrip("/")]
+
+
+def train_path(dev, *, smoke: bool = False, steps: int = TRAIN_STEPS,
+               batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+               counters: dict | None = None, capture=None) -> dict:
+    """Phase 9: kernel-route vs plain-route gradients (``route_grads``),
+    then ``launch.train.train`` of TRAIN_ARCH for ``steps`` steps at
+    full width (the config's own remat, 2 microbatches and 8 CE chunks).
+    Prints each step's ms, tokens/s, MFU (``models.flops`` over the
+    bf16 peak), peak MiB, loss, grad norm and, with ``counters`` (the
+    flash wrappers, set to 0 before each step), its flash forward and
+    backward launches: 2 x layers x microbatches forward (remat runs
+    each layer's forward again in the backward) and layers x
+    microbatches backward. ``capture``: a context around the training
+    run (``LastFlash``)."""
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import flops
+    cfg = get_smoke_config(TRAIN_ARCH) if smoke else get_config(TRAIN_ARCH)
+    on_cuda = dev.type == "cuda"
+    # "auto" is the kernel on CUDA; on the CPU (the rehearsal) name it
+    kernel_impl = "auto" if on_cuda else "kernel"
+    routes = route_grads(cfg, dev, batch, seq, kernel_impl)
+    release(dev)
+
+    micro = 2
+    mult = 2 if cfg.remat else 1
+    want = {"flash_attention": mult * cfg.num_layers * micro,
+            "flash_attention_bwd": cfg.num_layers * micro}
+    model_flops = flops.model_flops(cfg, "train", batch, seq)["total"]
+    recs = []
+
+    def on_step(step, metrics, seconds):
+        rec = {"step": step, "ms": seconds * 1e3,
+               "tokens_per_s": batch * seq / seconds,
+               "mfu": model_flops / seconds / PEAK_FLOPS["bfloat16"],
+               "peak_mib": (torch.cuda.max_memory_allocated(dev) / 2**20
+                            if on_cuda else 0.0),
+               "loss": float(metrics["loss"]),
+               "grad_norm": float(metrics["grad_norm"])}
+        if counters:
+            rec["launches"] = {k: w.launches for k, w in counters.items()}
+            for w in counters.values():
+                w.launches = 0
+        if on_cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        log("train step " + json.dumps(rec))
+        recs.append(rec)
+
+    for w in (counters or {}).values():
+        w.launches = 0
+    if on_cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    with capture if capture is not None else contextlib.nullcontext():
+        out = train(TRAIN_ARCH, smoke=smoke, steps=steps, batch=batch,
+                    seq=seq, seed=SEED, device=dev, num_microbatches=micro,
+                    log_every=steps, overrides={"attn_impl": kernel_impl},
+                    on_step=on_step)
+    del out
+    release(dev)
+    require(len(recs) == steps, f"train ran {len(recs)} of {steps} steps")
+    require(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                for r in recs), "train: non-finite loss or grad norm")
+    if counters:
+        for r in recs:
+            require(r["launches"] == {**{k: 0 for k in counters}, **want},
+                    f"train step {r['step']} launched {r['launches']}, "
+                    f"want {want}")
+    total = ({k: sum(r["launches"][k] for r in recs) for k in counters}
+             if counters else None)
+    warm = recs[1:] or recs
+    warm_s = sum(r["ms"] for r in warm) / len(warm) / 1e3
+    summary = {"arch": TRAIN_ARCH, "params": cfg.num_params(),
+               "batch": batch, "seq": seq, "microbatches": micro,
+               "remat": cfg.remat, "ce_chunks": cfg.ce_chunks,
+               "warm_ms": warm_s * 1e3,
+               "tokens_per_s": batch * seq / warm_s,
+               "mfu": model_flops / warm_s / PEAK_FLOPS["bfloat16"],
+               "model_flops": model_flops,
+               "peak_mib": max(r["peak_mib"] for r in recs),
+               "losses": [r["loss"] for r in recs],
+               "launches_per_step": want if counters else None,
+               "launches": total,
+               "routes": routes}
+    log("train summary " + json.dumps({k: v for k, v in summary.items()
+                                       if k != "routes"}))
+    return summary
+
+
+def resume_check(dev, *, smoke_overrides: dict | None = None) -> dict:
+    """Phase 9's resume: at the smoke config, 8 steps with a checkpoint
+    every 4 against a run that fails at step 6 and is resumed from its
+    step-4 checkpoint (tests/test_checkpoint.py:57-75 on the card): the
+    final params must agree within RESUME_ATOL."""
+    import tempfile
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.launch.train import train
+    from repro_torch.models import model
+    kw = dict(smoke=True, steps=RESUME["steps"], batch=RESUME["batch"],
+              seq=RESUME["seq"], ckpt_every=RESUME["ckpt_every"],
+              seed=SEED, device=dev, log_every=100,
+              overrides=smoke_overrides)
+    with tempfile.TemporaryDirectory() as tmp:
+        full = train(TRAIN_ARCH, ckpt_dir=f"{tmp}/a", **kw)
+        try:
+            train(TRAIN_ARCH, ckpt_dir=f"{tmp}/b", fail_at=RESUME["fail_at"],
+                  **kw)
+        except RuntimeError as e:
+            require("injected failure" in str(e), f"resume: {e}")
+        else:
+            raise SmokeError("resume: the injected failure did not raise")
+        require(latest_step(f"{tmp}/b") == RESUME["ckpt_every"],
+                f"resume: latest step {latest_step(f'{tmp}/b')}")
+        resumed = train(TRAIN_ARCH, ckpt_dir=f"{tmp}/b", **kw)
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(
+        model._leaves(full["params"]), model._leaves(resumed["params"])))
+    rec = {"steps": RESUME["steps"], "failed_at": RESUME["fail_at"],
+           "resumed_from": RESUME["ckpt_every"], "max_abs_err": err,
+           "atol": RESUME_ATOL, "losses": full["losses"],
+           "resumed_losses": resumed["losses"]}
+    log("train resume " + json.dumps(rec))
+    require(err <= RESUME_ATOL, f"resumed run differs: {err}")
+    return rec
+
+
+def train_bwd_check(q, k, v, o, do, kw) -> tuple[float, dict]:
+    """The backward kernel against its plain version on (B, H, S, D)
+    inputs: ``attn_err``'s check, then each of dQ, dK, dV held to its own
+    size (``TRAIN_BWD_TOL``). Returns the largest |err| and, for the
+    record, each output's largest |g| and relative errors."""
+    import torch
+    from repro_torch.kernels import flash_attention, ref
+    d = q.shape[3]
+    dt = str(q.dtype).split(".")[1]
+    tol = TRAIN_BWD_TOL[dt]
+    got = flash_attention.flash_attention_bwd_bhsd(q, k, v, o, do, **kw)
+    want = ref.flash_attention_bwd(
+        *(x.reshape(-1, x.shape[2], d) for x in (q, k, v, o, do)), **kw)
+    err, sizes = 0.0, {}
+    for a, w, n in zip(got, want, "qkv"):
+        what = f"flash_attention_bwd d{n} ({dt}, training shape)"
+        err = max(err, attn_err(a.reshape(w.shape), w, dt, what))
+        a, w = a.reshape(w.shape).float(), w.float()
+        diff = a - w
+        rel_max = float(diff.abs().max() / w.abs().max())
+        rel_rms = float(diff.pow(2).mean().sqrt() / w.pow(2).mean().sqrt())
+        sizes[f"d{n}"] = {"max_abs_g": float(w.abs().max()),
+                          "rms_g": float(w.pow(2).mean().sqrt()),
+                          "err_over_max_g": rel_max,
+                          "rms_err_over_rms_g": rel_rms}
+        require(rel_max <= tol["max"] and rel_rms <= tol["rms"],
+                f"{what}: error {rel_max} of its largest |g|, RMS error "
+                f"{rel_rms} of its RMS, limits {tol}")
+    del got, want
+    torch.cuda.empty_cache()
+    return err, sizes
+
+
+def train_kernel_timing(call, launches: dict, edge_errs: dict) -> dict:
+    """The backward kernel on the q, k, v one layer of the training run
+    gave the flash forward (``LastFlash``), its forward output and a
+    seeded dO, timed beside its plain version and the autograd backward
+    of ``scaled_dot_product_attention`` on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref
+    require(call is not None, "the training path never reached the "
+            "flash attention function")
+    q, k, v, (g, causal, window, softcap, scale) = call
+    kw = dict(g=g, causal=causal, window=window, softcap=softcap,
+              scale=scale)
+    o = flash_attention.flash_attention_bhsd(q, k, v, **kw)
+    do = normal(tuple(q.shape), SEED + 140, q.device, q.dtype)
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    flat = [x.reshape(-1, x.shape[2], d) for x in (q, k, v, o, do)]
+    dt = str(q.dtype).split(".")[1]
+    err, sizes = train_bwd_check(q, k, v, o, do, kw)
+    # the same inputs in float32, through both float32 kernels
+    q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+    o32 = flash_attention.flash_attention_bhsd(q32, k32, v32, **kw)
+    _, sizes["float32"] = train_bwd_check(q32, k32, v32, o32, do32, kw)
+    del q32, k32, v32, do32, o32
+    lib = None
+    if kw["window"] is None and kw["softcap"] is None:
+        qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(
+            qq, kk, vv, is_causal=kw["causal"], enable_gqa=True,
+            scale=kw["scale"])
+
+        def lib():
+            return torch.autograd.grad(out, (qq, kk, vv), do,
+                                       retain_graph=True)
+    pairs = live_pairs(sq, sk, kw["causal"], kw["window"])
+    # five products (S, dP, dV, dQ, dK) of 2 D FLOP a live pair
+    flops = 10.0 * d * b * hq * pairs
+    nbytes = (2 * (q.numel() + k.numel() + v.numel())
+              + o.numel() + do.numel()) * q.element_size()
+    return kernel_record(
+        "flash_attention_bwd", launches,
+        max(err, edge_errs["flash_attention_bwd"]),
+        lambda: flash_attention.flash_attention_bwd_bhsd(q, k, v, o, do,
+                                                         **kw),
+        lambda: ref.flash_attention_bwd(*flat, **kw),
+        lib, nbytes, flops, dt,
+        {"B*Hq": b * hq, "Sq": sq, "Sk": sk, "D": d, "g": g,
+         "causal": kw["causal"], "dtype": dt, **sizes},
+        where="training shape")
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -1722,10 +2092,13 @@ def main() -> int:
                 "segment_topk": seg_topk.segment_topk,
                 "segmented_sum_count": seg_aggregate.segmented_sum_count,
                 "flash_attention": flash_attention.flash_attention_bhsd,
+                "flash_attention_bwd":
+                    flash_attention.flash_attention_bwd_bhsd,
                 "decode_attention": decode_attention.decode_attention_bhgd}
     query_kernels = ("block_join_probe", "segmented_aggregate",
                      "segment_topk")
     lm_kernels = ("flash_attention", "decode_attention")
+    attn_kernels = lm_kernels + ("flash_attention_bwd",)
     for w in wrappers.values():
         w.launches = 0
     capture = Capture(ops)
@@ -1738,7 +2111,7 @@ def main() -> int:
     require(launches["segmented_aggregate"] == 2 * len(GROUPED),
             f"segmented_aggregate launched {launches['segmented_aggregate']}"
             f" times, not once per run of {GROUPED}")
-    require(all(launches[k] == 0 for k in lm_kernels),
+    require(all(launches[k] == 0 for k in attn_kernels),
             f"the query path launched an attention kernel: {launches}")
     records = {r["name"]: r for r in
                main_shape_timings(capture.best, capture.agg_calls,
@@ -1759,7 +2132,7 @@ def main() -> int:
     require(all(service_launches[k] > 0 for k in query_kernels),
             f"a query kernel never launched on the service path: "
             f"{service_launches}")
-    require(all(service_launches[k] == 0 for k in lm_kernels),
+    require(all(service_launches[k] == 0 for k in attn_kernels),
             f"the service path launched an attention kernel: "
             f"{service_launches}")
 
@@ -1771,7 +2144,7 @@ def main() -> int:
     require(all(spmd["launches"][k] > 0 for k in query_kernels),
             f"a query kernel never launched on the spmd path: "
             f"{spmd['launches']}")
-    require(all(spmd["launches"][k] == 0 for k in lm_kernels),
+    require(all(spmd["launches"][k] == 0 for k in attn_kernels),
             f"the spmd path launched an attention kernel: "
             f"{spmd['launches']}")
     # the three query kernels at the P = 1 shapes spmd gave them (logged;
@@ -1791,12 +2164,31 @@ def main() -> int:
 
     t0 = time.perf_counter()
     last = LastCall(ops)
+    wrappers["flash_attention_bwd"].launches = 0
     lm = lm_path(dev, counters={k: wrappers[k] for k in lm_kernels},
                  capture=last)
     launches.update(lm["warm"]["launches"])
+    require(wrappers["flash_attention_bwd"].launches == 0,
+            "the serve path launched the flash backward kernel")
     log(f"lm path ok ({time.perf_counter() - t0:.1f} s)")
     for r in lm_kernel_timings(last.calls, launches, edge_errs):
         records[r["name"]] = r
+    del last
+    release(dev)
+
+    t0 = time.perf_counter()
+    last_flash = LastFlash()
+    trained = train_path(dev, counters=wrappers, capture=last_flash)
+    launches["flash_attention_bwd"] = trained["launches"][
+        "flash_attention_bwd"]
+    log(f"train path ok ({time.perf_counter() - t0:.1f} s)")
+    records["flash_attention_bwd"] = train_kernel_timing(
+        last_flash.call, launches, edge_errs)
+    del last_flash
+    release(dev)
+    t0 = time.perf_counter()
+    resume_check(dev, smoke_overrides={"head_dim": 64})
+    log(f"train resume ok ({time.perf_counter() - t0:.1f} s)")
     kernels = [records[name] for name in KERNELS]
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

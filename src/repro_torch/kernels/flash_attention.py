@@ -1,9 +1,13 @@
-"""Flash-attention kernel wrapper: ``csrc/flash_attention.cu`` on CUDA
-tensors.
+"""Flash-attention kernel wrappers: ``csrc/flash_attention.cu`` (the
+forward) and ``csrc/flash_attention_bwd.cu`` (its backward) on CUDA
+tensors, and ``FlashAttention``, the autograd function that joins them.
 
-Ports the Pallas TPU kernel ``src/repro/kernels/flash_attention.py``
-(``flash_attention_bhsd``). The kernel, its design and its bound are
-described in the source; the plain version is ``ref.flash_attention``.
+The forward ports the Pallas TPU kernel
+``src/repro/kernels/flash_attention.py`` (``flash_attention_bhsd``); the
+backward has no Pallas counterpart (the JAX package lets XLA
+differentiate its dense/chunked attention). The kernels, their designs
+and their bounds are described in the sources; the plain versions are
+``ref.flash_attention`` and ``ref.flash_attention_bwd``.
 """
 from __future__ import annotations
 
@@ -12,9 +16,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import ref
 
 _ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
          + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+_BWD_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+             + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
 # head_dim 80 runs the 128-wide tiling zero-padded in shared memory (see
 # the source), as the Pallas kernel pads 64/80-dim heads to 128
 HEAD_DIMS = (64, 80, 128, 256)
@@ -111,3 +118,106 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_bhsd.launches = 0
+
+
+def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, *, g: int, causal: bool = True,
+                             window: int | None = None,
+                             softcap: float | None = None,
+                             scale: float | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """dQ, dK, dV of ``flash_attention_bhsd(q, k, v)`` given its output
+    ``o`` and the output's gradient ``do`` (q's shape; any strides with
+    a unit dim stride). Same layouts, dtypes and head dims as the
+    forward; the gradients come back in q's dtype, each laid out like
+    its input where that is dense. One call launches the two kernels of
+    ``csrc/flash_attention_bwd.cu`` (counted once). CUDA tensors
+    only."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_bwd kernel needs CUDA tensors, "
+                         f"got {dev}")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    args = launch_args(q, k, v, dq, g=g, causal=causal, window=window,
+                       softcap=softcap, scale=scale)
+    o4, do4 = as_bhsd(o), as_bhsd(do)
+    dk4, dv4 = as_bhsd(dk), as_bhsd(dv)
+    if o4.shape != as_bhsd(q).shape or do4.shape != o4.shape \
+            or o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError("o and do must have q's shape and dtype")
+    if any(t.device != dev for t in (o, do)):
+        raise ValueError("flash_attention_bwd inputs on several devices")
+    check_strided("flash_attention_bwd", o4, do4, dk4, dv4,
+                  elems=16 // q.element_size())
+    b, hq, sq, _ = as_bhsd(q).shape
+    if sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
+    delta = torch.empty_like(lse)
+    # strides of q, k, v (the forward's first 9), o, do, dq, dk, dv
+    strides = (ctypes.c_longlong * 24)(
+        *args[4][:9], *(s for t in (o4, do4, as_bhsd(dq), dk4, dv4)
+                        for s in t.stride()[:3]))
+    fn = _build.function("flash_attention_bwd", "repro_flash_attention_bwd",
+                         _BWD_ARGS)
+    code = fn(args[0], args[1], args[2], o4.data_ptr(), do4.data_ptr(),
+              args[3], dk4.data_ptr(), dv4.data_ptr(), lse.data_ptr(),
+              delta.data_ptr(), ctypes.addressof(strides), *args[5:],
+              _build.stream(dev))
+    _build.check("flash_attention_bwd", "flash_attention_bwd", code)
+    flash_attention_bwd_bhsd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_bhsd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention on (B, H, S, D) views: the forward
+    kernel and the backward kernel on CUDA tensors, the plain versions
+    (``ref.flash_attention`` / ``ref.flash_attention_bwd``) on the CPU.
+    Saves q, k, v and the output; the backward recomputes each row's
+    log-sum-exp itself (so the serve path's forward is unchanged), and
+    both kernels give the same bits every launch, so a recomputed
+    forward under activation checkpointing matches the first one."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, g, causal, window, softcap, scale):
+        kw = dict(g=g, causal=causal, window=window, softcap=softcap,
+                  scale=scale)
+        if q.is_cuda:
+            o = flash_attention_bhsd(q, k, v, **kw)
+        else:
+            o = _plain(ref.flash_attention, q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.kw = kw
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        do = do.contiguous()         # autograd may hand back a strided grad
+        if q.is_cuda:
+            grads = flash_attention_bwd_bhsd(q, k, v, o, do, **ctx.kw)
+        else:
+            grads = _plain_bwd(q, k, v, o, do, **ctx.kw)
+        return (*grads, None, None, None, None, None)
+
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    b, h, s, d = x.shape
+    return x.reshape(b * h, s, d)
+
+
+def _plain(fn, q, k, v, **kw) -> torch.Tensor:
+    """The plain forward on (B, H, S, D) views."""
+    return fn(_flat(q), _flat(k), _flat(v), **kw).reshape(q.shape)
+
+
+def _plain_bwd(q, k, v, o, do, **kw) -> tuple:
+    """The plain backward on (B, H, S, D) views."""
+    dq, dk, dv = ref.flash_attention_bwd(_flat(q), _flat(k), _flat(v),
+                                         _flat(o), _flat(do), **kw)
+    return dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(v.shape)

@@ -28,21 +28,15 @@ from repro_torch.kernels import seg_topk as _stk
 
 def flash_attention(q, k, v, *, causal=True, window=None,
                     logit_softcap=None, scale=None):
-    """q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D) -> (B, Sq, Hq, D)."""
-    g = q.shape[2] // k.shape[2]
-    kw = dict(g=g, causal=causal, window=window, softcap=logit_softcap,
-              scale=scale)
-    if q.is_cuda:
-        out = _fa.flash_attention_bhsd(q.transpose(1, 2), k.transpose(1, 2),
-                                       v.transpose(1, 2), **kw)
-        return out.transpose(1, 2)
-    b, sq, hq, d = q.shape
-    _, sk, hkv, _ = k.shape
-    out = _ref.flash_attention(
-        q.transpose(1, 2).reshape(b * hq, sq, d),
-        k.transpose(1, 2).reshape(b * hkv, sk, d),
-        v.transpose(1, 2).reshape(b * hkv, sk, d), **kw)
-    return out.reshape(b, hq, sq, d).transpose(1, 2)
+    """q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D) -> (B, Sq, Hq, D), through
+    ``FlashAttention``: the forward kernel (and, where an input requires
+    grad, the backward kernel) on CUDA, their plain versions on the CPU.
+    With grad off or no input requiring it, the call runs the forward
+    alone and builds no graph."""
+    out = _fa.FlashAttention.apply(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        q.shape[2] // k.shape[2], causal, window, logit_softcap, scale)
+    return out.transpose(1, 2)
 
 
 def decode_attention(q, k_cache, v_cache, kv_len, *, window=None,

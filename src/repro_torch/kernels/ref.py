@@ -20,6 +20,25 @@ I64_MAX = 2**63 - 1
 NEG_INF = -2.0e38      # the masked score of the JAX kernels (not -inf)
 
 
+def _attention_scores(q, k, *, g, causal, window, softcap, scale):
+    """(raw scores, softcapped and masked scores, live mask) in float32,
+    (B·Hq, Sq, Sk), as ``flash_attention`` computes them."""
+    sq, d = q.shape[1], q.shape[2]
+    sk = k.shape[1]
+    scale = scale if scale is not None else d ** -0.5
+    kq = torch.repeat_interleave(k, g, dim=0).float()
+    raw = torch.einsum("hqd,hkd->hqk", q.float() * scale, kq)
+    s = torch.tanh(raw / softcap) * softcap if softcap is not None else raw
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(sk, device=q.device)[None, :]
+    ok = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kp <= qp
+    if window is not None:
+        ok &= kp > (qp - window)
+    return raw, torch.where(ok, s, torch.full_like(s, NEG_INF)), ok
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     g: int, causal: bool = True, window: int | None = None,
                     softcap: float | None = None,
@@ -29,24 +48,55 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q (B·Hq, Sq, D), k/v (B·Hkv, Sk, D); query head h reads key/value
     head h // g. Masked scores are NEG_INF, so a row with no live key
     averages V over all keys, as in the JAX kernel."""
-    sq, d = q.shape[1], q.shape[2]
+    _, s, _ = _attention_scores(q, k, g=g, causal=causal, window=window,
+                                softcap=softcap, scale=scale)
+    p = torch.softmax(s, dim=-1)
+    vq = torch.repeat_interleave(v, g, dim=0).float()
+    return torch.einsum("hqk,hkd->hqd", p, vq).to(q.dtype)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *, g: int, causal: bool = True,
+                        window: int | None = None,
+                        softcap: float | None = None,
+                        scale: float | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of ``flash_attention.flash_attention_bwd_bhsd``: dQ,
+    dK, dV of ``flash_attention`` in float32, written out (no autograd)
+    and cast to q's dtype. q/o/do (B·Hq, Sq, D), k/v (B·Hkv, Sk, D);
+    L is each row's log-sum-exp of the masked scores S, recomputed here
+    as the kernel recomputes it:
+
+        P = exp(S - L), D = rowsum(dO o O), dV = P^T dO, dP = dO V^T,
+        dS = P o (dP - D) o (1 - tanh^2 of the softcap),
+        dQ = scale dS K, dK = scale dS^T Q,
+
+    dK and dV summed over the g query heads of each kv head. A row with
+    no live key has the forward's uniform P = 1/Sk (it adds dO/Sk to
+    every dV row) and dS = 0: its output does not depend on its
+    scores."""
+    bh, sq, d = q.shape
     sk = k.shape[1]
     scale = scale if scale is not None else d ** -0.5
-    kq = torch.repeat_interleave(k, g, dim=0).float()
-    vq = torch.repeat_interleave(v, g, dim=0).float()
-    s = torch.einsum("hqd,hkd->hqk", q.float() * scale, kq)
+    raw, s, ok = _attention_scores(q, k, g=g, causal=causal, window=window,
+                                   softcap=softcap, scale=scale)
+    live = ok.any(dim=1)[:, None]                       # (Sq, 1)
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    p = torch.where(live, torch.exp(s - lse),
+                    torch.full_like(s, 1.0 / sk))
+    dof = do.float()
+    vq, kq = (torch.repeat_interleave(x, g, dim=0).float() for x in (v, k))
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    dp = torch.einsum("hqd,hkd->hqk", dof, vq)
+    ds = torch.where(ok, p * (dp - delta), torch.zeros_like(p))
     if softcap is not None:
-        s = torch.tanh(s / softcap) * softcap
-    qp = torch.arange(sq, device=q.device)[:, None]
-    kp = torch.arange(sk, device=q.device)[None, :]
-    ok = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= kp <= qp
-    if window is not None:
-        ok &= kp > (qp - window)
-    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("hqk,hkd->hqd", p, vq).to(q.dtype)
+        ds = ds * (1.0 - torch.tanh(raw / softcap) ** 2)
+    dq = torch.einsum("hqk,hkd->hqd", ds, kq) * scale
+    dk = torch.einsum("hqk,hqd->hkd", ds, q.float()) * scale
+    dv = torch.einsum("hqk,hqd->hkd", p, dof)
+    dk = dk.reshape(bh // g, g, sk, d).sum(1)
+    dv = dv.reshape(bh // g, g, sk, d).sum(1)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -4,14 +4,17 @@ One entry per hand-written CUDA kernel: its wrapper
 (``<module>.<function>``), its plain PyTorch version in ``ref``, the
 CUDA source, and the JAX ``KERNEL_REFS`` key
 (``src/repro/kernels/registry.py``) of the Pallas kernel it ports,
-with that kernel's entry point. The parity tests and ``chip_smoke.py``
-iterate it, so a kernel cannot ship without its plain version.
+with that kernel's entry point. A backward kernel has no Pallas kernel
+(the JAX package lets XLA differentiate): its ``jax_ref`` and
+``replaces`` are ``None`` and ``backward_of`` names its forward. The
+parity tests and ``chip_smoke.py`` iterate it, so a kernel cannot ship
+without its plain version.
 
 A plain literal: reading it imports nothing.
 """
 from __future__ import annotations
 
-KERNELS: dict[str, dict[str, str]] = {
+KERNELS: dict[str, dict[str, str | None]] = {
     "block_join_probe": {
         "wrapper": "hash_join.block_join_probe",
         "plain": "block_join_probe",
@@ -46,6 +49,14 @@ KERNELS: dict[str, dict[str, str]] = {
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "jax_ref": "flash_attention.flash_attention_bhsd",
         "replaces": "src/repro/kernels/flash_attention.py:73",
+    },
+    "flash_attention_bwd": {
+        "wrapper": "flash_attention.flash_attention_bwd_bhsd",
+        "plain": "flash_attention_bwd",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "jax_ref": None,
+        "replaces": None,
+        "backward_of": "flash_attention",
     },
     "decode_attention": {
         "wrapper": "decode_attention.decode_attention_bhgd",

@@ -5,8 +5,9 @@ All paths share one math definition and are tested against each other
 and against the JAX package. The ``impl`` switch picks the path of a
 full-sequence attention: ``"dense"`` and ``"chunked"`` are plain
 PyTorch (the card's plain route), ``"kernel"`` is the hand-written flash
-kernel (``kernels.ops.flash_attention``; ``"pallas"``, the JAX configs'
-name for it, means the same), and ``"auto"`` resolves on the tensors'
+kernel (``kernels.ops.flash_attention``, with its hand-written backward
+where grad is on; ``"pallas"``, the JAX configs' name for it, means the
+same), and ``"auto"`` resolves on the tensors'
 device: the kernel on CUDA, dense or chunked by length on the CPU, as
 the JAX package picks dense/chunked off the TPU. The decode step takes
 the same switch (``decode``): the kernel, or the dense

@@ -6,8 +6,10 @@ stacked on a leading K = num_layers / period axis), ``"final_norm"`` and,
 untied, ``"lm_head"``. The port holds one dict per layer in
 ``"layers"``; layer i is period position i % P of repeat i // P. Given
 numpy arrays, ``params_from_numpy`` builds the port's tree and
-``params_to_numpy`` the JAX one; the round trip is exact. No JAX import:
-the caller converts JAX arrays with ``np.asarray``.
+``params_to_numpy`` the JAX one; the round trip is exact. The AdamW
+state ``{"step", "m", "v"}`` (m and v in the parameter layout) goes
+across the same way (``opt_state_from_numpy`` / ``opt_state_to_numpy``).
+No JAX import: the caller converts JAX arrays with ``np.asarray``.
 """
 from __future__ import annotations
 
@@ -68,3 +70,21 @@ def params_to_numpy(cfg: ModelConfig, params: Params) -> Params:
     out["blocks"] = tree_map(lambda t: t.detach().cpu().numpy(),
                              stack_layers(cfg, params["layers"]))
     return out
+
+
+def opt_state_from_numpy(cfg: ModelConfig, state: dict, device=None
+                         ) -> dict:
+    """JAX AdamW state (``repro/optim/adamw.py``: ``step`` int32, ``m``
+    and ``v`` in the JAX parameter layout) of numpy arrays -> the
+    port's on ``device`` (``None``: the GPU)."""
+    device = resolve_device(device)
+    return {"step": _tensor(np.asarray(state["step"], np.int32), device),
+            "m": params_from_numpy(cfg, state["m"], device),
+            "v": params_from_numpy(cfg, state["v"], device)}
+
+
+def opt_state_to_numpy(cfg: ModelConfig, state: dict) -> dict:
+    """The port's AdamW state -> the JAX layout of numpy arrays."""
+    return {"step": state["step"].detach().cpu().numpy(),
+            "m": params_to_numpy(cfg, state["m"]),
+            "v": params_to_numpy(cfg, state["v"])}

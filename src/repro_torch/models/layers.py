@@ -7,8 +7,8 @@ drawn) and device. They draw other numbers than ``jax.random`` from the
 same seed; tests carry the JAX package's weights across instead
 (``models/convert.py``).
 
-``apply_mrope`` and the cross-entropy losses are not here yet: they
-belong to the VLM slice and the training slice (ROADMAP.md, item 7).
+``apply_mrope`` is not here yet: it belongs to the VLM slice
+(ROADMAP.md, item 8.4).
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 Params = dict[str, Any]
 
@@ -116,3 +117,70 @@ def mlp(params: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return torch.tanh(x / cap) * cap
+
+
+# ---------------------------------------------------------------------------
+# Cross entropy
+# ---------------------------------------------------------------------------
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token cross-entropy. logits (..., V), computed in float32;
+    labels (...)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def _chunk_nll(xi: torch.Tensor, embed: torch.Tensor, li: torch.Tensor,
+               final_softcap: float | None):
+    """(sum of the chunk's nll over valid labels, count of valid labels):
+    the chunk's logits in the compute dtype, then float32, then the
+    softcap, then the logsumexp, as the JAX scan body orders them."""
+    logits = (xi @ embed.T).float()
+    if final_softcap is not None:
+        logits = softcap(logits, final_softcap)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, li.clamp(min=0).long()[..., None])[..., 0]
+    valid = (li >= 0).float()
+    return torch.sum((logz - gold) * valid), torch.sum(valid)
+
+
+def chunked_cross_entropy_loss(x: torch.Tensor, embed: torch.Tensor,
+                               labels: torch.Tensor, num_chunks: int = 8,
+                               final_softcap: float | None = None
+                               ) -> torch.Tensor:
+    """Cross-entropy without materializing the full (T, V) logits.
+
+    x: (T, d) final hidden states, embed: (V, d) output embedding matrix,
+    labels: (T,), -1 ignored. T is padded to a multiple of
+    ``num_chunks`` (with label -1); each chunk computes its own logits
+    and reduces them to a sum of nll. Where grad is on, each chunk runs
+    under activation checkpointing, so its logits are recomputed in the
+    backward instead of kept: at qwen3-1.7b's width a chunk of 1024 rows
+    holds 1024 x 151936 logits in bf16 and float32."""
+    t = x.shape[0]
+    pad = (-t) % num_chunks
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    xc = x.reshape(num_chunks, -1, x.shape[-1])
+    lc = labels.reshape(num_chunks, -1)
+    remat = torch.is_grad_enabled() and (x.requires_grad
+                                         or embed.requires_grad)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for xi, li in zip(xc, lc):
+        if remat:
+            nll, valid = checkpoint(_chunk_nll, xi, embed, li, final_softcap,
+                                    use_reentrant=False)
+        else:
+            nll, valid = _chunk_nll(xi, embed, li, final_softcap)
+        tot = tot + nll
+        cnt = cnt + valid
+    return tot / torch.clamp(cnt, min=1.0)

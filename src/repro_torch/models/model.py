@@ -9,12 +9,14 @@ parameter dict per layer (``params["layers"]``) and runs a Python loop
 over the layers; ``models/convert.py`` maps one tree onto the other.
 Caches are one ``{"k", "v"}`` dict per layer, (B, Smax, Hkv, D).
 
-Left out, because they have no meaning in an eager serve path:
-``_seq_constraint`` (a GSPMD sharding constraint) and ``_remat``
-(activation checkpointing for training). Not ported yet, and raising
-``NotImplementedError`` naming their ROADMAP item (ROADMAP.md, open
-item 7): the ``mamba`` mixer, the ``moe`` MLP, M-RoPE and the
-``frames``/``patches`` front ends.
+Left out, because it has no meaning on one card: ``_seq_constraint``
+(a GSPMD sharding constraint). ``_remat`` becomes
+``torch.utils.checkpoint`` around each layer where ``cfg.remat`` is on
+and grad is enabled (training); ``remat_policy="dots"`` (save the
+matmul outputs) has no exact counterpart and raises. Not ported yet,
+and raising ``NotImplementedError`` naming their ROADMAP item
+(ROADMAP.md, open items 8.2-8.4): the ``mamba`` mixer, the ``moe`` MLP,
+M-RoPE and the ``frames``/``patches`` front ends.
 
 The JAX steps cast the block weights to the compute dtype inside every
 jitted call (``_cast_blocks``). Here ``compute_params`` does that cast
@@ -30,6 +32,7 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.executor import resolve_device
 from repro_torch.models import attention as attn_lib
@@ -91,8 +94,8 @@ class ModelConfig:
     # numerics / execution
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
-    remat: bool = True                # training only: not used here
-    remat_policy: str = "full"        # training only: not used here
+    remat: bool = True                # training: checkpoint each layer
+    remat_policy: str = "full"        # "full" only ("dots" raises)
     attn_impl: str = "auto"           # auto | kernel (pallas) | dense | chunked
     attn_chunk: int = 512
     ce_chunks: int = 8
@@ -125,11 +128,22 @@ class ModelConfig:
         """Total parameter count (from the meta-device tree)."""
         return sum(t.numel() for t in _leaves(abstract_params(self)))
 
+    def num_active_params(self) -> int:
+        """Active params per token (MoE: only top_k experts count)."""
+        total = self.num_params()
+        if self.num_experts == 0:
+            return total
+        n_moe_layers = self.repeats * sum(
+            1 for s in self.pattern if s.mlp == "moe")
+        per_expert = 3 * self.d_model * self.d_ff_expert
+        inactive = n_moe_layers * (self.num_experts - self.top_k) * per_expert
+        return total - inactive
+
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet
     (module docstring)."""
-    todo = "not ported yet (ROADMAP.md, open item 7: {})"
+    todo = "not ported yet (ROADMAP.md, open item 8: {})"
     for spec in cfg.pattern:
         if spec.mixer == "mamba":
             raise NotImplementedError("mamba mixer " + todo.format("ssm"))
@@ -223,6 +237,18 @@ def abstract_params(cfg: ModelConfig) -> Params:
     return init_params(cfg, device="meta")
 
 
+def decay_mask(params: Params) -> Params:
+    """Where the JAX package's AdamW applies weight decay: to leaves of
+    ndim >= 2 in its layout, where each layer leaf is stacked on a
+    leading K axis (``convert.py``). So every layer leaf is decayed,
+    norm scales included, and of the rest only the matrices. The port
+    keeps that rule to train as the reference does."""
+    out = {k: tree_map(lambda t: t.dim() >= 2, v)
+           for k, v in params.items() if k != "layers"}
+    out["layers"] = tree_map(lambda t: True, params["layers"])
+    return out
+
+
 def compute_params(cfg: ModelConfig, params: Params) -> Params:
     """The tree with every float32 matrix cast to the compute dtype (the
     norm scales stay float32), made once per serve (module docstring)."""
@@ -305,14 +331,38 @@ def _embed_inputs(cfg: ModelConfig, params: Params, batch: dict):
     return h, positions
 
 
+def _apply_block(cfg: ModelConfig, spec: BlockSpec, p: Params,
+                 h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    return _apply_block_with_cache(cfg, spec, p, h, positions)[0]
+
+
+def _remat(cfg: ModelConfig, params: Params) -> bool:
+    """Checkpoint each layer (``repro/models/model.py:_remat``, policy
+    "full"): on when ``cfg.remat`` is, grad is enabled and a parameter
+    requires it (training)."""
+    if not (cfg.remat and torch.is_grad_enabled()
+            and any(t.requires_grad for t in _leaves(params))):
+        return False
+    if cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r}: only 'full' has a torch "
+            "counterpart (torch.utils.checkpoint of each layer)")
+    return True
+
+
 def _run_blocks(cfg: ModelConfig, params: Params, batch: dict,
                 caches: list | None) -> torch.Tensor:
     check_supported(cfg)
+    remat = caches is None and _remat(cfg, params)
     layers = compute_params(cfg, params["layers"])
     h, positions = _embed_inputs(cfg, params, batch)
     for i, p in enumerate(layers):
-        h, cache = _apply_block_with_cache(cfg, cfg.layer_spec(i), p, h,
-                                           positions)
+        spec = cfg.layer_spec(i)
+        if remat:
+            h = checkpoint(_apply_block, cfg, spec, p, h, positions,
+                           use_reentrant=False)
+            continue
+        h, cache = _apply_block_with_cache(cfg, spec, p, h, positions)
         if caches is not None:
             caches.append(cache)
     return rmsnorm(params["final_norm"], h, cfg.norm_eps)

@@ -1,15 +1,147 @@
-"""Serve steps, ported from ``repro/models/steps.py``: prefill, one
-decode step, and a greedy decode loop. ``loss_fn`` and
-``make_train_step`` wait for the training slice (ROADMAP.md, open
-item 7)."""
+"""Train / prefill / decode step functions, ported from
+``repro/models/steps.py``.
+
+``make_train_step`` builds the train step: microbatch gradient
+accumulation, the mean, the schedule and the AdamW update. Where the
+JAX step takes ``jax.value_and_grad`` of ``loss_fn``, the port runs
+``loss.backward()`` into the ``.grad`` of detached views of the
+parameters (no copy of the weights): microbatches accumulate into the
+same float32 buffers, in the JAX order (0 + g1 + g2 + ...), with no
+second tree of gradients alive. On the card the attention's gradient
+comes from the flash-attention backward kernel
+(``kernels.flash_attention.FlashAttention``).
+"""
 from __future__ import annotations
+
+from typing import Any
 
 import torch
 
 from repro_torch.models import model as model_lib
+from repro_torch.models.layers import chunked_cross_entropy_loss
+from repro_torch.optim import adamw_update, warmup_cosine
 
 ModelConfig = model_lib.ModelConfig
 
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def loss_fn(cfg: ModelConfig, params: Any, batch: dict,
+            aux_weight: float = 0.01) -> tuple[torch.Tensor, dict]:
+    h, moe_aux = model_lib.forward(cfg, params, batch)
+    b, s, d = h.shape
+    labels = batch["labels"]
+    if labels.shape[1] != s:  # vlm: patches prefix carries no labels
+        pad = s - labels.shape[1]
+        labels = torch.cat([torch.full((b, pad), -1, dtype=labels.dtype,
+                                       device=labels.device), labels], 1)
+    emb = model_lib.output_embedding(cfg, params).to(cfg.cdtype)
+    ce = chunked_cross_entropy_loss(
+        h.reshape(b * s, d), emb, labels.reshape(b * s),
+        num_chunks=cfg.ce_chunks,
+        final_softcap=cfg.final_logit_softcap or None)
+    loss = ce + aux_weight * moe_aux
+    return loss, {"ce": ce, "moe_aux": moe_aux}
+
+
+def _trainable(params: Any) -> Any:
+    """Views of the parameters that are leaves of a new autograd graph
+    (the same storage; their ``.grad`` collects the gradients)."""
+    return model_lib.tree_map(lambda t: t.detach().requires_grad_(), params)
+
+
+def _grads(tp: Any) -> Any:
+    return model_lib.tree_map(
+        lambda t: t.grad.float() if t.grad is not None
+        else torch.zeros(t.shape, dtype=torch.float32, device=t.device), tp)
+
+
+def _backward(cfg: ModelConfig, tp: Any, batch: dict,
+              aux_weight: float = 0.01) -> tuple[torch.Tensor, dict]:
+    """loss_fn on ``tp`` (from ``_trainable``) and its backward, which
+    adds the gradients into ``tp``'s ``.grad``: (loss, parts),
+    detached."""
+    loss, parts = loss_fn(cfg, tp, batch, aux_weight)
+    loss.backward()
+    return loss.detach(), {k: v.detach() for k, v in parts.items()}
+
+
+def value_and_grad(cfg: ModelConfig, params: Any, batch: dict,
+                   aux_weight: float = 0.01) -> tuple[torch.Tensor, dict,
+                                                      Any]:
+    """``jax.value_and_grad(loss_fn, has_aux=True)``: (loss, parts,
+    grads), the gradients a float32 tree shaped like ``params``."""
+    tp = _trainable(params)
+    loss, parts = _backward(cfg, tp, batch, aux_weight)
+    return loss, parts, _grads(tp)
+
+
+def split_microbatches(batch: dict, n: int) -> list[dict]:
+    """``n`` microbatches of ``batch``, in order: every leaf splits on its
+    leading axis, except the M-RoPE ``positions`` (3, B, S), whose batch
+    lives on axis 1."""
+    out = [{} for _ in range(n)]
+    for key, x in batch.items():
+        ax = 1 if key == "positions" else 0
+        if x.shape[ax] % n:
+            raise ValueError(f"{key}: batch {x.shape[ax]} not divisible "
+                             f"into {n} microbatches")
+        for i, part in enumerate(torch.chunk(x, n, dim=ax)):
+            out[i][key] = part
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Train step
+# ---------------------------------------------------------------------------
+
+def make_train_step(cfg: ModelConfig, *, num_microbatches: int = 1,
+                    peak_lr: float = 3e-4, warmup_steps: int = 100,
+                    total_steps: int = 10_000, weight_decay: float = 0.1):
+    """Returns train_step(params, opt_state, batch) -> (params, opt,
+    metrics); the parameters and the optimizer state are updated in
+    place (``optim.adamw``).
+
+    ``batch`` leaves have leading dim global_batch; it is split into
+    ``num_microbatches`` accumulation steps to bound activation memory.
+    ``metrics``: ``loss``, ``lr``, ``grad_norm``, and with one
+    microbatch ``ce`` and ``moe_aux`` (0-d tensors on the device)."""
+
+    def train_step(params, opt_state, batch):
+        tp = _trainable(params)
+        if num_microbatches == 1:
+            loss, parts = _backward(cfg, tp, batch)
+            grads = _grads(tp)
+        else:
+            loss = None
+            for micro in split_microbatches(batch, num_microbatches):
+                lm, _ = _backward(cfg, tp, micro)
+                loss = lm if loss is None else loss + lm
+            inv = 1.0 / num_microbatches
+            grads = _grads(tp)
+            with torch.no_grad():
+                for g in model_lib._leaves(grads):
+                    g.mul_(inv)
+            loss = loss * inv
+            parts = {}
+        del tp
+        lr = warmup_cosine(opt_state["step"], peak_lr=peak_lr,
+                           warmup_steps=warmup_steps,
+                           total_steps=total_steps)
+        params, opt_state, om = adamw_update(
+            grads, opt_state, params, lr=lr, weight_decay=weight_decay,
+            decay_mask=model_lib.decay_mask(params))
+        metrics = {"loss": loss, "lr": lr, **om, **parts}
+        return params, opt_state, metrics
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# Serve steps
+# ---------------------------------------------------------------------------
 
 def make_prefill_step(cfg: ModelConfig):
     """prefill_step(params, batch) -> (last-position logits (B, 1, V),

@@ -181,6 +181,12 @@ def T(a, device="cpu"):
 # registry
 # ---------------------------------------------------------------------------
 
+def forward_kernels() -> dict:
+    """The registry's entries that port a Pallas kernel (a backward has
+    none: ``"backward_of"`` names its forward instead)."""
+    return {n: e for n, e in KERNELS.items() if "backward_of" not in e}
+
+
 def test_registry_entries_resolve():
     from repro.kernels.registry import KERNEL_REFS
     for name, e in KERNELS.items():
@@ -189,18 +195,26 @@ def test_registry_entries_resolve():
             f"repro_torch.kernels.{mod}"), fn)
         assert callable(wrapper) and hasattr(wrapper, "launches"), name
         assert callable(getattr(ref, e["plain"])), name
-        assert e["jax_ref"] in KERNEL_REFS, name
+        if "backward_of" in e:
+            # a backward names a forward of the registry, and no Pallas
+            # kernel
+            assert e["backward_of"] in forward_kernels(), name
+            assert e["jax_ref"] is None and e["replaces"] is None, name
+        else:
+            assert e["jax_ref"] in KERNEL_REFS, name
     # every JAX kernel is either ported or listed as still to port
-    ported = {e["jax_ref"] for e in KERNELS.values()}
+    ported = {e["jax_ref"] for e in forward_kernels().values()}
     assert ported | set(NOT_PORTED) == set(KERNEL_REFS)
 
 
 def test_registry_covers_every_tpu_kernel():
     from repro.kernels.registry import KERNEL_REFS
-    assert {e["jax_ref"] for e in KERNELS.values()} == set(KERNEL_REFS)
-    assert len(KERNELS) == len(KERNEL_REFS) == 6
+    fwd = forward_kernels()
+    assert {e["jax_ref"] for e in fwd.values()} == set(KERNEL_REFS)
+    assert len(fwd) == len(KERNEL_REFS) == 6
+    assert set(KERNELS) - set(fwd) == {"flash_attention_bwd"}
     assert NOT_PORTED == {}
-    for e in KERNELS.values():
+    for e in fwd.values():
         assert e["plain"] == KERNEL_REFS[e["jax_ref"]]
 
 
@@ -632,6 +646,78 @@ def test_cuda_flash_attention_head_dim_80(cuda, dtype, causal, window,
     assert got.dtype == dtype and got.shape == q.shape
     tol = CUDA_ATT_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+FLASH_BWD_CUDA_CASES = [
+    # causal, window, softcap, g, sq, sk, d
+    (True, None, None, 2, 256, 256, 128),
+    (False, None, None, 1, 100, 77, 64),          # ragged Sq and Sk
+    (True, 4096, None, 2, 300, 300, 128),
+    (True, 16, None, 8, 130, 200, 64),
+    (False, 16, None, 1, 200, 100, 64),           # rows with no live key
+    (True, 100, None, 2, 300, 300, 128),          # window across key tiles
+    (True, None, 50.0, 2, 129, 129, 256),
+    (True, 16, 50.0, 1, 65, 65, 128),
+    (True, None, None, 2, 100, 300, 128),         # Sq < Sk
+    (True, 100, 50.0, 2, 300, 300, 80),
+    (False, None, None, 2, 100, 77, 80),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window,softcap,g,sq,sk,d",
+                         FLASH_BWD_CUDA_CASES)
+def test_cuda_flash_attention_bwd(cuda, dtype, causal, window, softcap, g,
+                                  sq, sk, d):
+    """dQ, dK, dV of the backward kernel against the plain backward on
+    the kernel's own forward output; the same bits on a second launch."""
+    q, k, v = (T(x, cuda).to(dtype) for x in
+               attn_case(2 * g, 2, sq, sk, d, seed=sq * sk + d + 1))
+    do = T(np.random.default_rng(sq + d).normal(size=q.shape)
+           .astype(np.float32), cuda).to(dtype)
+    kw = dict(g=g, causal=causal, window=window, softcap=softcap)
+    o = flash_attention.flash_attention_bhsd(q, k, v, **kw)
+    got = flash_attention.flash_attention_bwd_bhsd(q, k, v, o, do, **kw)
+    want = ref.flash_attention_bwd(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    tol = CUDA_ATT_TOL[dtype]
+    for a, b, x in zip(got, want, (q, k, v)):
+        assert a.dtype == dtype and a.shape == x.shape
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+    again = flash_attention.flash_attention_bwd_bhsd(q, k, v, o, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+def test_cuda_flash_attention_grad_through_ops(cuda):
+    """ops.flash_attention on (B, S, H, D) tensors that require grad:
+    the forward and backward kernels, once each, and q, k, v get the
+    plain version's gradients."""
+    b, s, hq, hkv, d = 2, 190, 8, 4, 128
+    rng = np.random.default_rng(6)
+    q, k, v = (T(rng.normal(size=(b, s, h, d)).astype(np.float32),
+                 cuda).bfloat16().requires_grad_() for h in (hq, hkv, hkv))
+    do = T(rng.normal(size=(b, s, hq, d)).astype(np.float32),
+           cuda).bfloat16()
+    fa = flash_attention
+    fa.flash_attention_bhsd.launches = 0
+    fa.flash_attention_bwd_bhsd.launches = 0
+    got = torch.autograd.grad(ops.flash_attention(q, k, v), (q, k, v), do)
+    assert (fa.flash_attention_bhsd.launches,
+            fa.flash_attention_bwd_bhsd.launches) == (1, 1)
+
+    def plain(q, k, v):
+        return ref.flash_attention(
+            q.transpose(1, 2).reshape(b * hq, s, d),
+            k.transpose(1, 2).reshape(b * hkv, s, d),
+            v.transpose(1, 2).reshape(b * hkv, s, d), g=2) \
+            .reshape(b, hq, s, d).transpose(1, 2)
+
+    want = torch.autograd.grad(plain(q, k, v), (q, k, v), do)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert float(a.float().abs().max()) > 0
+        torch.testing.assert_close(a.float(), w.float(), atol=2e-2,
+                                   rtol=2e-2)
 
 
 def test_cuda_flash_attention_reads_model_layout_in_place(cuda):

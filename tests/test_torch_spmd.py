@@ -413,9 +413,10 @@ def test_xquery_cluster_cli_under_torchrun(tmp_path):
     rank 0 prints every query on both strategies and the service's
     cold/warm runs, with one compile a query."""
     log = tmp_path / "cluster.log"
+    # --standalone: torchrun binds its own rendezvous port (no port is
+    # picked here and bound later, which another process could take)
     proc = _start(["from torch.distributed.run import main; main()",
-                   "--nproc-per-node", "2", "--master-addr", "127.0.0.1",
-                   "--master-port", str(free_port()), "-m",
+                   "--standalone", "--nproc-per-node", "2", "-m",
                    "repro_torch.launch.xquery_cluster", "--device", "cpu",
                    "--stations", "8", "--first-year", "2000", "--days", "3",
                    "--queries", "Q5", "Q8"], log)

@@ -107,11 +107,17 @@ def _imports(path: Path):
 def test_no_reference_imports_in_source():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
-    for sub in ("models", "configs", "launch", "kernels", "core"):
+    for sub in ("models", "configs", "launch", "kernels", "core", "optim",
+                "checkpoint", "runtime", "data"):
         assert any(f.parent.name == sub for f in files), sub
     for new in ("launch/mesh.py", "launch/xquery_cluster.py",
                 "core/baselines/__init__.py", "core/baselines/saxon_like.py",
-                "core/baselines/mrql_like.py", "core/persist.py"):
+                "core/baselines/mrql_like.py", "core/persist.py",
+                "optim/__init__.py", "optim/adamw.py", "optim/schedule.py",
+                "checkpoint/__init__.py", "checkpoint/manager.py",
+                "runtime/__init__.py", "runtime/straggler.py",
+                "runtime/elastic.py", "runtime/compression.py",
+                "data/pipeline.py", "models/flops.py", "launch/train.py"):
         assert PORT / new in files, new
     for f in files:
         for mod in _imports(f):
@@ -224,3 +230,23 @@ def test_chip_smoke_mrql_path_rehearsal_on_cpu():
     assert [r["query"] for r in recs] == [f"Q{i}" for i in range(1, 13)]
     assert [r["jobs"] for r in recs] == [1, 1, 2, 2, 3, 3, 4, 4, 2, 2, 3, 2]
     assert all(r["mrql_over_service"] == r["ms"] for r in recs)
+
+
+def test_chip_smoke_train_path_rehearsal_on_cpu():
+    """chip_smoke.py's phase 9 at the smoke size of qwen3-1.7b on the
+    CPU: kernel-route vs plain-route gradients (the autograd function
+    with the plain forward and backward standing in for the kernels),
+    ``launch.train.train`` for two steps with the per-step records, and
+    the checkpoint resume against the uninterrupted run."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    dev = torch.device("cpu")
+    out = chip_smoke.train_path(dev, smoke=True, steps=2, batch=2, seq=16)
+    routes = out["routes"]
+    assert routes["zero_grad_leaves"] == [] and routes["leaves"] > 10
+    assert routes["grad_leaf_rel_err"] <= chip_smoke.TRAIN_GRAD_TOL
+    assert len(out["losses"]) == 2 and out["microbatches"] == 2
+    assert out["tokens_per_s"] > 0 and out["model_flops"] > 0
+    rec = chip_smoke.resume_check(dev)
+    assert rec["max_abs_err"] <= chip_smoke.RESUME_ATOL
+    assert len(rec["losses"]) == 8 and len(rec["resumed_losses"]) == 4
