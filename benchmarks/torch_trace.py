@@ -4,6 +4,7 @@
     python3 benchmarks/torch_trace.py         # from the repository root
     python3 benchmarks/torch_trace.py --lm    # the LM serving path
     python3 benchmarks/torch_trace.py --spmd  # sim vs spmd mode, P = 1
+    python3 benchmarks/torch_trace.py --train # the LM training path
 
 Builds the data of ``chip_smoke.py`` (same spec, P = 4), runs each of
 Q1–Q12 once on the kernel route with statistics-presized caps, then
@@ -15,8 +16,11 @@ seeded random weights (``chip_smoke.py``'s phase 5), one warm
 JSON line each. With ``--spmd``: the same data built with P = 1, each
 query traced once in sim mode and once in spmd mode over an in-process
 NCCL group of one rank, through ``run_compiled`` (the run and the copy
-of its outputs to the host), one JSON line per query and mode. Every
-line has:
+of its outputs to the host), one JSON line per query and mode. With
+``--train``: qwen3-1.7b at full width (``chip_smoke.py``'s phase 9:
+seeded random weights, 8 x 2048 tokens a step, 2 microbatches, remat),
+one cold step, then one traced warm step, one JSON line with its ten
+kernels of most device time. Every line has:
 
 - ``wall_ms``: host clock around the traced run (ends in a sync);
 - ``device_ms``: the sum of the device time of every kernel the run
@@ -52,9 +56,9 @@ def repo_kernel_pattern():
     return re.compile(r"\b(?:" + "|".join(sorted(names)) + r")\s*[<(]")
 
 
-def traced(fn) -> dict:
+def traced(fn, top: int = 5) -> dict:
     """Run ``fn`` once under ``torch.profiler``, ending in a sync:
-    wall and summed kernel device time, busy share, launches, the top
+    wall and summed kernel device time, busy share, launches, the ``top``
     kernels by device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -78,7 +82,7 @@ def traced(fn) -> dict:
     device_ms = sum(by_name.values())
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy": device_ms / wall_ms, "launches": len(kernels),
-            "top": [[k, v] for k, v in by_name.most_common(5)],
+            "top": [[k, v] for k, v in by_name.most_common(top)],
             "repo_kernels": [[k, v, ours_n[k]] for k, v in ours.most_common()]}
 
 
@@ -128,6 +132,40 @@ def trace_lm() -> None:
                           **traced(run_decode)}), flush=True)
 
 
+def trace_train() -> None:
+    import torch
+
+    import chip_smoke
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.models import flops, model, steps
+    from repro_torch.optim import adamw_init
+    cfg = get_config(chip_smoke.TRAIN_ARCH)
+    dev = torch.device("cuda")
+    b, s, micro = chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ, 2
+    state = {"params": model.init_params(cfg, chip_smoke.SEED, dev)}
+    state["opt"] = adamw_init(state["params"])
+    step_fn = steps.make_train_step(cfg, num_microbatches=micro,
+                                    total_steps=10)
+    batches = [batch_at(cfg, i, batch=b, seq=s, seed=chip_smoke.SEED,
+                        device=dev) for i in range(2)]
+
+    def run(i):
+        state["params"], state["opt"], m = step_fn(
+            state["params"], state["opt"], batches[i])
+        float(m["loss"])                        # the step ends here
+
+    run(0)                                      # the cold step
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec = traced(lambda: run(1), top=10)
+    print(json.dumps({
+        "train": "warm_step", "arch": chip_smoke.TRAIN_ARCH,
+        "tokens": b * s, "microbatches": micro,
+        "model_flops": flops.model_flops(cfg, "train", b, s)["total"],
+        "peak_mib": torch.cuda.max_memory_allocated(dev) / 2**20, **rec}),
+        flush=True)
+
+
 def trace_spmd() -> None:
     import torch
     import torch.distributed as dist
@@ -171,6 +209,10 @@ def main() -> int:
     print(f"device {torch.cuda.get_device_name(0)}", flush=True)
     if "--lm" in sys.argv[1:]:
         trace_lm()
+        print(subprocess_smi())
+        return 0
+    if "--train" in sys.argv[1:]:
+        trace_train()
         print(subprocess_smi())
         return 0
     if "--spmd" in sys.argv[1:]:

@@ -6,7 +6,9 @@
 Phases, each printed as it runs:
 
 1. environment: torch/CUDA versions, the card, the kernels' build time
-   (every ``csrc/*.cu`` is compiled by nvcc at first use);
+   (every ``csrc/*.cu`` is compiled by nvcc at first use), and the
+   attention kernels' registers and spills from ptxas (the bf16 forward
+   must not spill);
 2. each CUDA kernel against its plain PyTorch version on the card, on
    seeded edge-shape inputs (ragged sizes, duplicate join keys, invalid
    rows; the join's hash table at its worst: every build key equal, no
@@ -15,7 +17,8 @@ Phases, each printed as it runs:
    segment ids outside [0, S), masked NaNs, C = 0, S >= 4096,
    cap == N, tie-heavy keys, N over several sorted chunks (the top-k
    merge), all rows invalid; attention causal and not, windows 4096,
-   100 and 16, softcap 50, GQA g in {1, 2, 8}, ragged Sq/Sk and Sq < Sk,
+   100, 16 and 8, softcap 50 and 30, GQA g in {1, 2, 4, 8}, ragged Sq/Sk
+   and Sq < Sk,
    head_dim 64/80/128/256 at several tiles, bf16 and float32, the same bits
    from launch to launch; decode in bf16 and float32 with kv_len in
    {0, 1, ragged, Smax}, an Smax that is no multiple of a tile, one
@@ -24,9 +27,11 @@ Phases, each printed as it runs:
    station-major sorted runs (97 equal ids in a row, across tiles), one
    hot segment, 0.4 % valid rows in clusters, S = 1, N no multiple of
    the flag vector or of a warp, and no row valid; sums the same bits
-   on a second launch; the flash backward on every flash edge shape
-   (rows with no live key included) in bf16 and float32, the same bits
-   on a second launch);
+   on a second launch; the flash forward's row log-sum-exp L against
+   the plain L and its output the same bits with L stored and not, then
+   the flash backward, handed that L, on every flash edge shape (rows
+   with no live key included) in bf16 and float32, the same bits on a
+   second launch);
 3. the query path: the NOAA-GHCN-shaped weather collections of the
    paper's §5 at 2000 stations x 50 years x 8 days (4,000,000 /sensors
    readings, P = 4 partitions), Q1–Q12 through ``compile_query`` ->
@@ -88,9 +93,12 @@ Phases, each printed as it runs:
    2 microbatches, remat and 8 CE chunks, nothing cut), each step with
    112 flash forward and 56 flash backward launches (2 x 28 layers x 2
    microbatches under remat, 28 x 2), its ms, tokens/s, MFU and peak
-   MiB; the backward kernel timed at the training shape (phase 4's
-   kind of record, beside the autograd backward of
-   ``scaled_dot_product_attention``); and a checkpoint resume at the
+   MiB; the backward kernel timed at the training shape on one layer's
+   q, k, v, O and L from that run (phase 4's kind of record, beside the
+   autograd backward of ``scaled_dot_product_attention``; it names the
+   kernel templates that ran, the tensor-core pair in bf16, with their
+   registers and spills), the forward there with L stored and not; and a
+   checkpoint resume at the
    smoke config (head_dim 64): 8 steps against a run that fails at
    step 6 and resumes from step 4, the params within RESUME_ATOL.
 
@@ -136,6 +144,10 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # attention kernel vs plain version: float32 another summation order,
 # bf16 outputs rounded to bf16 (one ulp below 4 is at most 1.6e-2)
 ATT_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the forward kernel's row log-sum-exp L vs the plain one (atol and rtol):
+# float32 another summation order; bf16 the same bf16 inputs, scores from
+# tensor-core products and ex2.approx instead of float32 einsum and exp
+LSE_TOL = {"float32": 1e-4, "bfloat16": 2e-3}
 # the LM path (phase 5)
 LM_ARCH = "qwen3-1.7b"
 LM_REQUESTS, LM_PROMPT, LM_GEN = 8, 2048, 32
@@ -470,7 +482,11 @@ FLASH_EDGES = [
     (True, 100, 50.0, 2, 300, 300, 80, "float32"),
     (False, None, None, 2, 100, 77, 80, "bfloat16"),     # ragged Sq, Sk
     (True, None, None, 1, 100, 300, 80, "float32"),      # Sq < Sk
-]
+    # the backward's tensor-core tiling (128 query rows / 64 keys for dQ,
+    # 128 keys / 64 query rows for dK, dV) at g = 4
+    (True, None, None, 4, 1000, 1000, 128, "bfloat16"),
+    (False, 8, 30.0, 4, 333, 200, 80, "bfloat16"),       # rows with no
+]                                                        # live key
 # hubert-xlarge's attention (configs/hubert_xlarge.py): 16 heads of 80,
 # not causal; 2048 frames of one utterance
 HUBERT_FLASH = dict(bh=16, s=2048, d=80)
@@ -556,21 +572,48 @@ def check_sum_count(vals, segs, valid, s) -> float:
     return worst
 
 
-def check_flash_bwd(q, k, v, do, kw) -> float:
-    """dQ, dK, dV of the backward kernel against the plain backward on
-    the forward kernel's output; the same bits on a second launch."""
+def check_lse(got, want, dtype_name: str, what: str) -> float:
+    """Largest |got - want| of two row log-sum-exps; fails past
+    LSE_TOL[dtype] (atol and rtol)."""
+    import torch
+    torch.cuda.synchronize()
+    tol = LSE_TOL[dtype_name]
+    require(got.dtype == torch.float32 and got.shape == want.shape,
+            f"{what}: L {got.dtype} {tuple(got.shape)}")
+    require(bool(torch.isfinite(got).all()), f"{what}: non-finite L")
+    err = (got - want).abs()
+    worst = float(err.max())
+    require(bool((err <= tol + tol * want.abs()).all()),
+            f"{what}: L disagrees with the plain L by up to {worst}")
+    return worst
+
+
+def check_flash_bwd(q, k, v, do, kw) -> tuple[float, float]:
+    """The forward kernel's L against the plain L, and O the same bits
+    with L stored and not; then dQ, dK, dV of the backward kernel, handed
+    that L, against the plain backward on the forward kernel's output (L
+    recomputed); the same bits on a second launch. Returns the largest
+    gradient error and the largest L error."""
     import torch
     from repro_torch.kernels import flash_attention, ref
-    o = flash_attention.flash_attention_bhsd(q, k, v, **kw)
-    got = flash_attention.flash_attention_bwd_bhsd(q, k, v, o, do, **kw)
-    want = ref.flash_attention_bwd(q, k, v, o, do, **kw)
     dt = str(q.dtype).split(".")[1]
+    o, lse = flash_attention.flash_attention_bhsd(q, k, v, return_lse=True,
+                                                  **kw)
+    require(torch.equal(o, flash_attention.flash_attention_bhsd(q, k, v,
+                                                                **kw)),
+            "flash_attention: O differs with L stored and not")
+    lse_err = check_lse(lse, ref.flash_attention(q, k, v, return_lse=True,
+                                                 **kw)[1],
+                        dt, "flash_attention")
+    got = flash_attention.flash_attention_bwd_bhsd(q, k, v, o, do, lse, **kw)
+    want = ref.flash_attention_bwd(q, k, v, o, do, **kw)
     err = max(attn_err(a, b, dt, f"flash_attention_bwd d{name}")
               for a, b, name in zip(got, want, "qkv"))
-    again = flash_attention.flash_attention_bwd_bhsd(q, k, v, o, do, **kw)
+    again = flash_attention.flash_attention_bwd_bhsd(q, k, v, o, do, lse,
+                                                     **kw)
     require(all(torch.equal(a, b) for a, b in zip(again, got)),
             "flash_attention_bwd differs from run to run")
-    return err
+    return err, lse_err
 
 
 def attention_edge_checks(dev, errs: dict) -> None:
@@ -583,12 +626,14 @@ def attention_edge_checks(dev, errs: dict) -> None:
         kw = dict(g=g, causal=causal, window=window, softcap=cap)
         e = check_flash(q, k, v, kw)
         errs["flash_attention"] = max(errs["flash_attention"], e)
-        # the backward on the same edges, in both dtypes
+        # L and the backward on the same edges, in both dtypes
         for dtype in (torch.bfloat16, torch.float32):
             qq, kk, vv = (x.to(dtype) for x in (q, k, v))
             do = normal((2 * g, sq, d), SEED + 130 + i, dev, dtype)
-            e = check_flash_bwd(qq, kk, vv, do, kw)
+            e, le = check_flash_bwd(qq, kk, vv, do, kw)
             errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], e)
+            errs["flash_attention_lse"] = max(errs["flash_attention_lse"],
+                                              le)
     for i, (bh, g, smax, d, window, cap) in enumerate(DECODE_EDGES):
         for dtype in (torch.bfloat16, torch.float32):
             q = normal((bh, g, d), SEED + 60 + i, dev, dtype)
@@ -619,7 +664,7 @@ def edge_checks(dev) -> dict[str, float]:
     errs = {"block_join_probe": 0.0, "segmented_aggregate": 0.0,
             "segment_topk": 0.0, "segmented_sum_count": 0.0,
             "flash_attention": 0.0, "flash_attention_bwd": 0.0,
-            "decode_attention": 0.0}
+            "flash_attention_lse": 0.0, "decode_attention": 0.0}
     for i, (kind, p, nb, np_, nk) in enumerate(JOIN_EDGES):
         e = check_join(join_edge_inputs(kind, p, nb, np_, nk, SEED + i, dev))
         errs["block_join_probe"] = max(errs["block_join_probe"], e)
@@ -1742,28 +1787,49 @@ def hubert_flash_record(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 class LastFlash:
-    """Wraps ``FlashAttention.forward`` and keeps the inputs of its last
-    call: q, k, v (the model's transposed (B, H, S, D) views) and the
-    options of one layer of the training run, for the backward kernel's
-    timing at the training shape."""
+    """Wraps the forward kernel's wrapper and keeps its last call that
+    stored L (the training run's: ``FlashAttention.forward`` asks for L
+    wherever a gradient follows): q, k, v (the model's transposed (B, H,
+    S, D) views), the output O, L and the options of one layer, for the
+    backward kernel's timing at the training shape. The stand-in passes
+    its ``launches`` through to the wrapper's own count, which the
+    wrapper increments through the module's name."""
 
     def __init__(self):
         from repro_torch.kernels import flash_attention
-        self.fn = flash_attention.FlashAttention
+        self.mod = flash_attention
         self.call = None
 
     def __enter__(self):
-        self.saved = self.fn.forward
-
-        def forward(ctx, q, k, v, *opts):
-            self.call = (q.detach(), k.detach(), v.detach(), opts)
-            return self.saved(ctx, q, k, v, *opts)
-
-        self.fn.forward = staticmethod(forward)
+        self.saved = self.mod.flash_attention_bhsd
+        self.mod.flash_attention_bhsd = _Spy(self.saved, self)
         return self
 
     def __exit__(self, *exc):
-        self.fn.forward = staticmethod(self.saved)
+        self.mod.flash_attention_bhsd = self.saved
+
+
+class _Spy:
+    """``LastFlash``'s stand-in for the forward kernel's wrapper."""
+
+    def __init__(self, fn, owner: LastFlash):
+        self.fn = fn
+        self.owner = owner
+
+    @property
+    def launches(self) -> int:
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.fn.launches = n
+
+    def __call__(self, q, k, v, *, return_lse=False, **kw):
+        res = self.fn(q, k, v, return_lse=return_lse, **kw)
+        if return_lse:
+            self.owner.call = (q.detach(), k.detach(), v.detach(),
+                               res[0].detach(), res[1], kw)
+        return res
 
 
 def route_grads(cfg, dev, batch: int, seq: int, kernel_impl: str) -> dict:
@@ -1951,17 +2017,19 @@ def resume_check(dev, *, smoke_overrides: dict | None = None) -> dict:
     return rec
 
 
-def train_bwd_check(q, k, v, o, do, kw) -> tuple[float, dict]:
-    """The backward kernel against its plain version on (B, H, S, D)
-    inputs: ``attn_err``'s check, then each of dQ, dK, dV held to its own
-    size (``TRAIN_BWD_TOL``). Returns the largest |err| and, for the
-    record, each output's largest |g| and relative errors."""
+def train_bwd_check(q, k, v, o, lse, do, kw) -> tuple[float, dict]:
+    """The backward kernel, handed the forward kernel's L, against its
+    plain version (L recomputed) on (B, H, S, D) inputs: ``attn_err``'s
+    check, then each of dQ, dK, dV held to its own size
+    (``TRAIN_BWD_TOL``). Returns the largest |err| and, for the record,
+    each output's largest |g| and relative errors."""
     import torch
     from repro_torch.kernels import flash_attention, ref
     d = q.shape[3]
     dt = str(q.dtype).split(".")[1]
     tol = TRAIN_BWD_TOL[dt]
-    got = flash_attention.flash_attention_bwd_bhsd(q, k, v, o, do, **kw)
+    got = flash_attention.flash_attention_bwd_bhsd(q, k, v, o, do, lse,
+                                                   **kw)
     want = ref.flash_attention_bwd(
         *(x.reshape(-1, x.shape[2], d) for x in (q, k, v, o, do)), **kw)
     err, sizes = 0.0, {}
@@ -1984,31 +2052,123 @@ def train_bwd_check(q, k, v, o, do, kw) -> tuple[float, dict]:
     return err, sizes
 
 
+def ptxas_report(lib: str) -> dict:
+    """Registers and spill bytes (stores, loads) of every kernel in the
+    ``-Xptxas=-v`` log of one built library, by mangled name."""
+    import re
+    from repro_torch.kernels import _build
+    out, name, spill = {}, None, (0, 0)
+    for line in _build.library_path(lib).with_suffix(".log").read_text() \
+            .splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = {"registers": int(m.group(1)), "spill_bytes": spill}
+    return out
+
+
+def template_report(names, lib: str) -> dict:
+    """For each demangled kernel name a profiler gave (``...::bwd_dq_tc<
+    128, 128>(...)``), its template and the ptxas registers and spills
+    of that instantiation."""
+    import re
+    rep = ptxas_report(lib)
+    out = {}
+    for full in sorted(names):
+        m = re.search(r"::(\w+)<([^>]*)>\(", full)
+        if not m:
+            continue
+        base, args = m.group(1), [a.strip() for a in m.group(2).split(",")]
+        hits = []
+        if all(a.isdigit() for a in args):    # an integer template's key
+            key = (f"{len(base)}{base}I" + "".join(f"Li{a}E" for a in args)
+                   + "E")
+            hits = [v for n, v in rep.items() if key in n]
+        out[f"{base}<{', '.join(args)}>"] = hits[0] if hits else None
+    return out
+
+
+def short_name(mangled: str) -> str:
+    """``bwd_dq_tc<128,128>`` for the mangled name of a flash kernel."""
+    import re
+    m = re.search(r"(flash_fwd_tc|flash_fwd_f32|bwd_dkdv_tc|bwd_dq_tc|"
+                  r"bwd_dkdv|bwd_dq)I(.+?)EEv", mangled)
+    if not m:
+        return mangled
+    args = [n or ("bf16" if b else "float") for n, b, _ in
+            re.findall(r"Li(\d+)E|(13__nv_bfloat16)|(f)", m.group(2))]
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
+def kernels_run(fn) -> set:
+    """The CUDA kernels one call of ``fn`` launches, by the profiler's
+    (demangled) names."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
 def train_kernel_timing(call, launches: dict, edge_errs: dict) -> dict:
-    """The backward kernel on the q, k, v one layer of the training run
-    gave the flash forward (``LastFlash``), its forward output and a
-    seeded dO, timed beside its plain version and the autograd backward
-    of ``scaled_dot_product_attention`` on the same inputs."""
+    """The backward kernel on what one layer of the training run gave the
+    flash forward kernel (``LastFlash``: q, k, v, its output O and L) and
+    a seeded dO, timed beside its plain version and the autograd
+    backward of ``scaled_dot_product_attention`` on the same inputs. The
+    record names the kernel templates the backward ran, with their
+    registers and spills from the build's ptxas log; in bf16 at head_dim
+    64, 80 or 128 they must be the tensor-core pair. The forward kernel
+    at the same inputs, with L stored (training) and not (serve), is
+    timed and logged beside it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention, ref
     require(call is not None, "the training path never reached the "
-            "flash attention function")
-    q, k, v, (g, causal, window, softcap, scale) = call
-    kw = dict(g=g, causal=causal, window=window, softcap=softcap,
-              scale=scale)
-    o = flash_attention.flash_attention_bhsd(q, k, v, **kw)
+            "flash forward kernel with L")
+    q, k, v, o, lse, kw = call
     do = normal(tuple(q.shape), SEED + 140, q.device, q.dtype)
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
+    g = kw["g"]
     flat = [x.reshape(-1, x.shape[2], d) for x in (q, k, v, o, do)]
     dt = str(q.dtype).split(".")[1]
-    err, sizes = train_bwd_check(q, k, v, o, do, kw)
+    # the training run's L against the plain L of the same inputs
+    lse_err = check_lse(lse.reshape(b * hq, sq), ref.flash_attention(
+        *flat[:3], return_lse=True, **kw)[1], dt,
+        "flash_attention (training shape)")
+    err, sizes = train_bwd_check(q, k, v, o, lse, do, kw)
+    names = kernels_run(lambda: flash_attention.flash_attention_bwd_bhsd(
+        q, k, v, o, do, lse, **kw))
+    templates = template_report(names, "flash_attention_bwd")
+    want = flash_attention.bwd_kernels(q.dtype, d)
+    ran = {t.split("<")[0] for t in templates}
+    require(ran == set(want), f"the backward at the training shape ran "
+            f"{sorted(templates)}, not {want}")
     # the same inputs in float32, through both float32 kernels
     q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
-    o32 = flash_attention.flash_attention_bhsd(q32, k32, v32, **kw)
-    _, sizes["float32"] = train_bwd_check(q32, k32, v32, o32, do32, kw)
-    del q32, k32, v32, do32, o32
+    o32, lse32 = flash_attention.flash_attention_bhsd(q32, k32, v32,
+                                                      return_lse=True, **kw)
+    _, sizes["float32"] = train_bwd_check(q32, k32, v32, o32, lse32, do32,
+                                          kw)
+    del q32, k32, v32, do32, o32, lse32
+    fwd = {"serve_ms": cuda_ms(lambda: flash_attention.flash_attention_bhsd(
+               q, k, v, **kw)),
+           "train_ms": cuda_ms(lambda: flash_attention.flash_attention_bhsd(
+               q, k, v, return_lse=True, **kw)),
+           "templates": template_report(kernels_run(
+               lambda: flash_attention.flash_attention_bhsd(
+                   q, k, v, return_lse=True, **kw)), "flash_attention")}
+    log("kernel flash_attention at training shape, L off (serve) and on "
+        "(training): " + json.dumps(fwd))
     lib = None
     if kw["window"] is None and kw["softcap"] is None:
         qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
@@ -2023,16 +2183,17 @@ def train_kernel_timing(call, launches: dict, edge_errs: dict) -> dict:
     # five products (S, dP, dV, dQ, dK) of 2 D FLOP a live pair
     flops = 10.0 * d * b * hq * pairs
     nbytes = (2 * (q.numel() + k.numel() + v.numel())
-              + o.numel() + do.numel()) * q.element_size()
+              + o.numel() + do.numel()) * q.element_size() + lse.numel() * 4
     return kernel_record(
         "flash_attention_bwd", launches,
         max(err, edge_errs["flash_attention_bwd"]),
-        lambda: flash_attention.flash_attention_bwd_bhsd(q, k, v, o, do,
+        lambda: flash_attention.flash_attention_bwd_bhsd(q, k, v, o, do, lse,
                                                          **kw),
         lambda: ref.flash_attention_bwd(*flat, **kw),
         lib, nbytes, flops, dt,
         {"B*Hq": b * hq, "Sq": sq, "Sk": sk, "D": d, "g": g,
-         "causal": kw["causal"], "dtype": dt, **sizes},
+         "causal": kw["causal"], "dtype": dt, "lse_max_abs_err": lse_err,
+         "templates": templates, **sizes},
         where="training shape")
 
 
@@ -2067,6 +2228,14 @@ def main() -> int:
         f"count {torch.cuda.device_count()} | {smi}")
     build_s = _build.build_all()
     log(f"env kernels built in {build_s:.3f} s into {_build.BUILD_DIR}")
+    # the attention kernels' registers and spills (nvcc -Xptxas=-v)
+    ptx = {short_name(n): v for lib in ("flash_attention",
+                                        "flash_attention_bwd")
+           for n, v in ptxas_report(lib).items()}
+    log("env ptxas " + json.dumps(ptx))
+    spills = {n: v for n, v in ptx.items()
+              if n.startswith("flash_fwd_tc") and any(v["spill_bytes"])}
+    require(not spills, f"the bf16 forward kernel spills: {spills}")
 
     t0 = time.perf_counter()
     edge_errs = edge_checks(dev)

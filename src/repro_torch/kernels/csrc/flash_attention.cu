@@ -63,6 +63,18 @@
 // softmax scale is the caller's (80^-1/2 by default), not the padded
 // width's.
 //
+// For the backward (flash_attention_bwd.cu) both kernels can also store
+// each row's log-sum-exp L = ln sum_k exp(s_k) of the scaled, softcapped,
+// masked scores, float32 [B][Hq][Sq], from the running max and row sum
+// they hold at the end anyway (the bf16 kernel in log2 units: L = (m +
+// log2 l) / log2 e). A row with no live key stores NEG_INF, which is
+// what the plain version's logsumexp of NEG_INF scores rounds to; the
+// backward does not read it there. Storing L or not (a null pointer: the
+// serve path) leaves O's bits as they are.
+//
+// The tensor-core building blocks (mbarriers, TMA, wgmma, the producer
+// lane) are in hopper.cuh, shared with the backward.
+//
 // Masking follows the TPU kernel exactly: masked scores are NEG_INF =
 // -2e38 (not -inf), the denominator is max(l, 1e-30). Key tiles wholly
 // above the causal diagonal or wholly before the window of every row of
@@ -77,10 +89,9 @@
 // Bound on the H100: operations. At the prefill shape of qwen3-1.7b
 // (B*Hq = 128, Sq = Sk = 2048, D = 128, causal) the two products are about
 // 1.37e11 FLOP against about 200 MB moved: 0.139 ms at 989 TFLOP/s.
-#include <cuda.h>
 #include <math.h>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -103,6 +114,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;                  // [B][Hq][Sq], or null: not stored
   // element strides: batch, head, seq (the dim stride is 1)
   long long q_sb, q_sh, q_ss;
   long long k_sb, k_sh, k_ss;
@@ -295,6 +307,11 @@ flash_fwd_f32(Params p) {
   for (int i = 0; i < 4; ++i) {
     const int r = ri * 4 + i;
     if (r >= q_rows) continue;
+    // the row's log-sum-exp (see repro_flash_attention): m and l are the
+    // whole row's in every thread of the row group
+    if (p.lse != nullptr && ci == 0)
+      p.lse[(static_cast<long long>(b) * p.hq + h) * p.sq + q0 + r] =
+          m[i] == kNegInf ? kNegInf : m[i] + logf(l[i]);
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int t = 0; t < kCols; ++t) {
@@ -337,16 +354,15 @@ int launch_f32(const Params& p, int batch, int d, cudaStream_t st) {
 
 namespace tc {
 
+using namespace hopper;
+
 constexpr int kBQ = 128;                 // query rows: two warpgroups of 64
-constexpr int kStages = 2;               // K/V ring
 constexpr int kConsumers = 256;
 constexpr int kThreads = kConsumers + 128;  // + the producer warpgroup
-constexpr int kRowBytes = 128;           // one swizzled row: 64 bf16
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory, from a 1024-byte aligned base: Q [D/64][kBQ][64], then
 // per stage K and V [D/64][BK][64] (bf16, 128-byte swizzle), then the
-// mbarriers: full_q, full_k[kStages], full_v[kStages], empty[kStages].
+// ring's mbarriers: Q's, K's and V's per stage, empty per stage.
 template <int D>
 struct Layout {
   static constexpr int kBK = D == 256 ? 64 : 128;
@@ -359,305 +375,19 @@ struct Layout {
 struct Params {
   CUtensorMap q, k, v;                   // (D, S, H, B) views
   __nv_bfloat16* o;
+  float* lse;                            // [B][Hq][Sq], or null: not stored
   long long o_sb, o_sh, o_ss;            // element strides of o
   int hq, g, sq, sk;
   int causal, window;                    // window <= 0: no window
   float scale, softcap;                  // softcap <= 0: no softcap
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(bar) : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// One TMA box of the map at coordinates (c0, c1, c2, c3) into shared
-// memory at `dst`; its bytes count towards the transaction of `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-         "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout B128.
-// K-major (rows of 64 bf16 along K): the leading offset is unused (16),
-// the stride offset is 8 rows (1024). MN-major (V: rows are keys, 64 bf16
-// along N): the leading offset steps to the next 64 columns (BK rows
-// down), the stride offset is 8 keys (1024).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-         | static_cast<uint64_t>(lbo >> 4) << 16
-         | static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// wait until every committed group of this warpgroup is done
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving accumulator reads across the wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// 2^x (ex2.approx: about 2 ulp; 2^-inf = 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// wgmma m64nNk16, f32 += bf16 x bf16. The accumulator fragment: thread t
-// of the warpgroup (warp w = t / 32, lane l) holds, for n8 block j,
-// d[4j + e] at row 16w + l/4 + 8 (e / 2), column 8j + 2 (l % 4) + e % 2.
-// S (+)= A . B, A and B K-major in shared memory (descriptors)
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// S (+)= A . B, A and B K-major in shared memory (descriptors)
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// O += A . B, A (bf16 pairs) from registers, B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs_t(float (&d)[32],
-                                           const uint32_t (&a)[4],
-                                           uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// O += A . B, A (bf16 pairs) from registers, B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs_t(float (&d)[64],
-                                           const uint32_t (&a)[4],
-                                           uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// O += A . B, A (bf16 pairs) from registers, B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs_t(float (&d)[128],
-                                           const uint32_t (&a)[4],
-                                           uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
-      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
-      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
-        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// Where one CTA's tiles are: shared-memory addresses and the key range.
+// Where one CTA's tiles are: the ring (Q fixed; stage s: K, then V) and
+// the key range.
 struct Tile {
-  uint32_t s_q, s_kv;                    // Q; stage s: K, then V
-  uint32_t full_q, full_k, full_v, empty;   // mbarriers (+ 8 per stage)
+  Ring r;
   int b, h, hk, q0, k_begin, n_tiles;
 };
-
-// The producer's one lane: Q once, then every K/V tile into the ring.
-template <int D>
-__device__ __forceinline__ void produce(const Params& p, const Tile& t) {
-  using L = Layout<D>;
-  constexpr int BK = L::kBK;
-  mbar_expect_tx(t.full_q, L::kQBytes);
-#pragma unroll
-  for (int c = 0; c < D / 64; ++c)
-    tma_load(t.s_q + c * kBQ * kRowBytes, &p.q, t.full_q, 64 * c, t.q0,
-             t.h, t.b);
-  for (int j = 0; j < t.n_tiles; ++j) {
-    const int s = j % kStages;
-    if (j >= kStages) mbar_wait(t.empty + 8 * s, (j / kStages - 1) & 1);
-    const int k0 = t.k_begin + j * BK;
-    const uint32_t s_k = t.s_kv + s * 2 * L::kTileBytes;
-    const uint32_t s_v = s_k + L::kTileBytes;
-    mbar_expect_tx(t.full_k + 8 * s, L::kTileBytes);
-#pragma unroll
-    for (int c = 0; c < D / 64; ++c)
-      tma_load(s_k + c * BK * kRowBytes, &p.k, t.full_k + 8 * s, 64 * c,
-               k0, t.hk, t.b);
-    mbar_expect_tx(t.full_v + 8 * s, L::kTileBytes);
-#pragma unroll
-    for (int c = 0; c < D / 64; ++c)
-      tma_load(s_v + c * BK * kRowBytes, &p.v, t.full_v + 8 * s, 64 * c,
-               k0, t.hk, t.b);
-  }
-}
-
-// S = Q K^T for one key tile: DR / 16 steps of 16 along the real head
-// width DR; a step moves 32 bytes within a swizzled row, or to the next
-// 64-column block.
-template <int DR, int BK>
-__device__ __forceinline__ void qk(float (&sc)[BK / 2], uint32_t s_qw,
-                                   uint32_t s_k) {
-#pragma unroll
-  for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < DR / 16; ++kk) {
-    const uint32_t off = (kk % 4) * 32;
-    wgmma_ss(sc,
-             smem_desc(s_qw + (kk / 4) * kBQ * kRowBytes + off, 16, 1024),
-             smem_desc(s_k + (kk / 4) * BK * kRowBytes + off, 16, 1024),
-             kk > 0);
-  }
-  wgmma_commit();
-  wgmma_wait();
-  fence_regs(sc);
-}
 
 // Online softmax of one tile's scores, in log2 units (scores times log2 e,
 // so that exp is one ex2). sc[4jj + e] is row row0 + 8 (e / 2), key k0 +
@@ -720,6 +450,14 @@ __device__ __forceinline__ void softmax_tile(
   }
 }
 
+// This row's log-sum-exp in natural-log units of the scaled, softcapped
+// scores, from the running max m (log2 units) and the row sum l; a row
+// with no live key (m still NEG_INF) gets NEG_INF, as the plain version's
+// logsumexp of NEG_INF scores rounds to.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return m == kNegInf ? kNegInf : (m + log2f(l)) / kLog2e;
+}
+
 // A consumer warpgroup: query rows q0 + 64 wg .. + 63.
 template <int D, int DR>
 __device__ __forceinline__ void consume(const Params& p, const Tile& t) {
@@ -732,7 +470,7 @@ __device__ __forceinline__ void consume(const Params& p, const Tile& t) {
   const int col = 2 * (lane % 4);
   const int wg_first = t.q0 + 64 * wg;
   const int wg_last = wg_first + 63;
-  const uint32_t s_qw = t.s_q + 64 * wg * kRowBytes;
+  const uint32_t s_qw = t.r.s_fix + 64 * wg * kRowBytes;
 
   float o[D / 2];
 #pragma unroll
@@ -743,30 +481,33 @@ __device__ __forceinline__ void consume(const Params& p, const Tile& t) {
   float sc[BK / 2];
   uint32_t pa[BK / 16][4];
 
-  mbar_wait(t.full_q, 0);
+  mbar_wait(t.r.full_fix, 0);
   for (int j = 0; j < t.n_tiles; ++j) {
     const int s = j % kStages;
     const uint32_t parity = (j / kStages) & 1;
-    const uint32_t s_k = t.s_kv + s * 2 * L::kTileBytes;
-    mbar_wait(t.full_k + 8 * s, parity);
-    qk<DR, BK>(sc, s_qw, s_k);
+    const uint32_t s_k = t.r.s_ring + s * 2 * L::kTileBytes;
+    mbar_wait(t.r.full_a + 8 * s, parity);
+    // S = Q K^T
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+    wgmma_fence();
+    issue_abt<DR, kBQ>(sc, s_qw, s_k);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(sc);
     softmax_tile<BK>(p, sc, pa, m, l, corr, t.k_begin + j * BK, row0, col,
                      wg_first, wg_last);
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i % 4) / 2];
 
     // O += P V: BK / 16 steps of 16 keys (2048 bytes of V each)
-    const uint32_t s_v = s_k + L::kTileBytes;
-    mbar_wait(t.full_v + 8 * s, parity);
+    mbar_wait(t.r.full_b + 8 * s, parity);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs_t(o, pa[kk],
-                 smem_desc(s_v + kk * 16 * kRowBytes, BK * kRowBytes, 1024));
+    issue_pb<BK>(o, pa, s_k + L::kTileBytes);
     wgmma_commit();
     wgmma_wait();
     fence_regs(o);
-    mbar_arrive(t.empty + 8 * s);
+    mbar_arrive(t.r.empty + 8 * s);
   }
 
 #pragma unroll
@@ -781,6 +522,9 @@ __device__ __forceinline__ void consume(const Params& p, const Tile& t) {
     for (int jj = 0; jj < DR / 8; ++jj)
       *reinterpret_cast<uint32_t*>(orow + 8 * jj + col) =
           pack_bf16(o[4 * jj + 2 * r] * inv, o[4 * jj + 2 * r + 1] * inv);
+    if (p.lse != nullptr && col == 0)
+      p.lse[(static_cast<long long>(t.b) * p.hq + t.h) * p.sq + qp] =
+          row_lse(m[r], l[r]);
   }
 }
 
@@ -800,13 +544,8 @@ flash_fwd_tc(const __grid_constant__ Params p) {
   constexpr int BK = L::kBK;
   extern __shared__ uint8_t smem_raw[];
   Tile t;
-  t.s_q = (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023)
-          & ~1023u;
-  t.s_kv = t.s_q + L::kQBytes;
-  t.full_q = t.s_q + L::kBars;
-  t.full_k = t.full_q + 8;
-  t.full_v = t.full_k + 8 * kStages;
-  t.empty = t.full_v + 8 * kStages;
+  t.r = make_ring((static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw))
+                   + 1023) & ~1023u, L::kQBytes, L::kBars);
 
   const int qtile = gridDim.x - 1 - blockIdx.x;  // longest (causal) first
   t.b = blockIdx.y / p.hq;
@@ -826,15 +565,7 @@ flash_fwd_tc(const __grid_constant__ Params p) {
   }
   t.n_tiles = (k_end - t.k_begin + BK - 1) / BK;
 
-  if (threadIdx.x == 0) {
-    mbar_init(t.full_q, 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(t.full_k + 8 * s, 1);
-      mbar_init(t.full_v + 8 * s, 1);
-      mbar_init(t.empty + 8 * s, kConsumers);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (threadIdx.x == 0) init_ring(t.r, kConsumers);
   __syncthreads();
 
   // one if/else for the whole lifetime of each role (setmaxnreg needs
@@ -842,7 +573,11 @@ flash_fwd_tc(const __grid_constant__ Params p) {
   if (threadIdx.x >= kConsumers) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
                  :: "n"(kProducerRegs));
-    if (threadIdx.x == kConsumers) produce<D>(p, t);
+    if (threadIdx.x == kConsumers) {
+      const CUtensorMap* fix[1] = {&p.q};
+      produce<D, kBQ, BK, kBQ, BK>(fix, t.q0, t.h, t.b, &p.k, &p.v, t.hk,
+                                   t.k_begin, t.n_tiles, t.r);
+    }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
                  :: "n"(kConsumerRegs));
@@ -850,60 +585,8 @@ flash_fwd_tc(const __grid_constant__ Params p) {
   }
 }
 
-// cuTensorMapEncodeTiled is not part of the runtime library: it is looked
-// up through the runtime's entry-point query, so this library links
-// nothing beyond the runtime
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// The (B, H, S, D) bf16 tensor at `ptr` (element strides sb, sh, ss; unit
-// dim stride) as the 4-D map (D, S, H, B): boxes of 64 columns x `rows`
-// rows of one (b, h), 128-byte swizzle, zeros out of bounds.
-int encode(CUtensorMap* map, const void* ptr, int d, int s, int h, int b,
-           long long sb, long long sh, long long ss, int rows) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(s),
-                              static_cast<cuuint64_t>(h),
-                              static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
-                                 static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(ptr), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
 template <int D, int DR = D>
-int launch(const void* q, const void* k, const void* v, void* o,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            const long long* st, int batch, int hq, int g, int sq, int sk,
            int causal, int window, float scale, float softcap,
            cudaStream_t stream) {
@@ -917,6 +600,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
                          L::kBK);
   if (err) return err;
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = lse;
   p.o_sb = st[9];
   p.o_sh = st[10];
   p.o_ss = st[11];
@@ -943,11 +627,13 @@ int launch(const void* q, const void* k, const void* v, void* o,
 
 // q [B, Hq, Sq, D], k/v [B, Hq/g, Sk, D], o [B, Hq, Sq, D], all read and
 // written through element strides (12 values: q, k, v, o, each batch /
-// head / seq; the dim stride is 1). dtype: 0 float32 (FP32-core kernel),
-// 1 bfloat16 (tensor-core kernel; strides multiples of 8). window <= 0 and
-// softcap <= 0 switch those off.
+// head / seq; the dim stride is 1). lse: float32 [B][Hq][Sq], contiguous,
+// each row's log-sum-exp for the backward, or null (nothing stored: the
+// serve path; O's bits are the same either way). dtype: 0 float32
+// (FP32-core kernel), 1 bfloat16 (tensor-core kernel; strides multiples
+// of 8). window <= 0 and softcap <= 0 switch those off.
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o,
+                                     const void* v, void* o, float* lse,
                                      const long long* strides, int batch,
                                      int hq, int g, int sq, int sk, int d,
                                      int dtype, int causal, int window,
@@ -959,17 +645,18 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     switch (d) {
-      case 64: return tc::launch<64>(q, k, v, o, strides, batch, hq, g, sq,
-                                     sk, causal, window, scale, softcap, st);
-      case 80: return tc::launch<128, 80>(q, k, v, o, strides, batch, hq, g,
-                                          sq, sk, causal, window, scale,
-                                          softcap, st);
-      case 128: return tc::launch<128>(q, k, v, o, strides, batch, hq, g, sq,
-                                       sk, causal, window, scale, softcap,
-                                       st);
-      case 256: return tc::launch<256>(q, k, v, o, strides, batch, hq, g, sq,
-                                       sk, causal, window, scale, softcap,
-                                       st);
+      case 64: return tc::launch<64>(q, k, v, o, lse, strides, batch, hq, g,
+                                     sq, sk, causal, window, scale, softcap,
+                                     st);
+      case 80: return tc::launch<128, 80>(q, k, v, o, lse, strides, batch,
+                                          hq, g, sq, sk, causal, window,
+                                          scale, softcap, st);
+      case 128: return tc::launch<128>(q, k, v, o, lse, strides, batch, hq,
+                                       g, sq, sk, causal, window, scale,
+                                       softcap, st);
+      case 256: return tc::launch<256>(q, k, v, o, lse, strides, batch, hq,
+                                       g, sq, sk, causal, window, scale,
+                                       softcap, st);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -978,6 +665,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   p.q_sb = strides[0]; p.q_sh = strides[1]; p.q_ss = strides[2];
   p.k_sb = strides[3]; p.k_sh = strides[4]; p.k_ss = strides[5];
   p.v_sb = strides[6]; p.v_sh = strides[7]; p.v_ss = strides[8];

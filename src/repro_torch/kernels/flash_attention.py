@@ -18,7 +18,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
-_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
          + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
 _BWD_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
              + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
@@ -26,6 +26,18 @@ _BWD_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
 # the source), as the Pallas kernel pads 64/80-dim heads to 128
 HEAD_DIMS = (64, 80, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the backward's query tile: its scratch holds Sq rounded up to this
+_BWD_ROWS = 128
+
+
+def bwd_kernels(dtype: torch.dtype, head_dim: int) -> tuple[str, str]:
+    """The two kernels of ``csrc/flash_attention_bwd.cu`` that a backward
+    of this dtype and head_dim launches: bf16 at head_dim 64, 80 and 128
+    on the tensor cores, float32 (every head_dim) and bf16 at 256 on the
+    FP32 cores. Mirrors the C entry's dispatch."""
+    if dtype == torch.bfloat16 and head_dim != 256:
+        return ("bwd_dq_tc", "bwd_dkdv_tc")
+    return ("bwd_dq", "bwd_dkdv")
 
 
 def as_bhsd(x: torch.Tensor) -> torch.Tensor:
@@ -93,7 +105,8 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, g: int, causal: bool = True,
                          window: int | None = None,
                          softcap: float | None = None,
-                         scale: float | None = None) -> torch.Tensor:
+                         scale: float | None = None,
+                         return_lse: bool = False):
     """q (B·Hq, Sq, D), k/v (B·Hkv, Sk, D) as in the JAX kernel, or 4-D
     views q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D) of any strides with a unit
     dim stride (the model passes ``x.transpose(1, 2)`` of its (B, S, H, D)
@@ -102,19 +115,25 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dense (so a transposed (B, S, H, D) input gives a contiguous
     (B, S, H, D) output back through ``transpose(1, 2)``). bf16 (the
     tensor-core kernel) or float32 (the FP32-core kernel); head_dim 64,
-    80, 128 or 256. CUDA tensors only."""
+    80, 128 or 256. CUDA tensors only. With ``return_lse`` the kernel also
+    stores each row's log-sum-exp of the scaled, softcapped, masked scores
+    (float32, q's shape without the head dim), the backward's L, and the
+    call returns ``(out, lse)``; without it nothing more is stored (the
+    serve path) and the output's bits are the same."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention kernel needs CUDA tensors, got {dev}")
     out = torch.empty_like(q)
     args = launch_args(q, k, v, out, g=g, causal=causal, window=window,
                        softcap=softcap, scale=scale)
+    lse = (torch.empty(q.shape[:-1], dtype=torch.float32, device=dev)
+           if return_lse else None)
     fn = _build.function("flash_attention", "repro_flash_attention", _ARGS)
-    code = fn(*args[:4], ctypes.addressof(args[4]), *args[5:],
-              _build.stream(dev))
+    code = fn(*args[:4], lse.data_ptr() if return_lse else None,
+              ctypes.addressof(args[4]), *args[5:], _build.stream(dev))
     _build.check("flash_attention", "flash_attention", code)
     flash_attention_bhsd.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_bhsd.launches = 0
@@ -122,19 +141,22 @@ flash_attention_bhsd.launches = 0
 
 def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
-                             do: torch.Tensor, *, g: int, causal: bool = True,
+                             do: torch.Tensor, lse: torch.Tensor, *, g: int,
+                             causal: bool = True,
                              window: int | None = None,
                              softcap: float | None = None,
                              scale: float | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """dQ, dK, dV of ``flash_attention_bhsd(q, k, v)`` given its output
-    ``o`` and the output's gradient ``do`` (q's shape; any strides with
-    a unit dim stride). Same layouts, dtypes and head dims as the
-    forward; the gradients come back in q's dtype, each laid out like
-    its input where that is dense. One call launches the two kernels of
-    ``csrc/flash_attention_bwd.cu`` (counted once). CUDA tensors
-    only."""
+    ``o``, the output's gradient ``do`` (q's shape; any strides with a
+    unit dim stride) and the row log-sum-exps ``lse`` that the forward
+    returned (``return_lse=True``: float32, contiguous, q's shape without
+    the head dim). Same layouts, dtypes and head dims as the forward; the
+    gradients come back in q's dtype, each laid out like its input where
+    that is dense. One call launches the two kernels of
+    ``csrc/flash_attention_bwd.cu`` that ``bwd_kernels`` names (counted
+    once). CUDA tensors only."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_bwd kernel needs CUDA tensors, "
@@ -147,15 +169,20 @@ def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
     if o4.shape != as_bhsd(q).shape or do4.shape != o4.shape \
             or o.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError("o and do must have q's shape and dtype")
-    if any(t.device != dev for t in (o, do)):
+    if lse.shape != q.shape[:-1] or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise ValueError(f"lse must be the forward's contiguous float32 "
+                         f"{tuple(q.shape[:-1])}, got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    if any(t.device != dev for t in (o, do, lse)):
         raise ValueError("flash_attention_bwd inputs on several devices")
     check_strided("flash_attention_bwd", o4, do4, dk4, dv4,
                   elems=16 // q.element_size())
     b, hq, sq, _ = as_bhsd(q).shape
     if sq == 0:
         return dq, dk.zero_(), dv.zero_()
-    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
-    delta = torch.empty_like(lse)
+    rows = -(-sq // _BWD_ROWS) * _BWD_ROWS
+    scratch = torch.empty(b * hq * rows * 2, dtype=torch.float32, device=dev)
     # strides of q, k, v (the forward's first 9), o, do, dq, dk, dv
     strides = (ctypes.c_longlong * 24)(
         *args[4][:9], *(s for t in (o4, do4, as_bhsd(dq), dk4, dv4)
@@ -163,8 +190,8 @@ def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
     fn = _build.function("flash_attention_bwd", "repro_flash_attention_bwd",
                          _BWD_ARGS)
     code = fn(args[0], args[1], args[2], o4.data_ptr(), do4.data_ptr(),
-              args[3], dk4.data_ptr(), dv4.data_ptr(), lse.data_ptr(),
-              delta.data_ptr(), ctypes.addressof(strides), *args[5:],
+              lse.data_ptr(), args[3], dk4.data_ptr(), dv4.data_ptr(),
+              scratch.data_ptr(), ctypes.addressof(strides), *args[5:],
               _build.stream(dev))
     _build.check("flash_attention_bwd", "flash_attention_bwd", code)
     flash_attention_bwd_bhsd.launches += 1
@@ -178,32 +205,37 @@ class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention on (B, H, S, D) views: the forward
     kernel and the backward kernel on CUDA tensors, the plain versions
     (``ref.flash_attention`` / ``ref.flash_attention_bwd``) on the CPU.
-    Saves q, k, v and the output; the backward recomputes each row's
-    log-sum-exp itself (so the serve path's forward is unchanged), and
-    both kernels give the same bits every launch, so a recomputed
-    forward under activation checkpointing matches the first one."""
+    The forward also asks for each row's log-sum-exp L and saves it
+    beside q, k, v and the output; the backward takes L as it is. A
+    caller that knows no gradient will be asked for passes
+    ``want_lse=False`` (``ops.flash_attention`` with grad off: the serve
+    path), and then no L is stored. Both kernels give the same bits
+    every launch, so a recomputed forward under activation checkpointing
+    matches the first one."""
 
     @staticmethod
-    def forward(ctx, q, k, v, g, causal, window, softcap, scale):
+    def forward(ctx, q, k, v, g, causal, window, softcap, scale,
+                want_lse=True):
         kw = dict(g=g, causal=causal, window=window, softcap=softcap,
                   scale=scale)
         if q.is_cuda:
-            o = flash_attention_bhsd(q, k, v, **kw)
+            res = flash_attention_bhsd(q, k, v, return_lse=want_lse, **kw)
         else:
-            o = _plain(ref.flash_attention, q, k, v, **kw)
-        ctx.save_for_backward(q, k, v, o)
+            res = _plain(q, k, v, return_lse=want_lse, **kw)
+        o, lse = res if want_lse else (res, None)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.kw = kw
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()         # autograd may hand back a strided grad
         if q.is_cuda:
-            grads = flash_attention_bwd_bhsd(q, k, v, o, do, **ctx.kw)
+            grads = flash_attention_bwd_bhsd(q, k, v, o, do, lse, **ctx.kw)
         else:
-            grads = _plain_bwd(q, k, v, o, do, **ctx.kw)
-        return (*grads, None, None, None, None, None)
+            grads = _plain_bwd(q, k, v, o, do, lse, **ctx.kw)
+        return (*grads, None, None, None, None, None, None)
 
 
 def _flat(x: torch.Tensor) -> torch.Tensor:
@@ -211,13 +243,18 @@ def _flat(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b * h, s, d)
 
 
-def _plain(fn, q, k, v, **kw) -> torch.Tensor:
-    """The plain forward on (B, H, S, D) views."""
-    return fn(_flat(q), _flat(k), _flat(v), **kw).reshape(q.shape)
+def _plain(q, k, v, *, return_lse: bool = False, **kw):
+    """The plain forward on (B, H, S, D) views (and its L, (B, H, S))."""
+    res = ref.flash_attention(_flat(q), _flat(k), _flat(v),
+                              return_lse=return_lse, **kw)
+    if return_lse:
+        return res[0].reshape(q.shape), res[1].reshape(q.shape[:-1])
+    return res.reshape(q.shape)
 
 
-def _plain_bwd(q, k, v, o, do, **kw) -> tuple:
-    """The plain backward on (B, H, S, D) views."""
-    dq, dk, dv = ref.flash_attention_bwd(_flat(q), _flat(k), _flat(v),
-                                         _flat(o), _flat(do), **kw)
+def _plain_bwd(q, k, v, o, do, lse, **kw) -> tuple:
+    """The plain backward on (B, H, S, D) views, given the forward's L."""
+    dq, dk, dv = ref.flash_attention_bwd(
+        _flat(q), _flat(k), _flat(v), _flat(o), _flat(do),
+        lse.reshape(-1, lse.shape[-1]), **kw)
     return dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(v.shape)

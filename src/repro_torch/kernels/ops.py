@@ -32,10 +32,12 @@ def flash_attention(q, k, v, *, causal=True, window=None,
     ``FlashAttention``: the forward kernel (and, where an input requires
     grad, the backward kernel) on CUDA, their plain versions on the CPU.
     With grad off or no input requiring it, the call runs the forward
-    alone and builds no graph."""
+    alone, stores no log-sum-exp for a backward and builds no graph."""
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
     out = _fa.FlashAttention.apply(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        q.shape[2] // k.shape[2], causal, window, logit_softcap, scale)
+        q.shape[2] // k.shape[2], causal, window, logit_softcap, scale, grad)
     return out.transpose(1, 2)
 
 

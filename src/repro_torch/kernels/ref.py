@@ -42,30 +42,38 @@ def _attention_scores(q, k, *, g, causal, window, softcap, scale):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     g: int, causal: bool = True, window: int | None = None,
                     softcap: float | None = None,
-                    scale: float | None = None) -> torch.Tensor:
+                    scale: float | None = None, return_lse: bool = False):
     """Plain version of ``flash_attention.flash_attention_bhsd`` (JAX:
     ``kernels/ref.py:flash_attention``): dense attention in float32.
     q (B·Hq, Sq, D), k/v (B·Hkv, Sk, D); query head h reads key/value
     head h // g. Masked scores are NEG_INF, so a row with no live key
-    averages V over all keys, as in the JAX kernel."""
+    averages V over all keys, as in the JAX kernel. With ``return_lse``
+    returns ``(out, lse)``: lse (B·Hq, Sq) float32 is each row's
+    logsumexp of the masked, scaled, softcapped scores (NEG_INF for a
+    row with no live key), the backward's L."""
     _, s, _ = _attention_scores(q, k, g=g, causal=causal, window=window,
                                 softcap=softcap, scale=scale)
     p = torch.softmax(s, dim=-1)
     vq = torch.repeat_interleave(v, g, dim=0).float()
-    return torch.einsum("hqk,hkd->hqd", p, vq).to(q.dtype)
+    out = torch.einsum("hqk,hkd->hqd", p, vq).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1)
+    return out
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        o: torch.Tensor, do: torch.Tensor, *, g: int, causal: bool = True,
-                        window: int | None = None,
+                        o: torch.Tensor, do: torch.Tensor,
+                        lse: torch.Tensor | None = None, *, g: int,
+                        causal: bool = True, window: int | None = None,
                         softcap: float | None = None,
                         scale: float | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of ``flash_attention.flash_attention_bwd_bhsd``: dQ,
     dK, dV of ``flash_attention`` in float32, written out (no autograd)
     and cast to q's dtype. q/o/do (B·Hq, Sq, D), k/v (B·Hkv, Sk, D);
-    L is each row's log-sum-exp of the masked scores S, recomputed here
-    as the kernel recomputes it:
+    L is each row's log-sum-exp of the masked scores S: ``lse`` (B·Hq,
+    Sq), as the forward returns it, or recomputed here when none is
+    given:
 
         P = exp(S - L), D = rowsum(dO o O), dV = P^T dO, dP = dO V^T,
         dS = P o (dP - D) o (1 - tanh^2 of the softcap),
@@ -81,7 +89,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     raw, s, ok = _attention_scores(q, k, g=g, causal=causal, window=window,
                                    softcap=softcap, scale=scale)
     live = ok.any(dim=1)[:, None]                       # (Sq, 1)
-    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    lse = (torch.logsumexp(s, dim=-1) if lse is None
+           else lse.reshape(bh, sq).float())[..., None]
     p = torch.where(live, torch.exp(s - lse),
                     torch.full_like(s, 1.0 / sk))
     dof = do.float()

@@ -18,6 +18,7 @@ also run where JAX is not installed:
     python -m pytest -q --noconftest tests/test_torch_kernels.py -k cuda
 """
 import importlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -356,6 +357,55 @@ def test_flash_attention_plain_vs_pallas(causal, window, softcap, g, sq, sk,
                                rtol=ATT_TOL)
 
 
+FLASH_LSE_CASES = [
+    # causal, window, softcap, g, sq, sk, d: the flash edge shapes
+    (True, None, None, 2, 128, 128, 64),
+    (True, 64, None, 2, 128, 128, 64),
+    (True, None, 30.0, 1, 64, 256, 32),
+    (False, None, None, 4, 256, 128, 32),
+    (True, 64, 30.0, 2, 128, 128, 64),
+    (False, 16, 50.0, 8, 64, 128, 16),
+    (False, None, None, 1, 100, 77, 64),           # ragged Sq and Sk
+    (True, None, None, 2, 100, 300, 32),           # Sq < Sk
+    (False, 16, None, 1, 200, 100, 16),            # rows with no live key
+]
+
+
+@pytest.mark.parametrize("causal,window,softcap,g,sq,sk,d", FLASH_LSE_CASES)
+def test_flash_lse_plain_vs_jax_logsumexp(causal, window, softcap, g, sq, sk,
+                                          d):
+    """``ref.flash_attention(..., return_lse=True)``'s L against
+    jax.nn.logsumexp of the masked, scaled, softcapped scores that the JAX
+    package's oracle (``repro.kernels.ref.flash_attention``) forms, on
+    the rows with a live key; the output is the call without L's."""
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels.ref import NEG_INF as JAX_NEG_INF
+    q, k, v = attn_case(2 * g, 2, sq, sk, d, seed=sq + sk + d + g + 1)
+    kw = dict(g=g, causal=causal, window=window, softcap=softcap)
+    out, lse = ref.flash_attention(T(q), T(k), T(v), return_lse=True, **kw)
+    assert lse.dtype == torch.float32 and lse.shape == (2 * g, sq)
+    assert torch.equal(out, ref.flash_attention(T(q), T(k), T(v), **kw))
+    # the JAX oracle's scores, line by line
+    s = jnp.einsum("hqd,hkd->hqk", jnp.asarray(q) * d ** -0.5,
+                   jnp.repeat(jnp.asarray(k), g, axis=0))
+    if softcap is not None:
+        s = jnp.tanh(s / softcap) * softcap
+    qp, kp = jnp.arange(sq)[:, None], jnp.arange(sk)[None, :]
+    ok = jnp.ones((sq, sk), bool)
+    if causal:
+        ok &= kp <= qp
+    if window is not None:
+        ok &= kp > (qp - window)
+    want = np.asarray(jax.nn.logsumexp(jnp.where(ok, s, JAX_NEG_INF), -1))
+    live = np.asarray(ok.any(axis=1))
+    assert live.any()
+    np.testing.assert_allclose(lse.numpy()[:, live], want[:, live],
+                               atol=1e-5, rtol=1e-5)
+    # a row with no live key: NEG_INF, as logsumexp of NEG_INF scores
+    assert (lse.numpy()[:, ~live] == ref.NEG_INF).all()
+
+
 @pytest.mark.parametrize("g,sk,d,window,softcap", [
     (4, 256, 64, None, None), (8, 512, 128, None, None),
     (1, 128, 32, None, None), (4, 256, 64, 32, 25.0), (2, 192, 16, 7, None),
@@ -487,6 +537,26 @@ def test_flash_head_dim_80_admitted_with_its_own_scale():
     with pytest.raises(ValueError, match="head_dim 96"):
         q = torch.zeros(2, 8, 96)
         flash_attention.launch_args(q, q, q, torch.empty_like(q), g=1)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, ("bwd_dq_tc", "bwd_dkdv_tc")),
+    (torch.bfloat16, 80, ("bwd_dq_tc", "bwd_dkdv_tc")),
+    (torch.bfloat16, 128, ("bwd_dq_tc", "bwd_dkdv_tc")),
+    (torch.bfloat16, 256, ("bwd_dq", "bwd_dkdv")),
+    (torch.float32, 64, ("bwd_dq", "bwd_dkdv")),
+    (torch.float32, 128, ("bwd_dq", "bwd_dkdv")),
+])
+def test_flash_bwd_kernels_by_dtype_and_head_dim(dtype, d, want):
+    """Which two kernels a backward launches: bf16 at head_dim 64, 80 and
+    128 on the tensor cores, float32 and bf16 at 256 on the FP32 cores;
+    each name a ``__global__`` function of the source."""
+    got = flash_attention.bwd_kernels(dtype, d)
+    assert got == want
+    src = (Path(flash_attention.__file__).with_name("csrc")
+           / "flash_attention_bwd.cu").read_text()
+    for name in got:
+        assert f"\n{name}(" in src, name
 
 
 def test_flash_strides_for_the_tma_maps():
@@ -626,6 +696,57 @@ def test_cuda_flash_attention(cuda, dtype, causal, window, softcap, g, sq, sk,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window,softcap,g,sq,sk,d", FLASH_CUDA_CASES
+                         + [(True, 100, 50.0, 2, 300, 300, 80)])
+def test_cuda_flash_attention_lse(cuda, dtype, causal, window, softcap, g,
+                                  sq, sk, d):
+    """The forward kernel's L against the plain L (1e-4 in float32; in
+    bf16 2e-3 of max(1, |L|): the kernel's scores come from bf16 products
+    and ex2.approx), and O the same bits with L stored and not."""
+    q, k, v = (T(x, cuda).to(dtype) for x in
+               attn_case(2 * g, 2, sq, sk, d, seed=sq * sk + d + 2))
+    kw = dict(g=g, causal=causal, window=window, softcap=softcap)
+    o, lse = flash_attention.flash_attention_bhsd(q, k, v, return_lse=True,
+                                                  **kw)
+    plain = flash_attention.flash_attention_bhsd(q, k, v, **kw)
+    _, want = ref.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == q.shape[:-1]
+    assert torch.equal(o, plain)
+    tol = 1e-4 if dtype == torch.float32 else 2e-3
+    torch.testing.assert_close(lse, want, atol=tol, rtol=tol)
+
+
+def kernel_names(fn) -> set:
+    """The CUDA kernels ``fn`` launches, by the profiler's names."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("dtype,d", [
+    (torch.bfloat16, 64), (torch.bfloat16, 80), (torch.bfloat16, 128),
+    (torch.bfloat16, 256), (torch.float32, 128)])
+def test_cuda_flash_bwd_runs_its_stated_kernels(cuda, dtype, d):
+    """Each (dtype, head_dim) reaches the two kernels ``bwd_kernels``
+    names and no other of the source."""
+    q, k, v = (T(x, cuda).to(dtype) for x in
+               attn_case(4, 2, 130, 130, d, seed=d))
+    do = torch.ones_like(q)
+    o, lse = flash_attention.flash_attention_bhsd(q, k, v, g=2,
+                                                  return_lse=True)
+    names = kernel_names(lambda: flash_attention.flash_attention_bwd_bhsd(
+        q, k, v, o, do, lse, g=2))
+    want = flash_attention.bwd_kernels(dtype, d)
+    ran = {n for n in ("bwd_dq_tc", "bwd_dkdv_tc", "bwd_dq", "bwd_dkdv")
+           if any(f"{n}<" in x or f"{n}(" in x for x in names)}
+    assert ran == set(want), names
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,window,softcap,g,sq,sk", [
     (False, None, None, 1, 256, 256),             # hubert-xlarge's kind
     (True, None, None, 2, 300, 300),
@@ -661,6 +782,12 @@ FLASH_BWD_CUDA_CASES = [
     (True, None, None, 2, 100, 300, 128),         # Sq < Sk
     (True, 100, 50.0, 2, 300, 300, 80),
     (False, None, None, 2, 100, 77, 80),
+    # the tensor-core tiling: 128 query rows / 64 keys (dQ), 128 keys /
+    # 64 query rows (dK, dV); g = 1, 2, 4, rows with no live key
+    (True, None, None, 4, 1000, 1000, 128),       # no tile multiple
+    (False, 16, None, 4, 300, 130, 128),          # rows with no live key
+    (True, None, None, 1, 200, 200, 80),
+    (False, 8, 30.0, 1, 333, 200, 80),
 ]
 
 
@@ -669,29 +796,33 @@ FLASH_BWD_CUDA_CASES = [
                          FLASH_BWD_CUDA_CASES)
 def test_cuda_flash_attention_bwd(cuda, dtype, causal, window, softcap, g,
                                   sq, sk, d):
-    """dQ, dK, dV of the backward kernel against the plain backward on
-    the kernel's own forward output; the same bits on a second launch."""
+    """dQ, dK, dV of the backward kernel, given the forward kernel's
+    output and L, against the plain backward on that output (L
+    recomputed); the same bits on a second launch."""
     q, k, v = (T(x, cuda).to(dtype) for x in
                attn_case(2 * g, 2, sq, sk, d, seed=sq * sk + d + 1))
     do = T(np.random.default_rng(sq + d).normal(size=q.shape)
            .astype(np.float32), cuda).to(dtype)
     kw = dict(g=g, causal=causal, window=window, softcap=softcap)
-    o = flash_attention.flash_attention_bhsd(q, k, v, **kw)
-    got = flash_attention.flash_attention_bwd_bhsd(q, k, v, o, do, **kw)
+    o, lse = flash_attention.flash_attention_bhsd(q, k, v, return_lse=True,
+                                                  **kw)
+    got = flash_attention.flash_attention_bwd_bhsd(q, k, v, o, do, lse, **kw)
     want = ref.flash_attention_bwd(q, k, v, o, do, **kw)
     torch.cuda.synchronize()
     tol = CUDA_ATT_TOL[dtype]
     for a, b, x in zip(got, want, (q, k, v)):
         assert a.dtype == dtype and a.shape == x.shape
         torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
-    again = flash_attention.flash_attention_bwd_bhsd(q, k, v, o, do, **kw)
+    again = flash_attention.flash_attention_bwd_bhsd(q, k, v, o, do, lse,
+                                                     **kw)
     assert all(torch.equal(a, b) for a, b in zip(again, got))
 
 
 def test_cuda_flash_attention_grad_through_ops(cuda):
     """ops.flash_attention on (B, S, H, D) tensors that require grad:
-    the forward and backward kernels, once each, and q, k, v get the
-    plain version's gradients."""
+    the forward and backward kernels, once each, the forward kernel's L
+    saved for the backward, and q, k, v get the plain version's
+    gradients."""
     b, s, hq, hkv, d = 2, 190, 8, 4, 128
     rng = np.random.default_rng(6)
     q, k, v = (T(rng.normal(size=(b, s, h, d)).astype(np.float32),
@@ -701,7 +832,17 @@ def test_cuda_flash_attention_grad_through_ops(cuda):
     fa = flash_attention
     fa.flash_attention_bhsd.launches = 0
     fa.flash_attention_bwd_bhsd.launches = 0
-    got = torch.autograd.grad(ops.flash_attention(q, k, v), (q, k, v), do)
+    out = ops.flash_attention(q, k, v)
+    # the backward is handed the forward kernel's L, saved beside O
+    lse = out.grad_fn.next_functions[0][0].saved_tensors[4]
+    _, want_lse = ref.flash_attention(
+        q.transpose(1, 2).reshape(b * hq, s, d),
+        k.transpose(1, 2).reshape(b * hkv, s, d),
+        v.transpose(1, 2).reshape(b * hkv, s, d), g=2, return_lse=True)
+    assert lse.shape == (b, hq, s) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse.reshape(b * hq, s), want_lse, atol=2e-3,
+                               rtol=2e-3)
+    got = torch.autograd.grad(out, (q, k, v), do)
     assert (fa.flash_attention_bhsd.launches,
             fa.flash_attention_bwd_bhsd.launches) == (1, 1)
 

@@ -467,7 +467,73 @@ def test_flash_bwd_matches_torch_autograd(causal, window, softcap, g, sq,
 def test_flash_kernel_wrappers_refuse_cpu_tensors():
     q = torch.zeros(2, 8, 16)
     with pytest.raises(ValueError, match="CUDA"):
-        flash_attention.flash_attention_bwd_bhsd(q, q, q, q, q, g=1)
+        flash_attention.flash_attention_bwd_bhsd(q, q, q, q, q,
+                                                 torch.zeros(2, 8), g=1)
+
+
+@pytest.mark.parametrize("causal,window,softcap,g,sq,sk", BWD_CASES)
+def test_flash_bwd_given_lse_matches_recomputed(causal, window, softcap, g,
+                                                sq, sk):
+    """``ref.flash_attention_bwd`` handed the forward's L equals the same
+    call that recomputes L (1e-6), and still equals jax.vjp of the JAX
+    package's attention oracle."""
+    q, k, v, do = bwd_inputs(g, sq, sk, seed=sq + 2 * sk + g)
+    kw = dict(g=g, causal=causal, window=window, softcap=softcap)
+    qt, kt, vt, dot = map(T, (q, k, v, do))
+    o, lse = ref.flash_attention(qt, kt, vt, return_lse=True, **kw)
+    got = ref.flash_attention_bwd(qt, kt, vt, o, dot, lse, **kw)
+    again = ref.flash_attention_bwd(qt, kt, vt, o, dot, **kw)
+    for a, w in zip(got, again):
+        torch.testing.assert_close(a, w, atol=1e-6, rtol=1e-6)
+    for a, w in zip(got, jax_vjp(
+            lambda a, b, c: jax_ref.flash_attention(a, b, c, **kw),
+            *map(jnp.asarray, (q, k, v, do)))):
+        np.testing.assert_allclose(N(a), np.asarray(w), atol=ATT_TOL,
+                                   rtol=ATT_TOL)
+
+
+@pytest.mark.parametrize("causal,window,softcap,g,sq,sk", BWD_CASES)
+def test_flash_autograd_saves_lse_on_cpu(causal, window, softcap, g, sq,
+                                         sk):
+    """``FlashAttention`` on the CPU: where a gradient can be asked for,
+    the forward saves the plain L beside q, k, v and O, and the backward
+    gives the gradients of the plain backward with L recomputed; with
+    grad off ``ops.flash_attention`` asks it for no L."""
+    q, k, v, do = bwd_inputs(g, sq, sk, seed=3 * sq + sk + g)
+    kw = dict(g=g, causal=causal, window=window, softcap=softcap)
+
+    def model_layout(x, h):
+        return T(x).reshape(2, h, -1, 16).requires_grad_()
+
+    qm, km, vm = model_layout(q, g), model_layout(k, 1), model_layout(v, 1)
+    out = flash_attention.FlashAttention.apply(qm, km, vm, g, causal, window,
+                                               softcap, None)
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 5
+    o, lse = ref.flash_attention(T(q), T(k), T(v), return_lse=True, **kw)
+    assert torch.equal(saved[4], lse.reshape(2, g, sq))
+    assert torch.equal(saved[3].reshape(o.shape), o)
+    back = torch.autograd.grad(out, (qm, km, vm), T(do).reshape(out.shape))
+    want = ref.flash_attention_bwd(T(q), T(k), T(v), o, T(do), **kw)
+    for a, w in zip(back, want):
+        torch.testing.assert_close(a.reshape(w.shape), w, atol=1e-6,
+                                   rtol=1e-6)
+    asked = []
+    real = ref.flash_attention
+
+    def spy(*a, **k):
+        asked.append(k.get("return_lse", False))
+        return real(*a, **k)
+
+    ref.flash_attention = spy
+    try:
+        with torch.no_grad():
+            ops.flash_attention(qm.transpose(1, 2), km.transpose(1, 2),
+                                vm.transpose(1, 2), causal=causal,
+                                window=window, logit_softcap=softcap)
+    finally:
+        ref.flash_attention = real
+    assert asked == [False]
 
 
 # ---------------------------------------------------------------------------
