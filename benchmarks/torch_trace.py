@@ -5,6 +5,7 @@
     python3 benchmarks/torch_trace.py --lm    # the LM serving path
     python3 benchmarks/torch_trace.py --spmd  # sim vs spmd mode, P = 1
     python3 benchmarks/torch_trace.py --train # the LM training path
+    python3 benchmarks/torch_trace.py --lm --arch mamba2-370m  # another model
 
 Builds the data of ``chip_smoke.py`` (same spec, P = 4), runs each of
 Q1–Q12 once on the kernel route with statistics-presized caps, then
@@ -20,7 +21,9 @@ of its outputs to the host), one JSON line per query and mode. With
 ``--train``: qwen3-1.7b at full width (``chip_smoke.py``'s phase 9:
 seeded random weights, 8 x 2048 tokens a step, 2 microbatches, remat),
 one cold step, then one traced warm step, one JSON line with its ten
-kernels of most device time. Every line has:
+kernels of most device time. ``--arch`` names another config for
+``--lm`` or ``--train`` (phase 10's granite-moe-1b-a400m, phase 11's
+mamba2-370m), at full size the same way. Every line has:
 
 - ``wall_ms``: host clock around the traced run (ends in a sync);
 - ``device_ms``: the sum of the device time of every kernel the run
@@ -86,18 +89,19 @@ def traced(fn, top: int = 5) -> dict:
             "repo_kernels": [[k, v, ours_n[k]] for k, v in ours.most_common()]}
 
 
-def trace_lm() -> None:
+def trace_lm(arch: str | None) -> None:
     import torch
 
     import chip_smoke
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models import model, steps
-    cfg = get_config(chip_smoke.LM_ARCH)
+    arch = arch or chip_smoke.LM_ARCH
+    cfg = get_config(arch)
     dev = torch.device("cuda")
     b, s = chip_smoke.LM_REQUESTS, chip_smoke.LM_PROMPT
     params = model.init_params(cfg, chip_smoke.SEED, dev)
-    serve_batch(chip_smoke.LM_ARCH, smoke=False, num_requests=b,
+    serve_batch(arch, smoke=False, num_requests=b,
                 prompt_len=s, gen_len=chip_smoke.LM_GEN, device=dev,
                 params=params)                  # warm-up: the cold serve
     cparams = model.compute_params(cfg, params)
@@ -112,12 +116,15 @@ def trace_lm() -> None:
     def run_prefill():
         out["logits"], out["caches"] = prefill(cparams, {"tokens": toks})
 
-    print(json.dumps({"lm": "prefill", "tokens": b * s,
+    print(json.dumps({"lm": "prefill", "arch": arch, "tokens": b * s,
                       **traced(run_prefill)}), flush=True)
     caches = model.init_cache(cfg, b, s + 8, dev)
     for dst, src in zip(caches, out.pop("caches")):
-        dst["k"][:, :s] = src["k"]
-        dst["v"][:, :s] = src["v"]
+        if "k" in src:
+            dst["k"][:, :s] = src["k"]
+            dst["v"][:, :s] = src["v"]
+        else:                                   # Mamba-2: as it is
+            dst.update(src)
     state = {"tok": toks[:, -1:],
              "kv_len": torch.full((b,), s, dtype=torch.int32, device=dev)}
 
@@ -128,11 +135,11 @@ def trace_lm() -> None:
 
     run_decode()
     for step in range(4):
-        print(json.dumps({"lm": "decode_step", "step": step,
+        print(json.dumps({"lm": "decode_step", "arch": arch, "step": step,
                           **traced(run_decode)}), flush=True)
 
 
-def trace_train() -> None:
+def trace_train(arch: str | None) -> None:
     import torch
 
     import chip_smoke
@@ -140,7 +147,8 @@ def trace_train() -> None:
     from repro_torch.data.pipeline import batch_at
     from repro_torch.models import flops, model, steps
     from repro_torch.optim import adamw_init
-    cfg = get_config(chip_smoke.TRAIN_ARCH)
+    arch = arch or chip_smoke.TRAIN_ARCH
+    cfg = get_config(arch)
     dev = torch.device("cuda")
     b, s, micro = chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ, 2
     state = {"params": model.init_params(cfg, chip_smoke.SEED, dev)}
@@ -159,7 +167,7 @@ def trace_train() -> None:
     torch.cuda.reset_peak_memory_stats(dev)
     rec = traced(lambda: run(1), top=10)
     print(json.dumps({
-        "train": "warm_step", "arch": chip_smoke.TRAIN_ARCH,
+        "train": "warm_step", "arch": arch,
         "tokens": b * s, "microbatches": micro,
         "model_flops": flops.model_flops(cfg, "train", b, s)["total"],
         "peak_mib": torch.cuda.max_memory_allocated(dev) / 2**20, **rec}),
@@ -207,12 +215,14 @@ def main() -> int:
         return 2
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     print(f"device {torch.cuda.get_device_name(0)}", flush=True)
-    if "--lm" in sys.argv[1:]:
-        trace_lm()
+    args = sys.argv[1:]
+    arch = args[args.index("--arch") + 1] if "--arch" in args else None
+    if "--lm" in args:
+        trace_lm(arch)
         print(subprocess_smi())
         return 0
-    if "--train" in sys.argv[1:]:
-        trace_train()
+    if "--train" in args:
+        trace_train(arch)
         print(subprocess_smi())
         return 0
     if "--spmd" in sys.argv[1:]:

@@ -101,6 +101,22 @@ Phases, each printed as it runs:
    checkpoint resume at the
    smoke config (head_dim 64): 8 steps against a run that fails at
    step 6 and resumes from step 4, the params within RESUME_ATOL.
+10. the MoE path: granite-moe-1b-a400m at its full published size (24
+   layers, d_model 1024, 16/8 heads of 64, 32 experts top-8, vocab
+   49155; seeded): ``serve_batch`` as in phase 5 (24 flash and 24 x 32
+   decode launches a serve), the plain route's bf16 difference and
+   share of differing routing decisions printed, the gate in float32
+   (MOE_F32_LOGIT_ATOL); one MoE layer on 4096 rows in float64 on the
+   card against the CPU (routing, ranks and kept rows equal, ties to
+   the lower expert, output within MOE_F64_RTOL); the float32 training
+   routes (MOE_TRAIN_TOL) and 4 steps of ``launch.train.train`` (96
+   flash forward, 48 backward launches a step); then the attention
+   kernels at head_dim 64 on the inputs this path gave them.
+11. the Mamba-2 path: mamba2-370m at full size (48 layers, 32 SSD heads
+   of 64, state 128, chunk 256): ``serve_batch`` with no attention
+   launch; a forward over 2304 tokens against a prefill of 2048 and 32
+   decode steps in float32 (SSM_CHAIN_ATOL; bf16 printed); 4 training
+   steps, then 4 steps on one fixed batch whose loss must fall.
 
 Phase 3's ``query`` lines also give each query's peak device memory and
 the join kernel's hash-table scratch (``join_table_mib``); phase 6's
@@ -108,14 +124,15 @@ the join kernel's hash-table scratch (``join_table_mib``); phase 6's
 memory and the bytes copied to the host; phase 7's ``spmd`` lines the
 same for spmd mode plus the bytes all-gathered; phase 8's ``mrql``
 lines the baseline's ms and jobs; phase 9's ``train`` lines the steps,
-the routes' agreement and the resume. Phases run in the order 1–4, 6,
-7, 8, 5, 9: one database's tables, or one model, on the card at a
-time. Phase 4 also times the flash
+the routes' agreement and the resume; phases 10 and 11 the ``moe`` and
+``ssm`` lines. Phases run in the order 1–4, 6, 7, 8, 5, 9, 10, 11: one
+database's tables, or one model, on the card at a time. Phase 4 also times the flash
 kernel at hubert-xlarge's attention shape (16 heads, head_dim 80,
 2048 frames, not causal, bf16) beside ``scaled_dot_product_attention``.
 
 Then one JSON line with the seven kernels' numbers (the six ports of
-the Pallas kernels and the flash backward), the card's name and
+the Pallas kernels and the flash backward) and five rows of the same
+kernels at other shapes (each record's ``where``), the card's name and
 power limit, and the last line ``{"ok": true, "device": {...}}``. Any
 failure exits non-zero without that line, as does a machine without
 CUDA or a directory without the port's sources.
@@ -183,6 +200,37 @@ TRAIN_BWD_TOL = {"bfloat16": {"max": 2e-2, "rms": 1e-2},
 # the resumed run's params against the uninterrupted run's
 RESUME_ATOL = 1e-6
 RESUME = dict(steps=8, ckpt_every=4, fail_at=6, batch=2, seq=64)
+# phase 10: the MoE model (granite-moe-1b-a400m) at full width
+MOE_ARCH = "granite-moe-1b-a400m"
+# float32 compute, kernel route (the FP32-core flash and decode kernels)
+# vs plain route, teacher-forced: largest |logit| difference. Measured
+# on the H100 (NVIDIA H100 80GB HBM3, 700 W): 1.24e-4, with 3.8e-5 of the
+# routing decisions differing even in float32; the limit leaves 4x
+MOE_F32_LOGIT_ATOL = 5e-4
+# training routes in float32 (route_grads): loss and grad norm relative,
+# each leaf's largest difference over its largest |g|. Measured on the
+# H100 (700 W): 0 (the same float32 loss), 8.0e-6 and 8.2e-3; the limits
+# leave 2.4x or more (the loss: float32's resolution)
+MOE_TRAIN_TOL = {"loss": 1e-6, "norm": 2e-5, "leaf": 2e-2}
+# one MoE layer in float64 on the card vs the CPU: routing equal, the
+# output over its largest |value|. The reference computes the router's
+# logits, softmax and gates in float32 and sums a top-k > 1 combine in
+# float32, so float64 inputs give outputs rounded at float32 (its GEMM in
+# another order on the card); a row put in a wrong slot would move the
+# output by O(1). Measured on the H100 (700 W): 7.0e-7; the limit leaves
+# 2.9x
+MOE_F64_TOKENS = 4096
+MOE_F64_RTOL = 2e-6
+# phase 11: the Mamba-2 model (mamba2-370m) at full width
+SSM_ARCH = "mamba2-370m"
+# float32: a forward over 2304 tokens vs a prefill of 2048 and 32 decode
+# steps, largest |logit| difference at positions 2048-2079. Measured on
+# the H100 (NVIDIA H100 80GB HBM3, 700 W): 3.41e-5; the limit leaves 2.9x
+SSM_CHAIN_ATOL = 1e-4
+# the fixed-batch check of phase 11 (the reference's own recipe for "a
+# train step learns", tests/test_archs_smoke.py:70-84, at train()'s
+# default peak lr): steps on batch 0 again and again
+SSM_FIT_STEPS = 4
 # result positions (DistributeResult order) that are sums, averages or
 # divisions: compared to SUM_RTOL between routes, all else exactly
 TOLERANT = {"Q3": {0}, "Q4": {0}, "Q7": {0}, "Q8": {0}, "Q9": {2},
@@ -1408,7 +1456,8 @@ def kernel_record(name: str, launches: dict, err: float, run, plain, lib,
            "max_abs_err": err, "ms": cuda_ms(run), "plain_ms": cuda_ms(plain),
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "operations" if t_ops > t_bytes else "bytes",
-           "library_ms": cuda_ms(lib) if lib is not None else None}
+           "library_ms": cuda_ms(lib) if lib is not None else None,
+           "where": where}
     log(f"kernel {name} at {where} {json.dumps(shape)}: " + json.dumps(rec))
     return rec
 
@@ -1574,33 +1623,24 @@ class LastCall:
             setattr(self.ops, attr, fn)
 
 
-def lm_path(dev, *, smoke: bool = False, requests: int = LM_REQUESTS,
-            prompt_len: int = LM_PROMPT, gen_len: int = LM_GEN,
-            counters: dict | None = None, capture=None) -> dict:
-    """Phase 5: ``serve_batch`` of LM_ARCH twice on the kernel route
-    (cold, warm) and once on the plain route, teacher-forced with the
-    kernel route's tokens; prefill and per-step logits must agree within
-    LOGIT_ATOL. ``counters``: the attention kernel wrappers, set to 0
-    before each kernel-route serve and read after it (each must launch
-    once per layer, and once per layer per generated token);
-    ``capture``: a context that sees the cold serve's kernel calls."""
+def serve_kernel_runs(arch: str, cfg, dev, kw: dict, counters: dict | None,
+                      capture, tag: str = "lm") -> dict:
+    """``serve_batch`` of ``arch`` cold and warm on the kernel route:
+    {"cold"/"warm": (record, output)}. ``counters``: the kernel wrappers
+    by name; the flash and decode ones are set to 0 before each serve and
+    read after it (flash once
+    per attention layer, decode once per attention layer per generated
+    token; none on a model without attention); ``capture``: a context
+    that sees the cold serve's kernel calls."""
     import torch
-    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.launch.serve import serve_batch
-    from repro_torch.models import model
-    cfg = get_smoke_config(LM_ARCH) if smoke else get_config(LM_ARCH)
     on_cuda = dev.type == "cuda"
-    t0 = time.perf_counter()
-    params = model.init_params(cfg, SEED, dev)
-    if on_cuda:
-        torch.cuda.synchronize(dev)
-    n_params = sum(t.numel() for t in model._leaves(params))
-    log(f"lm {LM_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"heads {cfg.num_heads}/{cfg.num_kv_heads}, head_dim {cfg.head_dim}, "
-        f"vocab {cfg.vocab_size}: {n_params} params initialised on {dev} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    kw = dict(smoke=smoke, num_requests=requests, prompt_len=prompt_len,
-              gen_len=gen_len, seed=SEED, device=dev, params=params)
+    n_attn = sum(cfg.layer_spec(i).mixer.startswith("attn")
+                 for i in range(cfg.num_layers))
+    gen_len = kw["gen_len"]
+    if counters:
+        counters = {k: counters[k] for k in ("flash_attention",
+                                             "decode_attention")}
     runs = {}
     for label in ("cold", "warm"):
         for w in (counters or {}).values():
@@ -1609,8 +1649,8 @@ def lm_path(dev, *, smoke: bool = False, requests: int = LM_REQUESTS,
             torch.cuda.reset_peak_memory_stats(dev)
         with capture if capture is not None and label == "cold" \
                 else contextlib.nullcontext():
-            out = serve_batch(LM_ARCH, **kw)
-        rec = {"route": "kernel", "run": label,
+            out = serve_batch(arch, **kw)
+        rec = {"arch": arch, "route": "kernel", "run": label,
                "prefill_ms": out["prefill_s"] * 1e3,
                "decode_ms_per_token": out["decode_s"] * 1e3 / gen_len,
                "tok_per_s": out["tok_per_s"],
@@ -1618,49 +1658,141 @@ def lm_path(dev, *, smoke: bool = False, requests: int = LM_REQUESTS,
                             if on_cuda else 0.0)}
         if counters:
             rec["launches"] = {k: w.launches for k, w in counters.items()}
-            want = {"flash_attention": cfg.num_layers,
-                    "decode_attention": cfg.num_layers * gen_len}
-            require(rec["launches"] == want, f"lm {label} serve launched "
+            want = {"flash_attention": n_attn,
+                    "decode_attention": n_attn * gen_len}
+            require(rec["launches"] == want, f"{tag} {label} serve launched "
                     f"{rec['launches']}, want {want}")
-        log("lm serve " + json.dumps(rec))
+        log(f"{tag} serve " + json.dumps(rec))
         runs[label] = (rec, out)
-    kernel = runs["warm"][1]
+    return runs
+
+
+class RouteLog:
+    """Records the expert ids of every ``models.moe.route`` call (one a
+    MoE layer per prefill or decode step), by standing in for it."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.mod = moe
+        self.ids: list = []
+
+    def __enter__(self):
+        self.saved = self.mod.route
+
+        def logged(*a, **k):
+            r = self.saved(*a, **k)
+            self.ids.append(r["expert_ids"].detach().clone())
+            return r
+
+        self.mod.route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.saved
+
+
+def route_share(a: list, b: list) -> float:
+    """The share of (token, MoE layer) routing decisions whose expert
+    sets differ between two runs of the same tokens."""
+    import torch
+    require(len(a) == len(b) and all(x.shape == y.shape
+                                     for x, y in zip(a, b)),
+            "the two runs routed different numbers of tokens")
+    diff = sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+               for x, y in zip(a, b))
+    return diff / max(sum(x.shape[0] for x in a), 1)
+
+
+def plain_route_check(arch: str, cfg, dev, kw: dict, kernel: dict,
+                      logit_atol: float | None, tag: str = "lm",
+                      routes: list | None = None) -> dict:
+    """``serve_batch`` on the plain route (dense attention), teacher-
+    forced with the kernel route's tokens: each prefill and decode-step
+    logit against the kernel route's ``kernel`` output, within
+    ``logit_atol`` (printed only where it is None). ``routes``: the
+    kernel run's ``RouteLog`` ids; the plain run's are logged too and
+    the share of routing decisions that differ is reported."""
+    import torch
+    from repro_torch.launch.serve import serve_batch
+    on_cuda = dev.type == "cuda"
+    requests, gen_len = kw["num_requests"], kw["gen_len"]
     if on_cuda:
         torch.cuda.reset_peak_memory_stats(dev)
-    plain = serve_batch(LM_ARCH, **kw, overrides={"attn_impl": "dense"},
-                        force_tokens=kernel["generated"])
-    prec = {"route": "plain", "run": "teacher-forced",
+    overrides = {**(kw.get("overrides") or {}), "attn_impl": "dense"}
+    with RouteLog() if routes is not None else contextlib.nullcontext() \
+            as plain_routes:
+        plain = serve_batch(arch, **{**kw, "overrides": overrides},
+                            force_tokens=kernel["generated"])
+    prec = {"arch": arch, "route": "plain", "run": "teacher-forced",
             "prefill_ms": plain["prefill_s"] * 1e3,
             "decode_ms_per_token": plain["decode_s"] * 1e3 / gen_len,
             "tok_per_s": plain["tok_per_s"],
             "peak_mib": (torch.cuda.max_memory_allocated(dev) / 2**20
                          if on_cuda else 0.0)}
-    log("lm serve " + json.dumps(prec))
+    log(f"{tag} serve " + json.dumps(prec))
     errs = {}
     for key, shape in (("prefill_logits", (requests, 1, cfg.vocab_size)),
                        ("step_logits", (requests, gen_len, cfg.vocab_size))):
         a, b = kernel[key], plain[key]
         require(tuple(a.shape) == shape and tuple(b.shape) == shape,
-                f"lm {key}: shapes {tuple(a.shape)}, {tuple(b.shape)}, "
+                f"{tag} {key}: shapes {tuple(a.shape)}, {tuple(b.shape)}, "
                 f"want {shape}")
         require(bool(torch.isfinite(a).all() & torch.isfinite(b).all()),
-                f"lm {key}: non-finite logits")
+                f"{tag} {key}: non-finite logits")
         errs[key] = float((a - b).abs().max())
-    require(max(errs.values()) <= LOGIT_ATOL,
-            f"lm kernel and plain routes disagree: {errs} > {LOGIT_ATOL}")
+    if logit_atol is not None:
+        require(max(errs.values()) <= logit_atol, f"{tag} kernel and plain "
+                f"routes disagree: {errs} > {logit_atol}")
     same = float((torch.from_numpy(plain["generated"])
                   == torch.from_numpy(kernel["generated"])).float().mean())
+    rec = {"logit_max_abs_err": errs, "logit_atol": logit_atol,
+           "plain_argmax_agrees": same, "plain": prec}
+    if routes is not None:
+        rec["routing_decisions_differ"] = route_share(routes,
+                                                      plain_routes.ids)
+    return rec
+
+
+def lm_path(dev, *, smoke: bool = False, requests: int = LM_REQUESTS,
+            prompt_len: int = LM_PROMPT, gen_len: int = LM_GEN,
+            counters: dict | None = None, capture=None) -> dict:
+    """Phase 5: ``serve_batch`` of LM_ARCH twice on the kernel route
+    (cold, warm; ``serve_kernel_runs``) and once on the plain route,
+    teacher-forced with the kernel route's tokens; prefill and per-step
+    logits must agree within LOGIT_ATOL (``plain_route_check``)."""
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import model
+    cfg = get_smoke_config(LM_ARCH) if smoke else get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, SEED, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    log_model("lm", LM_ARCH, cfg, params, dev, t0)
+    kw = dict(smoke=smoke, num_requests=requests, prompt_len=prompt_len,
+              gen_len=gen_len, seed=SEED, device=dev, params=params)
+    runs = serve_kernel_runs(LM_ARCH, cfg, dev, kw, counters, capture)
+    kernel = runs["warm"][1]
+    check = plain_route_check(LM_ARCH, cfg, dev, kw, kernel, LOGIT_ATOL)
     cold_same = bool((runs["cold"][1]["generated"]
                       == kernel["generated"]).all())
-    summary = {"logit_max_abs_err": errs, "logit_atol": LOGIT_ATOL,
-               "plain_argmax_agrees": same, "cold_warm_tokens_equal":
-               cold_same, "generated_shape": list(kernel["generated"].shape),
-               "warm": runs["warm"][0], "cold": runs["cold"][0],
-               "plain": prec}
+    summary = {**check, "cold_warm_tokens_equal": cold_same,
+               "generated_shape": list(kernel["generated"].shape),
+               "warm": runs["warm"][0], "cold": runs["cold"][0]}
     log("lm check " + json.dumps({k: summary[k] for k in (
         "logit_max_abs_err", "logit_atol", "plain_argmax_agrees",
         "cold_warm_tokens_equal", "generated_shape")}))
     return summary
+
+
+def log_model(tag: str, arch: str, cfg, params, dev, t0: float) -> None:
+    from repro_torch.models import model
+    n_params = sum(t.numel() for t in model._leaves(params))
+    log(f"{tag} {arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"heads {cfg.num_heads}/{cfg.num_kv_heads}, head_dim {cfg.head_dim}, "
+        f"experts {cfg.num_experts} top-{cfg.top_k}, ssm state "
+        f"{cfg.ssm_state}, vocab {cfg.vocab_size}: {n_params} params "
+        f"initialised on {dev} in {time.perf_counter() - t0:.1f} s")
 
 
 def live_pairs(sq: int, sk: int, causal: bool, window) -> int:
@@ -1676,7 +1808,8 @@ def live_pairs(sq: int, sk: int, causal: bool, window) -> int:
     return int(ok.sum())
 
 
-def lm_kernel_timings(calls: dict, launches: dict, edge_errs: dict) -> list:
+def lm_kernel_timings(calls: dict, launches: dict, edge_errs: dict,
+                      where: str = "main-path shape") -> list:
     """The attention kernels on the inputs the serve gave them (the last
     prefill layer's q/k/v; the last decode step's q and caches)."""
     import torch
@@ -1712,7 +1845,7 @@ def lm_kernel_timings(calls: dict, launches: dict, edge_errs: dict) -> list:
         lambda: flash_attention.flash_attention_bhsd(qv, kv, vv, **fkw),
         lambda: ref.flash_attention(qb, kb, vb, **fkw), lib, nbytes, flops,
         dt, {"B*Hq": b * hq, "Sq": sq, "Sk": sk, "D": d, "g": g,
-             "causal": fkw["causal"], "dtype": dt}))
+             "causal": fkw["causal"], "dtype": dt}, where=where))
 
     (q, kc, vc, kv_len), kw = calls["decode_attention"]
     b, _, hq, d = q.shape
@@ -1750,7 +1883,8 @@ def lm_kernel_timings(calls: dict, launches: dict, edge_errs: dict) -> list:
         lambda: decode_attention.decode_attention_bhgd(q4, k4, v4, kl, **dkw),
         lambda: ref.decode_attention(qb, kb, vb, klb, **dkw), lib, nbytes,
         flops, dt, {"B*Hkv": b * hkv, "G": g, "Smax": smax, "D": d,
-                    "kv_len": [int(x) for x in kv_len], "dtype": dt}))
+                    "kv_len": [int(x) for x in kv_len], "dtype": dt},
+        where=where))
     return out
 
 
@@ -1832,25 +1966,30 @@ class _Spy:
         return res
 
 
-def route_grads(cfg, dev, batch: int, seq: int, kernel_impl: str) -> dict:
+def route_grads(cfg, dev, batch: int, seq: int, kernel_impl: str,
+                tol: dict | None = None) -> dict:
     """``steps.value_and_grad`` of the same seeded params and batch 0 on
     the kernel route and on the plain route (dense attention): loss,
-    global grad norm and each leaf's gradient must agree within the
-    TRAIN_* constants, and every leaf's gradient must be nonzero on both
-    routes (the attention's weights get theirs only through the
-    backward)."""
+    global grad norm and each leaf's gradient must agree within ``tol``
+    (``{"loss", "norm", "leaf"}``; default the TRAIN_* constants), and
+    every leaf's gradient must be nonzero on both routes (the
+    attention's weights get theirs only through the backward). A MoE
+    model's aux loss must be finite and above 0 on both."""
     import torch
     from repro_torch.data.pipeline import batch_at
     from repro_torch.models import model, steps
     from repro_torch.optim.adamw import global_norm
+    tol = tol or {"loss": TRAIN_LOSS_RTOL, "norm": TRAIN_NORM_RTOL,
+                  "leaf": TRAIN_GRAD_TOL}
     params = model.init_params(cfg, SEED, dev)
     bt = batch_at(cfg, 0, batch=batch, seq=seq, seed=SEED, device=dev)
-    got = {}
+    got, aux = {}, {}
     for route, impl in (("kernel", kernel_impl), ("plain", "dense")):
         t0 = time.perf_counter()
-        loss, _, grads = steps.value_and_grad(
+        loss, parts, grads = steps.value_and_grad(
             dataclasses.replace(cfg, attn_impl=impl), params, bt)
         norm = float(global_norm(grads))
+        aux[route] = float(parts["moe_aux"])
         got[route] = (float(loss), norm, grads, time.perf_counter() - t0)
     del params
     (kl, kn, kg, ks), (pl, pn, pg, ps) = got["kernel"], got["plain"]
@@ -1869,15 +2008,16 @@ def route_grads(cfg, dev, batch: int, seq: int, kernel_impl: str) -> dict:
            "loss_rel_err": abs(kl - pl) / abs(pl),
            "norm_rel_err": abs(kn - pn) / pn,
            "grad_leaf_rel_err": worst, "leaves": len(list(model._leaves(kg))),
-           "zero_grad_leaves": zero,
-           "tolerances": {"loss": TRAIN_LOSS_RTOL, "norm": TRAIN_NORM_RTOL,
-                          "leaf": TRAIN_GRAD_TOL},
+           "zero_grad_leaves": zero, "moe_aux": aux,
+           "compute_dtype": cfg.compute_dtype, "tolerances": tol,
            "kernel_s": ks, "plain_s": ps}
     log("train routes " + json.dumps(rec))
     require(not zero, f"train routes: leaves with no gradient: {zero}")
-    require(rec["loss_rel_err"] <= TRAIN_LOSS_RTOL
-            and rec["norm_rel_err"] <= TRAIN_NORM_RTOL
-            and worst <= TRAIN_GRAD_TOL,
+    if cfg.num_experts:
+        require(all(math.isfinite(a) and a > 0 for a in aux.values()),
+                f"train routes: moe_aux {aux}")
+    require(rec["loss_rel_err"] <= tol["loss"]
+            and rec["norm_rel_err"] <= tol["norm"] and worst <= tol["leaf"],
             f"train kernel and plain routes disagree: {rec}")
     return rec
 
@@ -1893,34 +2033,46 @@ def model_paths(tree, prefix: str = "") -> list[str]:
     return [prefix.rstrip("/")]
 
 
-def train_path(dev, *, smoke: bool = False, steps: int = TRAIN_STEPS,
-               batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
-               counters: dict | None = None, capture=None) -> dict:
-    """Phase 9: kernel-route vs plain-route gradients (``route_grads``),
-    then ``launch.train.train`` of TRAIN_ARCH for ``steps`` steps at
-    full width (the config's own remat, 2 microbatches and 8 CE chunks).
-    Prints each step's ms, tokens/s, MFU (``models.flops`` over the
-    bf16 peak), peak MiB, loss, grad norm and, with ``counters`` (the
-    flash wrappers, set to 0 before each step), its flash forward and
-    backward launches: 2 x layers x microbatches forward (remat runs
-    each layer's forward again in the backward) and layers x
-    microbatches backward. ``capture``: a context around the training
-    run (``LastFlash``)."""
+def train_path(dev, *, arch: str = TRAIN_ARCH, smoke: bool = False,
+               steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH,
+               seq: int = TRAIN_SEQ, counters: dict | None = None,
+               capture=None, route_check: bool = True,
+               route_overrides: dict | None = None,
+               route_tol: dict | None = None,
+               tag: str = "train") -> dict:
+    """Phase 9 (and 10, 11): kernel-route vs plain-route gradients
+    (``route_grads`` under the config ``route_overrides``, within
+    ``route_tol``; skipped without ``route_check``), then
+    ``launch.train.train`` of ``arch`` for ``steps`` steps at full width
+    (the config's own remat, 2 microbatches and CE chunks). Prints each
+    step's ms,
+    tokens/s, MFU (``models.flops`` over the bf16 peak), peak MiB, loss,
+    grad norm and, with ``counters`` (the flash wrappers, set to 0 before
+    each step), its flash forward and backward launches: 2 x attention
+    layers x microbatches forward (remat runs each layer's forward again
+    in the backward) and attention layers x microbatches backward.
+    ``capture``: a context around the training run (``LastFlash``)."""
     import torch
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.launch.train import train
     from repro_torch.models import flops
-    cfg = get_smoke_config(TRAIN_ARCH) if smoke else get_config(TRAIN_ARCH)
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
     on_cuda = dev.type == "cuda"
     # "auto" is the kernel on CUDA; on the CPU (the rehearsal) name it
     kernel_impl = "auto" if on_cuda else "kernel"
-    routes = route_grads(cfg, dev, batch, seq, kernel_impl)
-    release(dev)
+    route_rec = None
+    if route_check:
+        route_rec = route_grads(
+            dataclasses.replace(cfg, **(route_overrides or {})), dev, batch,
+            seq, kernel_impl, route_tol)
+        release(dev)
 
     micro = 2
     mult = 2 if cfg.remat else 1
-    want = {"flash_attention": mult * cfg.num_layers * micro,
-            "flash_attention_bwd": cfg.num_layers * micro}
+    n_attn = sum(cfg.layer_spec(i).mixer.startswith("attn")
+                 for i in range(cfg.num_layers))
+    want = {"flash_attention": mult * n_attn * micro,
+            "flash_attention_bwd": n_attn * micro}
     model_flops = flops.model_flops(cfg, "train", batch, seq)["total"]
     recs = []
 
@@ -1938,7 +2090,7 @@ def train_path(dev, *, smoke: bool = False, steps: int = TRAIN_STEPS,
                 w.launches = 0
         if on_cuda:
             torch.cuda.reset_peak_memory_stats(dev)
-        log("train step " + json.dumps(rec))
+        log(f"{tag} step " + json.dumps(rec))
         recs.append(rec)
 
     for w in (counters or {}).values():
@@ -1946,8 +2098,8 @@ def train_path(dev, *, smoke: bool = False, steps: int = TRAIN_STEPS,
     if on_cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     with capture if capture is not None else contextlib.nullcontext():
-        out = train(TRAIN_ARCH, smoke=smoke, steps=steps, batch=batch,
-                    seq=seq, seed=SEED, device=dev, num_microbatches=micro,
+        out = train(arch, smoke=smoke, steps=steps, batch=batch, seq=seq,
+                    seed=SEED, device=dev, num_microbatches=micro,
                     log_every=steps, overrides={"attn_impl": kernel_impl},
                     on_step=on_step)
     del out
@@ -1964,7 +2116,7 @@ def train_path(dev, *, smoke: bool = False, steps: int = TRAIN_STEPS,
              if counters else None)
     warm = recs[1:] or recs
     warm_s = sum(r["ms"] for r in warm) / len(warm) / 1e3
-    summary = {"arch": TRAIN_ARCH, "params": cfg.num_params(),
+    summary = {"arch": arch, "params": cfg.num_params(),
                "batch": batch, "seq": seq, "microbatches": micro,
                "remat": cfg.remat, "ce_chunks": cfg.ce_chunks,
                "warm_ms": warm_s * 1e3,
@@ -1974,10 +2126,9 @@ def train_path(dev, *, smoke: bool = False, steps: int = TRAIN_STEPS,
                "peak_mib": max(r["peak_mib"] for r in recs),
                "losses": [r["loss"] for r in recs],
                "launches_per_step": want if counters else None,
-               "launches": total,
-               "routes": routes}
-    log("train summary " + json.dumps({k: v for k, v in summary.items()
-                                       if k != "routes"}))
+               "launches": total, "routes": route_rec}
+    log(f"{tag} summary " + json.dumps({k: v for k, v in summary.items()
+                                        if k != "routes"}))
     return summary
 
 
@@ -2119,7 +2270,9 @@ def kernels_run(fn) -> set:
             if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
-def train_kernel_timing(call, launches: dict, edge_errs: dict) -> dict:
+def train_kernel_timing(call, launches: dict, edge_errs: dict,
+                        where: str = "training shape",
+                        profile: bool = True) -> tuple[dict, dict]:
     """The backward kernel on what one layer of the training run gave the
     flash forward kernel (``LastFlash``: q, k, v, its output O and L) and
     a seeded dO, timed beside its plain version and the autograd
@@ -2128,7 +2281,12 @@ def train_kernel_timing(call, launches: dict, edge_errs: dict) -> dict:
     registers and spills from the build's ptxas log; in bf16 at head_dim
     64, 80 or 128 they must be the tensor-core pair. The forward kernel
     at the same inputs, with L stored (training) and not (serve), is
-    timed and logged beside it."""
+    timed and logged beside it, and with L stored recorded beside its
+    plain version and ``scaled_dot_product_attention``. Returns the
+    (backward, forward) records. Without ``profile`` the templates are
+    not read: phase 10 runs it after phase 9's two profiler sessions,
+    and a third session in the process returned no CUDA event on the
+    H100 machine."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention, ref
@@ -2146,13 +2304,15 @@ def train_kernel_timing(call, launches: dict, edge_errs: dict) -> dict:
         *flat[:3], return_lse=True, **kw)[1], dt,
         "flash_attention (training shape)")
     err, sizes = train_bwd_check(q, k, v, o, lse, do, kw)
-    names = kernels_run(lambda: flash_attention.flash_attention_bwd_bhsd(
-        q, k, v, o, do, lse, **kw))
-    templates = template_report(names, "flash_attention_bwd")
-    want = flash_attention.bwd_kernels(q.dtype, d)
-    ran = {t.split("<")[0] for t in templates}
-    require(ran == set(want), f"the backward at the training shape ran "
-            f"{sorted(templates)}, not {want}")
+    templates = None
+    if profile:
+        names = kernels_run(lambda: flash_attention.flash_attention_bwd_bhsd(
+            q, k, v, o, do, lse, **kw))
+        templates = template_report(names, "flash_attention_bwd")
+        want = flash_attention.bwd_kernels(q.dtype, d)
+        ran = {t.split("<")[0] for t in templates}
+        require(ran == set(want), f"the backward at the training shape ran "
+                f"{sorted(templates)}, not {want}")
     # the same inputs in float32, through both float32 kernels
     q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
     o32, lse32 = flash_attention.flash_attention_bhsd(q32, k32, v32,
@@ -2166,7 +2326,8 @@ def train_kernel_timing(call, launches: dict, edge_errs: dict) -> dict:
                q, k, v, return_lse=True, **kw)),
            "templates": template_report(kernels_run(
                lambda: flash_attention.flash_attention_bhsd(
-                   q, k, v, return_lse=True, **kw)), "flash_attention")}
+                   q, k, v, return_lse=True, **kw)), "flash_attention")
+           if profile else None}
     log("kernel flash_attention at training shape, L off (serve) and on "
         "(training): " + json.dumps(fwd))
     lib = None
@@ -2184,17 +2345,272 @@ def train_kernel_timing(call, launches: dict, edge_errs: dict) -> dict:
     flops = 10.0 * d * b * hq * pairs
     nbytes = (2 * (q.numel() + k.numel() + v.numel())
               + o.numel() + do.numel()) * q.element_size() + lse.numel() * 4
-    return kernel_record(
+    shape = {"B*Hq": b * hq, "Sq": sq, "Sk": sk, "D": d, "g": g,
+             "causal": kw["causal"], "dtype": dt}
+    bwd = kernel_record(
         "flash_attention_bwd", launches,
         max(err, edge_errs["flash_attention_bwd"]),
         lambda: flash_attention.flash_attention_bwd_bhsd(q, k, v, o, do, lse,
                                                          **kw),
         lambda: ref.flash_attention_bwd(*flat, **kw),
         lib, nbytes, flops, dt,
-        {"B*Hq": b * hq, "Sq": sq, "Sk": sk, "D": d, "g": g,
-         "causal": kw["causal"], "dtype": dt, "lse_max_abs_err": lse_err,
-         "templates": templates, **sizes},
-        where="training shape")
+        {**shape, "lse_max_abs_err": lse_err, "templates": templates,
+         **sizes}, where=where)
+    # the forward with L stored, as training runs it
+    fwd_err = attn_err(o.reshape(flat[0].shape),
+                       ref.flash_attention(*flat[:3], **kw), dt,
+                       f"flash_attention ({where})")
+    lib = None
+    if kw["window"] is None and kw["softcap"] is None:
+        def lib():
+            return F.scaled_dot_product_attention(
+                q, k, v, is_causal=kw["causal"], enable_gqa=True,
+                scale=kw["scale"])
+    fwd_rec = kernel_record(
+        "flash_attention", launches,
+        max(fwd_err, edge_errs["flash_attention"]),
+        lambda: flash_attention.flash_attention_bhsd(q, k, v, return_lse=True,
+                                                     **kw),
+        lambda: ref.flash_attention(*flat[:3], return_lse=True, **kw), lib,
+        (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        + lse.numel() * 4, 4.0 * d * b * hq * pairs, dt,
+        {**shape, "lse": True}, where=where + ", L stored")
+    return bwd, fwd_rec
+
+
+# ---------------------------------------------------------------------------
+# phases 10 and 11: the MoE and Mamba-2 models, served and trained
+# ---------------------------------------------------------------------------
+
+def moe_f64_check(cfg, params, dev, tokens: int = MOE_F64_TOKENS) -> dict:
+    """One MoE layer (layer 0's weights) at full width on ``tokens``
+    seeded rows in float64, on ``dev`` and through the port on the CPU:
+    the expert ids, the sorted order, the ranks and the rows kept must be
+    equal, the output and the aux loss within MOE_F64_RTOL of the CPU's
+    (over the largest |value|). On the card this holds CUDA's sort,
+    ``bincount`` and ``index_put`` to the reference's dispatch."""
+    import torch
+    from repro_torch.models import model, moe
+    p64 = model.tree_map(lambda t: t.detach().to(torch.float64),
+                         params["layers"][0]["moe"])
+    x = normal((tokens, cfg.d_model), SEED + 150, dev, torch.float64)
+    kw = dict(top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+    got = {}
+    for where, d in (("device", dev), ("cpu", torch.device("cpu"))):
+        pd = model.tree_map(lambda t, d=d: t.to(d), p64)
+        xd = x.to(d)
+        r = moe.route(pd, xd, **kw)
+        y, aux = moe.moe_apply(pd, xd, act=cfg.act, **kw)
+        got[where] = ({k: r[k].cpu() for k in ("expert_ids", "order", "pos",
+                                              "dest")}, y.cpu(), aux.cpu())
+    (rd, yd, ad), (rc, yc, ac) = got["device"], got["cpu"]
+    same = {k: bool(torch.equal(rd[k], rc[k])) for k in rd}
+    # rows on which every expert ties: the router must pick the lower
+    # experts first, as lax.top_k does (torch.topk's order is printed)
+    ties = torch.zeros((4, cfg.d_model), dtype=torch.float64, device=dev)
+    first = torch.arange(cfg.top_k).expand(4, -1)
+    same["ties_lower_expert_first"] = bool(torch.equal(
+        moe.route(model.tree_map(lambda t: t.to(dev), p64), ties,
+                  **kw)["expert_ids"].cpu(), first))
+    topk_ties = bool(torch.equal(torch.topk(
+        torch.full((4, cfg.num_experts), 1.0, device=dev),
+        cfg.top_k).indices.cpu(), first))
+    rows = cfg.num_experts * moe.expert_capacity(tokens, cfg.num_experts,
+                                                 cfg.top_k,
+                                                 cfg.capacity_factor)
+    rec = {"tokens": tokens, "cap": rows // cfg.num_experts,
+           "kept": int((rc["dest"] < rows).sum()),
+           "assignments": tokens * cfg.top_k, "equal": same,
+           "out_rel_err": float((yd - yc).abs().max() / yc.abs().max()),
+           "aux_rel_err": float((ad - ac).abs() / ac.abs()),
+           "rtol": MOE_F64_RTOL, "torch_topk_ties_lower_first": topk_ties}
+    log("moe float64 " + json.dumps(rec))
+    require(all(same.values()), f"moe float64: the device routes otherwise "
+            f"than the CPU: {same}")
+    require(rec["out_rel_err"] <= MOE_F64_RTOL
+            and rec["aux_rel_err"] <= MOE_F64_RTOL,
+            f"moe float64: device and CPU disagree: {rec}")
+    return rec
+
+
+def moe_path(dev, *, smoke: bool = False, requests: int = LM_REQUESTS,
+             prompt_len: int = LM_PROMPT, gen_len: int = LM_GEN,
+             steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH,
+             seq: int = TRAIN_SEQ, f64_tokens: int = MOE_F64_TOKENS,
+             counters: dict | None = None, capture=None,
+             train_capture=None) -> dict:
+    """Phase 10: MOE_ARCH at full width. ``serve_batch`` cold and warm on
+    the kernel route in bf16 (``counters``: the flash and decode
+    wrappers, once per layer and per layer per token; ``capture`` sees
+    the cold serve), then teacher-forced on the plain route: the bf16
+    logit difference and the share of (token, layer) routing decisions
+    that differ are printed, not gated (one bf16 ulp in an attention
+    output can move a token's 8th expert). The gate runs in float32:
+    kernel route (the FP32-core kernels) against plain route within
+    MOE_F32_LOGIT_ATOL. Then one MoE layer in float64 on the card
+    against the CPU (``moe_f64_check``), the training routes in float32
+    within MOE_TRAIN_TOL and ``launch.train.train`` (``train_path``,
+    ``counters`` holding the flash pair too; ``train_capture`` around
+    the run)."""
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import model
+    cfg = get_smoke_config(MOE_ARCH) if smoke else get_config(MOE_ARCH)
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, SEED, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    log_model("moe", MOE_ARCH, cfg, params, dev, t0)
+    kw = dict(smoke=smoke, num_requests=requests, prompt_len=prompt_len,
+              gen_len=gen_len, seed=SEED, device=dev, params=params)
+    with RouteLog() as routes:
+        runs = serve_kernel_runs(MOE_ARCH, cfg, dev, kw, counters, capture,
+                                 tag="moe")
+    half = len(routes.ids) // 2
+    require(all(torch.equal(a, b) for a, b in zip(routes.ids[:half],
+                                                  routes.ids[half:])),
+            "moe: the cold and warm serves routed differently")
+    bf16 = plain_route_check(MOE_ARCH, cfg, dev, kw, runs["warm"][1], None,
+                             tag="moe bf16", routes=routes.ids[half:])
+    del routes
+    kw32 = {**kw, "overrides": {"compute_dtype": "float32"}}
+    with RouteLog() as routes32:
+        k32 = serve_batch(MOE_ARCH, **kw32)
+    f32 = plain_route_check(MOE_ARCH, cfg, dev, kw32, k32,
+                            MOE_F32_LOGIT_ATOL, tag="moe f32",
+                            routes=routes32.ids)
+    del k32, routes32
+    log("moe check " + json.dumps({"bfloat16": {k: bf16[k] for k in (
+        "logit_max_abs_err", "plain_argmax_agrees",
+        "routing_decisions_differ")}, "float32": {k: f32[k] for k in (
+            "logit_max_abs_err", "logit_atol", "plain_argmax_agrees",
+            "routing_decisions_differ")}}))
+    f64 = moe_f64_check(cfg, params, dev, f64_tokens)
+    del params
+    release(dev)
+    trained = train_path(dev, arch=MOE_ARCH, smoke=smoke, steps=steps,
+                         batch=batch, seq=seq, counters=counters,
+                         capture=train_capture,
+                         route_overrides={"compute_dtype": "float32"},
+                         route_tol=MOE_TRAIN_TOL, tag="moe train")
+    return {"warm": runs["warm"][0], "cold": runs["cold"][0],
+            "bfloat16": bf16, "float32": f32, "float64": f64,
+            "train": trained}
+
+
+def ssm_chain_gate(cfg, params, dev, dtype: str, batch: int, prefix: int,
+                   extra: int) -> dict:
+    """The logits of one forward over ``prefix`` + ``extra`` rounded up
+    to the chunk (2048 + 256 at full size) seeded tokens, at positions
+    prefix .. prefix + extra - 1, against a prefill over the first
+    ``prefix`` followed by ``extra`` decode steps fed the next tokens,
+    in ``dtype`` compute: the chunked dual form against the
+    recurrence."""
+    import torch
+    from repro_torch.models import model
+    c = dataclasses.replace(cfg, compute_dtype=dtype)
+    cp = model.compute_params(c, params)
+    total = prefix + -(-extra // c.ssm_chunk) * c.ssm_chunk
+    gen = torch.Generator().manual_seed(SEED + 160)
+    toks = torch.randint(1, c.vocab_size, (batch, total), generator=gen,
+                         dtype=torch.int32).to(dev)
+    with torch.no_grad():
+        h, _ = model.forward(c, cp, {"tokens": toks})
+        want = model.logits_from_hidden(c, cp, h[:, prefix:prefix + extra])
+        del h
+        _, caches = model.prefill(c, cp, {"tokens": toks[:, :prefix]})
+        kv_len = torch.full((batch,), prefix, dtype=torch.int32, device=dev)
+        got = []
+        for t in range(prefix, prefix + extra):
+            kv_len = kv_len + 1
+            hd, caches = model.decode_step_hidden(c, cp, caches,
+                                                  toks[:, t:t + 1], kv_len)
+            got.append(model.logits_from_hidden(c, cp, hd))
+        got = torch.cat(got, 1)
+    require(tuple(got.shape) == (batch, extra, c.vocab_size)
+            and tuple(want.shape) == tuple(got.shape),
+            f"ssm chain: shapes {tuple(got.shape)}, {tuple(want.shape)}")
+    require(bool(torch.isfinite(got).all() & torch.isfinite(want).all()),
+            "ssm chain: non-finite logits")
+    return {"dtype": dtype, "batch": batch, "forward": total,
+            "prefix": prefix, "extra": extra,
+            "max_abs_err": float((got - want).abs().max()),
+            "logit_abs_max": float(want.abs().max())}
+
+
+def ssm_path(dev, *, smoke: bool = False, requests: int = LM_REQUESTS,
+             prompt_len: int = LM_PROMPT, gen_len: int = LM_GEN,
+             steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH,
+             seq: int = TRAIN_SEQ, counters: dict | None = None) -> dict:
+    """Phase 11: SSM_ARCH at full width. ``serve_batch`` cold and warm
+    (``counters``: the attention wrappers, which must not launch); the
+    gate in float32, a forward over prompt_len + gen_len tokens against
+    a prefill of prompt_len and gen_len decode steps within
+    SSM_CHAIN_ATOL (the same pair in bf16 printed); then
+    ``launch.train.train``: finite losses and no attention launch; then
+    ``fixed_batch_fit``: the last loss below the first. (``train``'s
+    batches are fresh uniform random tokens each step, with nothing to
+    learn but the logits' scale: their losses need not fall in 4
+    steps.)"""
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import model
+    cfg = get_smoke_config(SSM_ARCH) if smoke else get_config(SSM_ARCH)
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, SEED, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    log_model("ssm", SSM_ARCH, cfg, params, dev, t0)
+    kw = dict(smoke=smoke, num_requests=requests, prompt_len=prompt_len,
+              gen_len=gen_len, seed=SEED, device=dev, params=params)
+    runs = serve_kernel_runs(SSM_ARCH, cfg, dev, kw, counters, None,
+                             tag="ssm")
+    cold_same = bool((runs["cold"][1]["generated"]
+                      == runs["warm"][1]["generated"]).all())
+    require(cold_same, "ssm: the cold and warm serves generated otherwise")
+    gates = {}
+    for dt in ("float32", "bfloat16"):
+        gates[dt] = ssm_chain_gate(cfg, params, dev, dt, requests,
+                                   prompt_len, gen_len)
+        release(dev)
+    gates["atol"] = SSM_CHAIN_ATOL
+    log("ssm chain " + json.dumps(gates))
+    require(gates["float32"]["max_abs_err"] <= SSM_CHAIN_ATOL,
+            f"ssm: the prefill and the decode chain disagree: {gates}")
+    del params, runs
+    release(dev)
+    trained = train_path(dev, arch=SSM_ARCH, smoke=smoke, steps=steps,
+                         batch=batch, seq=seq, counters=counters,
+                         route_check=False, tag="ssm train")
+    release(dev)
+    fit = fixed_batch_fit(cfg, dev, batch, seq)
+    log("ssm fit " + json.dumps({"batch": batch, "seq": seq,
+                                 "losses": fit}))
+    require(all(math.isfinite(x) for x in fit) and fit[-1] < fit[0],
+            f"ssm: the loss on a fixed batch did not fall: {fit}")
+    return {"chain": gates, "train": trained, "fit": fit}
+
+
+def fixed_batch_fit(cfg, dev, batch: int, seq: int) -> list[float]:
+    """SSM_FIT_STEPS train steps (2 microbatches, warmup 1, peak lr 3e-4)
+    from the seeded params, each on batch 0: the losses, which fall as
+    the model fits that batch."""
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.models import model, steps as steps_lib
+    from repro_torch.optim import adamw_init
+    params = model.init_params(cfg, SEED, dev)
+    opt = adamw_init(params)
+    step = steps_lib.make_train_step(cfg, num_microbatches=2, peak_lr=3e-4,
+                                     warmup_steps=1, total_steps=100)
+    bt = batch_at(cfg, 0, batch=batch, seq=seq, seed=SEED, device=dev)
+    losses = []
+    for _ in range(SSM_FIT_STEPS):
+        params, opt, metrics = step(params, opt, bt)
+        losses.append(float(metrics["loss"]))
+    del params, opt
+    release(dev)
+    return losses
 
 
 # ---------------------------------------------------------------------------
@@ -2351,14 +2767,38 @@ def main() -> int:
     launches["flash_attention_bwd"] = trained["launches"][
         "flash_attention_bwd"]
     log(f"train path ok ({time.perf_counter() - t0:.1f} s)")
-    records["flash_attention_bwd"] = train_kernel_timing(
-        last_flash.call, launches, edge_errs)
+    # the rows beside the seven: the same kernels at the other shapes
+    # their paths gave them
+    extra_records = []
+    records["flash_attention_bwd"], fwd_train = train_kernel_timing(
+        last_flash.call, trained["launches"], edge_errs)
+    extra_records.append(fwd_train)
     del last_flash
     release(dev)
     t0 = time.perf_counter()
     resume_check(dev, smoke_overrides={"head_dim": 64})
     log(f"train resume ok ({time.perf_counter() - t0:.1f} s)")
-    kernels = [records[name] for name in KERNELS]
+
+    t0 = time.perf_counter()
+    attn = {k: wrappers[k] for k in attn_kernels}
+    last, last_flash = LastCall(ops), LastFlash()
+    moe = moe_path(dev, counters=attn, capture=last,
+                   train_capture=last_flash)
+    log(f"moe path ok ({time.perf_counter() - t0:.1f} s)")
+    extra_records += lm_kernel_timings(last.calls, moe["warm"]["launches"],
+                                       edge_errs, where=f"{MOE_ARCH} serve")
+    bwd, fwd_train = train_kernel_timing(
+        last_flash.call, moe["train"]["launches"], edge_errs,
+        where=f"{MOE_ARCH} training", profile=False)
+    extra_records += [fwd_train, bwd]
+    del last, last_flash, moe
+    release(dev)
+
+    t0 = time.perf_counter()
+    ssm_path(dev, counters=attn)
+    log(f"ssm path ok ({time.perf_counter() - t0:.1f} s)")
+    release(dev)
+    kernels = [records[name] for name in KERNELS] + extra_records
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -72,12 +72,18 @@ def serve_batch(arch: str = "qwen3-1.7b", *, smoke: bool = True,
     t0 = time.perf_counter()
     prefill_logits, pcaches = prefill(
         cparams, {"tokens": torch.as_tensor(toks, device=device)})
-    # caches from prefill hold prompt_len slots; decode needs room to
-    # grow: copy them into max_len buffers
+    # attention caches from prefill hold prompt_len slots; decode needs
+    # room to grow: copy them into max_len buffers. A Mamba-2 cache
+    # ({"conv", "ssm"}) has the same shape in both: copied whole, as
+    # the reference's grow keeps it
     caches = model_lib.init_cache(cfg, num_requests, max_len, device)
     for dst, src in zip(caches, pcaches):
-        dst["k"][:, :prompt_len] = src["k"]
-        dst["v"][:, :prompt_len] = src["v"]
+        if "k" in src:
+            dst["k"][:, :prompt_len] = src["k"]
+            dst["v"][:, :prompt_len] = src["v"]
+        else:
+            for key in dst:
+                dst[key].copy_(src[key])
     del pcaches
     _sync(device)
     t_prefill = time.perf_counter() - t0

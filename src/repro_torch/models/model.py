@@ -1,5 +1,6 @@
-"""Composable decoder LM, ported from ``repro/models/model.py``: dense
-attention blocks with the serve path (prefill, decode with a KV cache).
+"""Composable decoder LM, ported from ``repro/models/model.py``:
+attention and Mamba-2 mixers, dense and MoE MLPs, the serve path
+(prefill, decode with per-layer caches) and the forward of training.
 
 A model is a stack of ``num_layers`` blocks whose specs cycle through a
 period ``pattern`` of ``BlockSpec``s, as in the JAX package. Where JAX
@@ -7,7 +8,10 @@ stacks each period position's parameters on a leading K axis and runs
 one ``lax.scan`` over K (to keep the HLO small), the port keeps one
 parameter dict per layer (``params["layers"]``) and runs a Python loop
 over the layers; ``models/convert.py`` maps one tree onto the other.
-Caches are one ``{"k", "v"}`` dict per layer, (B, Smax, Hkv, D).
+Caches are one dict per layer: ``{"k", "v"}`` (B, Smax, Hkv, D) for an
+attention layer, ``{"conv", "ssm"}`` (``models/ssm.py``) for a Mamba-2
+one. ``forward`` returns the sum of the MoE layers' load-balance losses
+(``models/moe.py``), 0 where the model has none.
 
 Left out, because it has no meaning on one card: ``_seq_constraint``
 (a GSPMD sharding constraint). ``_remat`` becomes
@@ -15,15 +19,19 @@ Left out, because it has no meaning on one card: ``_seq_constraint``
 and grad is enabled (training); ``remat_policy="dots"`` (save the
 matmul outputs) has no exact counterpart and raises. Not ported yet,
 and raising ``NotImplementedError`` naming their ROADMAP item
-(ROADMAP.md, open items 8.2-8.4): the ``mamba`` mixer, the ``moe`` MLP,
-M-RoPE and the ``frames``/``patches`` front ends.
+(ROADMAP.md, open item 8.4): M-RoPE and the ``frames``/``patches``
+front ends.
 
 The JAX steps cast the block weights to the compute dtype inside every
-jitted call (``_cast_blocks``). Here ``compute_params`` does that cast
-once, for the embedding and output matrices too; the functions below
-accept either tree and cast what is still float32 (a no-op on a cast
-tree). Casting elementwise before or after a gather or a transpose gives
-the same values, so the results are those of the JAX order.
+jitted call (``_cast_blocks``): every float32 leaf of ndim > 1 in its
+layout, where each layer leaf is stacked on a leading K axis, so every
+float32 layer leaf, the norm scales and Mamba-2's ``a_log``, ``D``,
+``dt_bias`` and ``conv_b`` included. ``compute_params`` casts the same
+leaves, and the top-level matrices (embedding, output) once per serve;
+``final_norm`` stays float32. The functions below accept either tree and
+cast what is still float32 (a no-op on a cast tree). Casting
+elementwise before or after a gather or a transpose gives the same
+values, so the results are those of the JAX order.
 """
 from __future__ import annotations
 
@@ -36,6 +44,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.executor import resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_rope, dense_init, embed_init,
                                        mlp, mlp_init, rmsnorm, rmsnorm_init,
                                        softcap)
@@ -145,12 +155,8 @@ def check_supported(cfg: ModelConfig) -> None:
     (module docstring)."""
     todo = "not ported yet (ROADMAP.md, open item 8: {})"
     for spec in cfg.pattern:
-        if spec.mixer == "mamba":
-            raise NotImplementedError("mamba mixer " + todo.format("ssm"))
-        if spec.mlp == "moe":
-            raise NotImplementedError("moe MLP " + todo.format("moe"))
-        if spec.mixer not in ("attn", "attn_local") \
-                or spec.mlp not in ("dense", "none"):
+        if spec.mixer not in ("attn", "attn_local", "mamba") \
+                or spec.mlp not in ("dense", "moe", "none"):
             raise ValueError(spec)
     if cfg.mrope_sections:
         raise NotImplementedError("M-RoPE " + todo.format("vlm/audio"))
@@ -187,20 +193,31 @@ def _init_block(cfg: ModelConfig, spec: BlockSpec, gen, device) -> Params:
     dt = cfg.pdtype
     d, hd = cfg.d_model, cfg.head_dim
     p: Params = {"ln_mixer": rmsnorm_init(d, dt, device)}
-    p["attn"] = {
-        "wq": dense_init(gen, d, cfg.num_heads * hd, dt, device),
-        "wk": dense_init(gen, d, cfg.num_kv_heads * hd, dt, device),
-        "wv": dense_init(gen, d, cfg.num_kv_heads * hd, dt, device),
-        "wo": dense_init(gen, cfg.num_heads * hd, d, dt, device),
-    }
-    if cfg.qk_norm:
-        p["attn"]["q_norm"] = rmsnorm_init(hd, dt, device)
-        p["attn"]["k_norm"] = rmsnorm_init(hd, dt, device)
+    if spec.mixer.startswith("attn"):
+        p["attn"] = {
+            "wq": dense_init(gen, d, cfg.num_heads * hd, dt, device),
+            "wk": dense_init(gen, d, cfg.num_kv_heads * hd, dt, device),
+            "wv": dense_init(gen, d, cfg.num_kv_heads * hd, dt, device),
+            "wo": dense_init(gen, cfg.num_heads * hd, d, dt, device),
+        }
+        if cfg.qk_norm:
+            p["attn"]["q_norm"] = rmsnorm_init(hd, dt, device)
+            p["attn"]["k_norm"] = rmsnorm_init(hd, dt, device)
+    else:
+        p["mamba"] = ssm_lib.mamba2_init(
+            gen, d, state=cfg.ssm_state, conv=cfg.ssm_conv,
+            expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim, dtype=dt,
+            device=device)
     if cfg.use_post_norm:
         p["post_ln_mixer"] = rmsnorm_init(d, dt, device)
     if spec.mlp == "dense":
         p["ln_mlp"] = rmsnorm_init(d, dt, device)
         p["mlp"] = mlp_init(gen, d, cfg.d_ff, dt, device)
+    elif spec.mlp == "moe":
+        p["ln_mlp"] = rmsnorm_init(d, dt, device)
+        p["moe"] = moe_lib.moe_init(gen, d, cfg.d_ff_expert,
+                                    cfg.num_experts, cfg.num_shared_experts,
+                                    dt, device)
     if cfg.use_post_norm and spec.mlp != "none":
         p["post_ln_mlp"] = rmsnorm_init(d, dt, device)
     return p
@@ -249,12 +266,25 @@ def decay_mask(params: Params) -> Params:
     return out
 
 
-def compute_params(cfg: ModelConfig, params: Params) -> Params:
-    """The tree with every float32 matrix cast to the compute dtype (the
-    norm scales stay float32), made once per serve (module docstring)."""
+def cast_layers(cfg: ModelConfig, layers: list) -> list:
+    """Every float32 leaf of the per-layer trees cast to the compute
+    dtype, whatever its ``dim()``: the leaves the reference's
+    ``_cast_blocks`` casts (ndim > 1 once stacked on K)."""
     cd = cfg.cdtype
-    return tree_map(lambda a: a.to(cd) if a.dtype == torch.float32
-                    and a.dim() > 1 else a, params)
+    return tree_map(lambda a: a.to(cd) if a.dtype == torch.float32 else a,
+                    layers)
+
+
+def compute_params(cfg: ModelConfig, params: Params) -> Params:
+    """The tree in the compute dtype as the reference uses it, made once
+    per serve (module docstring): the layers by ``cast_layers``; of the
+    rest every float32 matrix (``final_norm`` stays float32)."""
+    cd = cfg.cdtype
+    out = {k: tree_map(lambda a: a.to(cd) if a.dtype == torch.float32
+                       and a.dim() > 1 else a, v)
+           for k, v in params.items() if k != "layers"}
+    out["layers"] = cast_layers(cfg, params["layers"])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -295,23 +325,46 @@ def _attn_block(cfg: ModelConfig, spec: BlockSpec, p: Params,
     return out, cache
 
 
+def _ssm_kw(cfg: ModelConfig) -> dict:
+    return dict(state=cfg.ssm_state, conv=cfg.ssm_conv,
+                expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
+                norm_eps=cfg.norm_eps)
+
+
 def _mlp_part(cfg: ModelConfig, spec: BlockSpec, p: Params,
-              h: torch.Tensor) -> torch.Tensor:
+              h: torch.Tensor):
+    """(h + the MLP sublayer's output, its MoE aux loss or None)."""
     if spec.mlp == "none":
-        return h
-    out = mlp(p["mlp"], rmsnorm(p["ln_mlp"], h, cfg.norm_eps), act=cfg.act)
+        return h, None
+    x = rmsnorm(p["ln_mlp"], h, cfg.norm_eps)
+    aux = None
+    if spec.mlp == "dense":
+        out = mlp(p["mlp"], x, act=cfg.act)
+    else:
+        b, s, d = x.shape
+        out, aux = moe_lib.moe_apply(
+            p["moe"], x.reshape(b * s, d), top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor, act=cfg.act)
+        out = out.reshape(b, s, d)
     if cfg.use_post_norm:
         out = rmsnorm(p["post_ln_mlp"], out, cfg.norm_eps)
-    return h + out
+    return h + out, aux
 
 
 def _apply_block_with_cache(cfg: ModelConfig, spec: BlockSpec, p: Params,
                             h: torch.Tensor, positions: torch.Tensor):
+    """(h, MoE aux or None, the layer's decode cache)."""
     x = rmsnorm(p["ln_mixer"], h, cfg.norm_eps)
-    out, cache = _attn_block(cfg, spec, p["attn"], x, positions)
+    if spec.mixer.startswith("attn"):
+        out, cache = _attn_block(cfg, spec, p["attn"], x, positions)
+    else:
+        out, cache = ssm_lib.mamba2_forward(
+            p["mamba"], x, chunk=cfg.ssm_chunk, return_cache=True,
+            **_ssm_kw(cfg))
     if cfg.use_post_norm:
         out = rmsnorm(p["post_ln_mixer"], out, cfg.norm_eps)
-    return _mlp_part(cfg, spec, p, h + out), cache
+    h, aux = _mlp_part(cfg, spec, p, h + out)
+    return h, aux, cache
 
 
 def _embed_inputs(cfg: ModelConfig, params: Params, batch: dict):
@@ -332,8 +385,10 @@ def _embed_inputs(cfg: ModelConfig, params: Params, batch: dict):
 
 
 def _apply_block(cfg: ModelConfig, spec: BlockSpec, p: Params,
-                 h: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    return _apply_block_with_cache(cfg, spec, p, h, positions)[0]
+                 h: torch.Tensor, positions: torch.Tensor):
+    """(h, MoE aux or None): what ``checkpoint`` recomputes."""
+    h, aux, _ = _apply_block_with_cache(cfg, spec, p, h, positions)
+    return h, aux
 
 
 def _remat(cfg: ModelConfig, params: Params) -> bool:
@@ -351,36 +406,41 @@ def _remat(cfg: ModelConfig, params: Params) -> bool:
 
 
 def _run_blocks(cfg: ModelConfig, params: Params, batch: dict,
-                caches: list | None) -> torch.Tensor:
+                caches: list | None):
+    """(final hidden states, the sum of the MoE aux losses in float32);
+    appends each layer's cache to ``caches`` where given."""
     check_supported(cfg)
     remat = caches is None and _remat(cfg, params)
-    layers = compute_params(cfg, params["layers"])
+    layers = cast_layers(cfg, params["layers"])
     h, positions = _embed_inputs(cfg, params, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, p in enumerate(layers):
         spec = cfg.layer_spec(i)
         if remat:
-            h = checkpoint(_apply_block, cfg, spec, p, h, positions,
-                           use_reentrant=False)
-            continue
-        h, cache = _apply_block_with_cache(cfg, spec, p, h, positions)
-        if caches is not None:
-            caches.append(cache)
-    return rmsnorm(params["final_norm"], h, cfg.norm_eps)
+            h, a = checkpoint(_apply_block, cfg, spec, p, h, positions,
+                              use_reentrant=False)
+        else:
+            h, a, cache = _apply_block_with_cache(cfg, spec, p, h,
+                                                  positions)
+            if caches is not None:
+                caches.append(cache)
+        if a is not None:
+            aux = aux + a
+    return rmsnorm(params["final_norm"], h, cfg.norm_eps), aux
 
 
 def forward(cfg: ModelConfig, params: Params, batch: dict):
-    """Full-sequence forward -> (final hidden states (B, S, d), moe aux
-    (always 0: no moe yet))."""
-    h = _run_blocks(cfg, params, batch, None)
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    """Full-sequence forward -> (final hidden states (B, S, d), the MoE
+    layers' summed load-balance loss (0 without MoE))."""
+    return _run_blocks(cfg, params, batch, None)
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: dict):
     """Full-sequence forward that also materializes the decode caches:
-    (final hidden states (B, S, d), [{"k", "v"} (B, S, Hkv, D) per
-    layer] of post-RoPE keys)."""
+    (final hidden states (B, S, d), one cache per layer: ``{"k", "v"}``
+    (B, S, Hkv, D) of post-RoPE keys, or Mamba-2's ``{"conv", "ssm"}``)."""
     caches: list = []
-    return _run_blocks(cfg, params, batch, caches), caches
+    return _run_blocks(cfg, params, batch, caches)[0], caches
 
 
 def output_embedding(cfg: ModelConfig, params: Params) -> torch.Tensor:
@@ -403,15 +463,27 @@ def logits_from_hidden(cfg: ModelConfig, params: Params,
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                device=None) -> list[Params]:
-    """Zeroed caches, one ``{"k", "v"}`` (B, max_len, Hkv, D) per layer
-    on ``device`` (``None``: the GPU; ``"meta"``: shapes only, JAX's
-    ``abstract=True``)."""
+    """Zeroed caches on ``device`` (``None``: the GPU; ``"meta"``: shapes
+    only, JAX's ``abstract=True``), one per layer: ``{"k", "v"}`` (B,
+    max_len, Hkv, D) in the compute dtype for attention, for Mamba-2
+    ``{"conv"}`` (B, conv - 1, channels) in the compute dtype and
+    ``{"ssm"}`` (B, H, N, P) float32."""
     check_supported(cfg)
     device = resolve_device(device)
     shape = (batch_size, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return [{"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
-             "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
-            for _ in range(cfg.num_layers)]
+    out = []
+    for i in range(cfg.num_layers):
+        if cfg.layer_spec(i).mixer.startswith("attn"):
+            out.append({"k": torch.zeros(shape, dtype=cfg.cdtype,
+                                         device=device),
+                        "v": torch.zeros(shape, dtype=cfg.cdtype,
+                                         device=device)})
+        else:
+            out.append(ssm_lib.mamba2_init_cache(
+                batch_size, cfg.d_model, state=cfg.ssm_state,
+                conv=cfg.ssm_conv, expand=cfg.ssm_expand,
+                head_dim=cfg.ssm_head_dim, dtype=cfg.cdtype, device=device))
+    return out
 
 
 def _attn_decode_block(cfg: ModelConfig, spec: BlockSpec, p: Params,
@@ -445,13 +517,19 @@ def decode_step_hidden(cfg: ModelConfig, params: Params, caches,
     *including* the new token. Returns (hidden (B, 1, d), caches), the
     caches updated in place."""
     check_supported(cfg)
-    layers = compute_params(cfg, params["layers"])
+    layers = cast_layers(cfg, params["layers"])
     h, _ = _embed_inputs(cfg, params, {"tokens": tokens})
     for i, (p, c) in enumerate(zip(layers, caches)):
         spec = cfg.layer_spec(i)
         x = rmsnorm(p["ln_mixer"], h, cfg.norm_eps)
-        out, _ = _attn_decode_block(cfg, spec, p["attn"], c, x, kv_len)
+        if spec.mixer.startswith("attn"):
+            out, _ = _attn_decode_block(cfg, spec, p["attn"], c, x, kv_len)
+        else:
+            # the recurrence makes a new state; the layer's dict takes it
+            out, new = ssm_lib.mamba2_decode(p["mamba"], c, x,
+                                             **_ssm_kw(cfg))
+            c.update(new)
         if cfg.use_post_norm:
             out = rmsnorm(p["post_ln_mixer"], out, cfg.norm_eps)
-        h = _mlp_part(cfg, spec, p, h + out)
+        h, _ = _mlp_part(cfg, spec, p, h + out)
     return rmsnorm(params["final_norm"], h, cfg.norm_eps), caches

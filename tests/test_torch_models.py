@@ -29,6 +29,9 @@ from repro_torch.launch import serve
 TOL = 1e-4
 BF16_ATOL = 3e-2
 DENSE_ARCHS = ["qwen3-1.7b", "gemma2-9b", "gemma3-12b", "llama3-8b"]
+# the MoE and Mamba-2 blocks (tests/test_torch_moe.py, test_torch_ssm.py)
+NEW_ARCHS = ["granite-moe-1b-a400m", "llama4-scout-17b-a16e", "mamba2-370m",
+             "jamba-v0.1-52b"]
 
 
 def T(a):
@@ -323,10 +326,7 @@ def test_params_from_numpy_defaults_to_cuda(monkeypatch):
         convert.params_from_numpy(pcfg, tree)
 
 
-@pytest.mark.parametrize("arch,what", [("mamba2-370m", "mamba"),
-                                       ("granite-moe-1b-a400m", "moe"),
-                                       ("jamba-v0.1-52b", "mamba"),
-                                       ("qwen2-vl-2b", "M-RoPE"),
+@pytest.mark.parametrize("arch,what", [("qwen2-vl-2b", "M-RoPE"),
                                        ("hubert-xlarge", "frames")])
 def test_unported_blocks_raise(arch, what):
     cfg = get_smoke_config(arch)
@@ -340,7 +340,7 @@ def test_unported_blocks_raise(arch, what):
 # parameters
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["gemma3-12b", "qwen3-1.7b"])
+@pytest.mark.parametrize("arch", ["gemma3-12b", "qwen3-1.7b"] + NEW_ARCHS)
 def test_params_round_trip_exact(arch):
     jcfg, pcfg = configs(arch)
     tree = jax.tree.map(np.asarray,
@@ -356,7 +356,7 @@ def test_params_round_trip_exact(arch):
 
 
 def test_port_init_matches_jax_shapes():
-    for arch in DENSE_ARCHS:
+    for arch in DENSE_ARCHS + NEW_ARCHS:
         jcfg, pcfg = configs(arch)
         want = jax.tree.map(lambda a: (a.shape, str(a.dtype)),
                             jax_model.abstract_params(jcfg))

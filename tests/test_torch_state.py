@@ -2,6 +2,7 @@
 package, the port's own ingest, the device default, and the rule that
 the port imports nothing of JAX or of the JAX package."""
 import ast
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -117,7 +118,8 @@ def test_no_reference_imports_in_source():
                 "checkpoint/__init__.py", "checkpoint/manager.py",
                 "runtime/__init__.py", "runtime/straggler.py",
                 "runtime/elastic.py", "runtime/compression.py",
-                "data/pipeline.py", "models/flops.py", "launch/train.py"):
+                "data/pipeline.py", "models/flops.py", "launch/train.py",
+                "models/moe.py", "models/ssm.py"):
         assert PORT / new in files, new
     for f in files:
         for mod in _imports(f):
@@ -250,3 +252,47 @@ def test_chip_smoke_train_path_rehearsal_on_cpu():
     rec = chip_smoke.resume_check(dev)
     assert rec["max_abs_err"] <= chip_smoke.RESUME_ATOL
     assert len(rec["losses"]) == 8 and len(rec["resumed_losses"]) == 4
+
+
+def test_chip_smoke_moe_path_rehearsal_on_cpu():
+    """chip_smoke.py's phase 10 at the smoke size of granite-moe-1b-a400m
+    on the CPU: serve cold and warm, the plain route teacher-forced in
+    bf16 (printed) and in float32 (gated), the routing logs, one MoE
+    layer in float64 (both sides on the CPU here), the float32 training
+    routes and two training steps."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    out = chip_smoke.moe_path(torch.device("cpu"), smoke=True, requests=2,
+                              prompt_len=16, gen_len=3, steps=2, batch=2,
+                              seq=16, f64_tokens=64)
+    assert out["float32"]["logit_max_abs_err"]["step_logits"] \
+        <= chip_smoke.MOE_F32_LOGIT_ATOL
+    assert 0.0 <= out["bfloat16"]["routing_decisions_differ"] <= 1.0
+    assert out["float32"]["routing_decisions_differ"] == 0.0
+    assert all(out["float64"]["equal"].values())
+    assert out["float64"]["kept"] <= out["float64"]["assignments"]
+    routes = out["train"]["routes"]
+    assert routes["compute_dtype"] == "float32"
+    assert routes["zero_grad_leaves"] == []
+    assert all(a > 0 for a in routes["moe_aux"].values())
+    assert len(out["train"]["losses"]) == 2
+
+
+def test_chip_smoke_ssm_path_rehearsal_on_cpu():
+    """chip_smoke.py's phase 11 at the smoke size of mamba2-370m on the
+    CPU: serve cold and warm with no attention, the forward against the
+    prefill and decode chain in float32 and bf16, four training steps
+    with finite losses, and four steps on one fixed batch whose loss
+    falls."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    out = chip_smoke.ssm_path(torch.device("cpu"), smoke=True, requests=2,
+                              prompt_len=16, gen_len=3, batch=2, seq=16)
+    chain = out["chain"]
+    assert chain["float32"]["forward"] == 24       # 16 + one chunk of 8
+    assert chain["float32"]["max_abs_err"] <= chip_smoke.SSM_CHAIN_ATOL
+    assert chain["bfloat16"]["max_abs_err"] > 0
+    assert out["train"]["routes"] is None
+    assert len(out["train"]["losses"]) == 4
+    assert all(math.isfinite(x) for x in out["train"]["losses"])
+    assert out["fit"][-1] < out["fit"][0]

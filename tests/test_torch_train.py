@@ -40,6 +40,9 @@ ADAM_ATOL = 1e-6
 TRAIN_RTOL = 1e-4
 ATT_TOL = 2e-5
 DENSE_ARCHS = ["qwen3-1.7b", "llama3-8b", "gemma2-9b", "gemma3-12b"]
+# the MoE and Mamba-2 blocks; their moe_aux is held to LOSS_RTOL
+NEW_ARCHS = ["granite-moe-1b-a400m", "llama4-scout-17b-a16e", "mamba2-370m",
+             "jamba-v0.1-52b"]
 
 
 def T(a):
@@ -190,6 +193,28 @@ def test_int8_compression_matches_jax():
                                rtol=1e-6)
 
 
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_opt_state_round_trip_exact_moe_and_ssm(arch):
+    """The AdamW state of the MoE and Mamba-2 trees (stacked experts,
+    the router, a_log, D, conv_w, ...) goes across and back exactly."""
+    from repro.optim import adamw_init as jax_init
+    jcfg, pcfg = configs(arch)
+    jp = jax.jit(functools.partial(jax_model.init_params, jcfg))(
+        jax.random.key(2))
+    st = jax.tree.map(np.asarray, jax_init(jp))
+    st["m"] = jax.tree.map(lambda a: a + 1.5, st["m"])
+    st["v"] = jax.tree.map(lambda a: a * 0.5 + 0.25, st["v"])
+    port = convert.opt_state_from_numpy(pcfg, st, device="cpu")
+    assert set(port["m"]["layers"][0]) == set(st["m"]["blocks"][0])
+    back = convert.opt_state_to_numpy(pcfg, port)
+    flat_a = jax.tree_util.tree_leaves_with_path(st)
+    flat_b = jax.tree_util.tree_leaves_with_path(back)
+    assert [p for p, _ in flat_a] == [p for p, _ in flat_b]
+    for (_, a), (_, b) in zip(flat_a, flat_b):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
 def test_opt_state_round_trip_exact():
     from repro.optim import adamw_init as jax_init
     jcfg, pcfg = configs("gemma3-12b")
@@ -221,12 +246,12 @@ def jax_value_and_grad(arch):
 
 
 @pytest.mark.parametrize("impl", ["dense", "kernel"])
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS + NEW_ARCHS)
 def test_value_and_grad_matches_jax(arch, impl):
-    """loss and every leaf's gradient against jax.value_and_grad of the
-    JAX loss_fn (dense attention). ``impl="kernel"`` takes the port's
-    flash entry point: the autograd function with the plain forward and
-    backward on the CPU."""
+    """loss, its parts and every leaf's gradient against
+    jax.value_and_grad of the JAX loss_fn (dense attention).
+    ``impl="kernel"`` takes the port's flash entry point: the autograd
+    function with the plain forward and backward on the CPU."""
     jcfg, pcfg = configs(arch, attn_impl="dense")
     pcfg = dataclasses.replace(pcfg, attn_impl=impl)
     _, pp = carried(jcfg, pcfg, seed=1)
@@ -237,7 +262,9 @@ def test_value_and_grad_matches_jax(arch, impl):
     np.testing.assert_allclose(N(loss), np.asarray(wl), rtol=LOSS_RTOL)
     np.testing.assert_allclose(N(parts["ce"]), np.asarray(wparts["ce"]),
                                rtol=LOSS_RTOL)
-    assert float(parts["moe_aux"]) == 0.0
+    np.testing.assert_allclose(N(parts["moe_aux"]),
+                               np.asarray(wparts["moe_aux"]), rtol=LOSS_RTOL)
+    assert (float(parts["moe_aux"]) > 0) == (pcfg.num_experts > 0)
     assert_grads_close(pcfg, grads, wg)
     # every parameter receives a gradient (the attention's included)
     for leaf in model._leaves(grads):
@@ -337,7 +364,7 @@ def test_train_matches_jax(monkeypatch):
     assert seen == list(enumerate(got["losses"]))
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS + NEW_ARCHS)
 @pytest.mark.parametrize("kind,batch,seq", [("train", 256, 4096),
                                             ("prefill", 32, 32768),
                                             ("decode", 128, 32768)])
