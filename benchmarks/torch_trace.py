@@ -6,6 +6,7 @@
     python3 benchmarks/torch_trace.py --spmd  # sim vs spmd mode, P = 1
     python3 benchmarks/torch_trace.py --train # the LM training path
     python3 benchmarks/torch_trace.py --lm --arch mamba2-370m  # another model
+    python3 benchmarks/torch_trace.py --train --arch hubert-xlarge
 
 Builds the data of ``chip_smoke.py`` (same spec, P = 4), runs each of
 Q1–Q12 once on the kernel route with statistics-presized caps, then
@@ -21,9 +22,16 @@ of its outputs to the host), one JSON line per query and mode. With
 ``--train``: qwen3-1.7b at full width (``chip_smoke.py``'s phase 9:
 seeded random weights, 8 x 2048 tokens a step, 2 microbatches, remat),
 one cold step, then one traced warm step, one JSON line with its ten
-kernels of most device time. ``--arch`` names another config for
-``--lm`` or ``--train`` (phase 10's granite-moe-1b-a400m, phase 11's
-mamba2-370m), at full size the same way. Every line has:
+kernels of most device time, with the config's microbatches. ``--arch``
+names another config for ``--lm`` or ``--train`` (phase 10's
+granite-moe-1b-a400m, phase 11's mamba2-370m, phase 12's qwen2-vl-2b and
+hubert-xlarge), at full size the same way. ``serve_batch`` takes token
+prompts only, so with ``--lm`` qwen2-vl-2b's batch is batch 0 of
+``data.pipeline`` (8 x 2048 positions, 512 of them patches), warmed up
+by one prefill, then traced through ``steps`` as above; hubert-xlarge,
+which has no decode step, traces one warm ``model.forward`` and
+``logits_from_hidden`` over 8 x 2048 frames (``chip_smoke.audio_forward``).
+Every line has:
 
 - ``wall_ms``: host clock around the traced run (ends in a sync);
 - ``device_ms``: the sum of the device time of every kernel the run
@@ -94,6 +102,7 @@ def trace_lm(arch: str | None) -> None:
 
     import chip_smoke
     from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import batch_at
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models import model, steps
     arch = arch or chip_smoke.LM_ARCH
@@ -101,20 +110,38 @@ def trace_lm(arch: str | None) -> None:
     dev = torch.device("cuda")
     b, s = chip_smoke.LM_REQUESTS, chip_smoke.LM_PROMPT
     params = model.init_params(cfg, chip_smoke.SEED, dev)
-    serve_batch(arch, smoke=False, num_requests=b,
-                prompt_len=s, gen_len=chip_smoke.LM_GEN, device=dev,
-                params=params)                  # warm-up: the cold serve
     cparams = model.compute_params(cfg, params)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(chip_smoke.SEED)
-    toks = torch.randint(1, cfg.vocab_size, (b, s), generator=gen,
-                         device=dev, dtype=torch.int32)
+    if cfg.frontend == "frames":
+        frames = batch_at(cfg, 0, batch=b, seq=s, seed=chip_smoke.SEED,
+                          device=dev)["frames"]
+
+        def run_forward():
+            chip_smoke.audio_forward(cfg, cparams, frames, dev)
+
+        run_forward()                           # warm-up: the cold run
+        print(json.dumps({"lm": "forward", "arch": arch, "frames": b * s,
+                          **traced(run_forward)}), flush=True)
+        return
     prefill = steps.make_prefill_step(cfg)
     decode = steps.make_decode_step(cfg)
+    if cfg.frontend == "patches":
+        batch = batch_at(cfg, 0, batch=b, seq=s, seed=chip_smoke.SEED,
+                         device=dev)
+        batch.pop("labels")
+        prefill(cparams, batch)                 # warm-up: the cold prefill
+    else:
+        serve_batch(arch, smoke=False, num_requests=b,
+                    prompt_len=s, gen_len=chip_smoke.LM_GEN, device=dev,
+                    params=params)              # warm-up: the cold serve
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(chip_smoke.SEED)
+        batch = {"tokens": torch.randint(1, cfg.vocab_size, (b, s),
+                                         generator=gen, device=dev,
+                                         dtype=torch.int32)}
     out = {}
 
     def run_prefill():
-        out["logits"], out["caches"] = prefill(cparams, {"tokens": toks})
+        out["logits"], out["caches"] = prefill(cparams, batch)
 
     print(json.dumps({"lm": "prefill", "arch": arch, "tokens": b * s,
                       **traced(run_prefill)}), flush=True)
@@ -125,7 +152,7 @@ def trace_lm(arch: str | None) -> None:
             dst["v"][:, :s] = src["v"]
         else:                                   # Mamba-2: as it is
             dst.update(src)
-    state = {"tok": toks[:, -1:],
+    state = {"tok": batch["tokens"][:, -1:],
              "kv_len": torch.full((b,), s, dtype=torch.int32, device=dev)}
 
     def run_decode():
@@ -150,7 +177,8 @@ def trace_train(arch: str | None) -> None:
     arch = arch or chip_smoke.TRAIN_ARCH
     cfg = get_config(arch)
     dev = torch.device("cuda")
-    b, s, micro = chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ, 2
+    b, s = chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ
+    micro = cfg.train_microbatches
     state = {"params": model.init_params(cfg, chip_smoke.SEED, dev)}
     state["opt"] = adamw_init(state["params"])
     step_fn = steps.make_train_step(cfg, num_microbatches=micro,

@@ -17,8 +17,8 @@ Phases, each printed as it runs:
    segment ids outside [0, S), masked NaNs, C = 0, S >= 4096,
    cap == N, tie-heavy keys, N over several sorted chunks (the top-k
    merge), all rows invalid; attention causal and not, windows 4096,
-   100, 16 and 8, softcap 50 and 30, GQA g in {1, 2, 4, 8}, ragged Sq/Sk
-   and Sq < Sk,
+   100, 16 and 8, softcap 50 and 30, GQA g in {1, 2, 4, 6, 8}, ragged
+   Sq/Sk and Sq < Sk,
    head_dim 64/80/128/256 at several tiles, bf16 and float32, the same bits
    from launch to launch; decode in bf16 and float32 with kv_len in
    {0, 1, ragged, Smax}, an Smax that is no multiple of a tile, one
@@ -117,6 +117,23 @@ Phases, each printed as it runs:
    launch; a forward over 2304 tokens against a prefill of 2048 and 32
    decode steps in float32 (SSM_CHAIN_ATOL; bf16 printed); 4 training
    steps, then 4 steps on one fixed batch whose loss must fall.
+12. the vlm and audio front ends at full width, one model on the card at
+   a time: qwen2-vl-2b (28 layers, d_model 1536, 12/2 heads of 128,
+   M-RoPE, 8 x 2048 positions of 512 patch embeddings and 1536 tokens
+   from ``data.pipeline.batch_at``) prefilled through
+   ``steps.make_prefill_step`` and 32 tokens through
+   ``steps.greedy_decode`` into 2080 slots, cold and warm (28 flash and
+   28 x 32 decode launches a serve); kernel route against plain route
+   teacher-forced, the gate in float32 (VLM_F32_LOGIT_ATOL), bf16
+   printed; the float32 training routes (FRONTEND_TRAIN_TOL) and 4
+   steps of ``launch.train.train`` (2 microbatches: 112 flash forward,
+   56 backward a step). Then hubert-xlarge (48 layers, 16 heads of 80,
+   not causal, 8 x 2048 frames of 512): ``model.forward`` and
+   ``logits_from_hidden`` cold and warm (48 flash launches), the routes
+   in float32 (AUDIO_F32_LOGIT_ATOL) and bf16, the training routes and 4
+   steps (4 microbatches: 384 flash forward, 192 backward a step). Then
+   the attention kernels on the inputs these paths gave them: GQA g = 6
+   at head_dim 128, and head_dim 80 not causal.
 
 Phase 3's ``query`` lines also give each query's peak device memory and
 the join kernel's hash-table scratch (``join_table_mib``); phase 6's
@@ -125,17 +142,24 @@ memory and the bytes copied to the host; phase 7's ``spmd`` lines the
 same for spmd mode plus the bytes all-gathered; phase 8's ``mrql``
 lines the baseline's ms and jobs; phase 9's ``train`` lines the steps,
 the routes' agreement and the resume; phases 10 and 11 the ``moe`` and
-``ssm`` lines. Phases run in the order 1–4, 6, 7, 8, 5, 9, 10, 11: one
-database's tables, or one model, on the card at a time. Phase 4 also times the flash
-kernel at hubert-xlarge's attention shape (16 heads, head_dim 80,
-2048 frames, not causal, bf16) beside ``scaled_dot_product_attention``.
+``ssm`` lines, phase 12 the ``vlm`` and ``audio`` lines. Phases run in
+the order 1–4, 6, 7, 8, 5, 9, 10, 11, 12: one database's tables, or one
+model, on the card at a time.
+
+Which templates the flash backward (and the forward with L) ran at each
+training shape is read last, by ``torch.profiler`` in a process of its
+own for each shape (``python3 chip_smoke.py --templates <inputs.pt>``,
+on the layer inputs the training run gave the kernels, the libraries
+already built): in bf16 at head_dim 64, 80 and 128 they must be the
+tensor-core pair.
 
 Then one JSON line with the seven kernels' numbers (the six ports of
-the Pallas kernels and the flash backward) and five rows of the same
-kernels at other shapes (each record's ``where``), the card's name and
-power limit, and the last line ``{"ok": true, "device": {...}}``. Any
-failure exits non-zero without that line, as does a machine without
-CUDA or a directory without the port's sources.
+the Pallas kernels and the flash backward) and the rows of the same
+kernels at the other shapes the paths gave them (each record's
+``where``), the card's name and power limit, and the last line
+``{"ok": true, "device": {...}}``. Any failure exits non-zero without
+that line, as does a machine without CUDA or a directory without the
+port's sources.
 """
 from __future__ import annotations
 
@@ -145,6 +169,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -231,6 +256,23 @@ SSM_CHAIN_ATOL = 1e-4
 # train step learns", tests/test_archs_smoke.py:70-84, at train()'s
 # default peak lr): steps on batch 0 again and again
 SSM_FIT_STEPS = 4
+# phase 12: the vlm and audio front ends at full width, 8 x 2048
+# positions (qwen2-vl: 512 patches and 1536 tokens, as the pipeline
+# splits them; hubert: frames)
+VLM_ARCH = "qwen2-vl-2b"
+AUDIO_ARCH = "hubert-xlarge"
+# float32 compute, kernel route (the FP32-core flash and decode kernels)
+# vs plain route (dense attention): the largest |logit| difference,
+# teacher-forced prefill and decode steps (qwen2-vl) or every frame's
+# logits (hubert). Measured on the H100 (NVIDIA H100 80GB HBM3, 700 W):
+# 3.03e-5 and 3.23e-5; the limit leaves 6x
+VLM_F32_LOGIT_ATOL = 2e-4
+AUDIO_F32_LOGIT_ATOL = 2e-4
+# the float32 training routes of both models (route_grads): loss and
+# grad norm relative, each leaf's largest difference over its largest |g|.
+# Measured on the H100 (700 W): qwen2-vl 0, 6.3e-8, 1.72e-5; hubert 0, 0,
+# 1.28e-5; the limits leave 5x or more
+FRONTEND_TRAIN_TOL = {"loss": 1e-6, "norm": 1e-6, "leaf": 1e-4}
 # result positions (DistributeResult order) that are sums, averages or
 # divisions: compared to SUM_RTOL between routes, all else exactly
 TOLERANT = {"Q3": {0}, "Q4": {0}, "Q7": {0}, "Q8": {0}, "Q9": {2},
@@ -533,11 +575,14 @@ FLASH_EDGES = [
     # the backward's tensor-core tiling (128 query rows / 64 keys for dQ,
     # 128 keys / 64 query rows for dK, dV) at g = 4
     (True, None, None, 4, 1000, 1000, 128, "bfloat16"),
-    (False, 8, 30.0, 4, 333, 200, 80, "bfloat16"),       # rows with no
-]                                                        # live key
-# hubert-xlarge's attention (configs/hubert_xlarge.py): 16 heads of 80,
-# not causal; 2048 frames of one utterance
-HUBERT_FLASH = dict(bh=16, s=2048, d=80)
+    # rows with no live key
+    (False, 8, 30.0, 4, 333, 200, 80, "bfloat16"),
+    # qwen2-vl-2b's group (12 query heads over 2): dK, dV of a kv head
+    # sum over 6 query heads; Sq no tile multiple, and Sq < Sk
+    (True, None, None, 6, 1000, 1000, 128, "bfloat16"),
+    (True, None, None, 6, 333, 333, 128, "float32"),
+    (True, None, None, 6, 200, 700, 128, "bfloat16"),
+]
 DECODE_EDGES = [
     # heads, g, smax, d, window, softcap; each in bf16 and float32. Six
     # heads with kv_len 1, 2, ragged, Smax - 1, Smax and 0 (no live slot):
@@ -552,7 +597,8 @@ DECODE_EDGES = [
     (400, 2, 300, 128, None, None),  # more heads than resident CTAs
     (6, 2, 100, 16, None, None),     # bf16 off the tensor-core kernel
     (6, 4, 257, 32, 50, None),
-]
+    (16, 6, 2080, 128, None, None),  # qwen2-vl-2b: g = 6, two pad rows a
+]                                    # block of 8
 AGG_EDGES = [
     # P, N, S, C, kind: uniform ids (some outside [0, S)); station-major
     # runs with N no multiple of 16 (the flag vectors) and runs across
@@ -1632,9 +1678,7 @@ def serve_kernel_runs(arch: str, cfg, dev, kw: dict, counters: dict | None,
     per attention layer, decode once per attention layer per generated
     token; none on a model without attention); ``capture``: a context
     that sees the cold serve's kernel calls."""
-    import torch
     from repro_torch.launch.serve import serve_batch
-    on_cuda = dev.type == "cuda"
     n_attn = sum(cfg.layer_spec(i).mixer.startswith("attn")
                  for i in range(cfg.num_layers))
     gen_len = kw["gen_len"]
@@ -1645,17 +1689,14 @@ def serve_kernel_runs(arch: str, cfg, dev, kw: dict, counters: dict | None,
     for label in ("cold", "warm"):
         for w in (counters or {}).values():
             w.launches = 0
-        if on_cuda:
-            torch.cuda.reset_peak_memory_stats(dev)
+        reset_peak(dev)
         with capture if capture is not None and label == "cold" \
                 else contextlib.nullcontext():
             out = serve_batch(arch, **kw)
         rec = {"arch": arch, "route": "kernel", "run": label,
                "prefill_ms": out["prefill_s"] * 1e3,
                "decode_ms_per_token": out["decode_s"] * 1e3 / gen_len,
-               "tok_per_s": out["tok_per_s"],
-               "peak_mib": (torch.cuda.max_memory_allocated(dev) / 2**20
-                            if on_cuda else 0.0)}
+               "tok_per_s": out["tok_per_s"], "peak_mib": peak_mib(dev)}
         if counters:
             rec["launches"] = {k: w.launches for k, w in counters.items()}
             want = {"flash_attention": n_attn,
@@ -1714,10 +1755,8 @@ def plain_route_check(arch: str, cfg, dev, kw: dict, kernel: dict,
     the share of routing decisions that differ is reported."""
     import torch
     from repro_torch.launch.serve import serve_batch
-    on_cuda = dev.type == "cuda"
     requests, gen_len = kw["num_requests"], kw["gen_len"]
-    if on_cuda:
-        torch.cuda.reset_peak_memory_stats(dev)
+    reset_peak(dev)
     overrides = {**(kw.get("overrides") or {}), "attn_impl": "dense"}
     with RouteLog() if routes is not None else contextlib.nullcontext() \
             as plain_routes:
@@ -1726,20 +1765,12 @@ def plain_route_check(arch: str, cfg, dev, kw: dict, kernel: dict,
     prec = {"arch": arch, "route": "plain", "run": "teacher-forced",
             "prefill_ms": plain["prefill_s"] * 1e3,
             "decode_ms_per_token": plain["decode_s"] * 1e3 / gen_len,
-            "tok_per_s": plain["tok_per_s"],
-            "peak_mib": (torch.cuda.max_memory_allocated(dev) / 2**20
-                         if on_cuda else 0.0)}
+            "tok_per_s": plain["tok_per_s"], "peak_mib": peak_mib(dev)}
     log(f"{tag} serve " + json.dumps(prec))
-    errs = {}
-    for key, shape in (("prefill_logits", (requests, 1, cfg.vocab_size)),
-                       ("step_logits", (requests, gen_len, cfg.vocab_size))):
-        a, b = kernel[key], plain[key]
-        require(tuple(a.shape) == shape and tuple(b.shape) == shape,
-                f"{tag} {key}: shapes {tuple(a.shape)}, {tuple(b.shape)}, "
-                f"want {shape}")
-        require(bool(torch.isfinite(a).all() & torch.isfinite(b).all()),
-                f"{tag} {key}: non-finite logits")
-        errs[key] = float((a - b).abs().max())
+    errs = logit_errs(kernel, plain,
+                      {"prefill_logits": (requests, 1, cfg.vocab_size),
+                       "step_logits": (requests, gen_len, cfg.vocab_size)},
+                      tag)
     if logit_atol is not None:
         require(max(errs.values()) <= logit_atol, f"{tag} kernel and plain "
                 f"routes disagree: {errs} > {logit_atol}")
@@ -1760,15 +1791,7 @@ def lm_path(dev, *, smoke: bool = False, requests: int = LM_REQUESTS,
     (cold, warm; ``serve_kernel_runs``) and once on the plain route,
     teacher-forced with the kernel route's tokens; prefill and per-step
     logits must agree within LOGIT_ATOL (``plain_route_check``)."""
-    import torch
-    from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.models import model
-    cfg = get_smoke_config(LM_ARCH) if smoke else get_config(LM_ARCH)
-    t0 = time.perf_counter()
-    params = model.init_params(cfg, SEED, dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    log_model("lm", LM_ARCH, cfg, params, dev, t0)
+    cfg, params = init_model("lm", LM_ARCH, dev, smoke)
     kw = dict(smoke=smoke, num_requests=requests, prompt_len=prompt_len,
               gen_len=gen_len, seed=SEED, device=dev, params=params)
     runs = serve_kernel_runs(LM_ARCH, cfg, dev, kw, counters, capture)
@@ -1795,6 +1818,58 @@ def log_model(tag: str, arch: str, cfg, params, dev, t0: float) -> None:
         f"initialised on {dev} in {time.perf_counter() - t0:.1f} s")
 
 
+def init_model(tag: str, arch: str, dev, smoke: bool):
+    """(config, seeded params on ``dev``), logged."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import model
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, SEED, dev)
+    device_sync(dev)
+    log_model(tag, arch, cfg, params, dev, t0)
+    return cfg, params
+
+
+def peak_mib(dev) -> float:
+    import torch
+    return (torch.cuda.max_memory_allocated(dev) / 2**20
+            if dev.type == "cuda" else 0.0)
+
+
+def reset_peak(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def device_sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def kernel_impl(dev) -> str:
+    """The kernel route's ``attn_impl``: "auto" is the kernel on CUDA; on
+    the CPU (the rehearsal) name it."""
+    return "auto" if dev.type == "cuda" else "kernel"
+
+
+def logit_errs(a: dict, b: dict, shapes: dict, tag: str) -> dict:
+    """Largest |a - b| of each logits key, after shape and finiteness
+    checks."""
+    import torch
+    errs = {}
+    for key, shape in shapes.items():
+        x, y = a[key], b[key]
+        require(tuple(x.shape) == shape and tuple(y.shape) == shape,
+                f"{tag} {key}: shapes {tuple(x.shape)}, {tuple(y.shape)}, "
+                f"want {shape}")
+        require(bool(torch.isfinite(x).all() & torch.isfinite(y).all()),
+                f"{tag} {key}: non-finite logits")
+        errs[key] = float((x - y).abs().max())
+    return errs
+
+
 def live_pairs(sq: int, sk: int, causal: bool, window) -> int:
     """(query, key) pairs a causal/windowed mask keeps."""
     import torch
@@ -1812,13 +1887,22 @@ def lm_kernel_timings(calls: dict, launches: dict, edge_errs: dict,
                       where: str = "main-path shape") -> list:
     """The attention kernels on the inputs the serve gave them (the last
     prefill layer's q/k/v; the last decode step's q and caches)."""
-    import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import decode_attention, flash_attention, ref
-    out = []
     require("flash_attention" in calls and "decode_attention" in calls,
             f"the LM path never reached the attention kernels: {set(calls)}")
-    (q, k, v), kw = calls["flash_attention"]
+    return [flash_serve_record(calls["flash_attention"], launches,
+                               edge_errs, where),
+            decode_record(calls["decode_attention"], launches, edge_errs,
+                          where)]
+
+
+def flash_serve_record(call, launches: dict, edge_errs: dict,
+                       where: str) -> dict:
+    """The flash kernel (L not stored) on one ``ops.flash_attention``
+    call's (B, S, H, D) q, k, v, beside its plain version and
+    ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref
+    (q, k, v), kw = call
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     g = hq // hkv
@@ -1830,7 +1914,7 @@ def lm_kernel_timings(calls: dict, launches: dict, edge_errs: dict,
     dt = str(q.dtype).split(".")[1]
     got = flash_attention.flash_attention_bhsd(qv, kv, vv, **fkw)
     err = attn_err(got.reshape(b * hq, sq, d), ref.flash_attention(
-        qb, kb, vb, **fkw), dt, "flash_attention (serve shape)")
+        qb, kb, vb, **fkw), dt, f"flash_attention ({where})")
     lib = None
     if fkw["window"] is None and fkw["softcap"] is None:
         def lib():
@@ -1840,14 +1924,23 @@ def lm_kernel_timings(calls: dict, launches: dict, edge_errs: dict,
     flops = 4.0 * d * b * hq * live_pairs(sq, sk, fkw["causal"],
                                           fkw["window"])
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    out.append(kernel_record(
+    return kernel_record(
         "flash_attention", launches, max(err, edge_errs["flash_attention"]),
         lambda: flash_attention.flash_attention_bhsd(qv, kv, vv, **fkw),
         lambda: ref.flash_attention(qb, kb, vb, **fkw), lib, nbytes, flops,
         dt, {"B*Hq": b * hq, "Sq": sq, "Sk": sk, "D": d, "g": g,
-             "causal": fkw["causal"], "dtype": dt}, where=where))
+             "causal": fkw["causal"], "dtype": dt}, where=where)
 
-    (q, kc, vc, kv_len), kw = calls["decode_attention"]
+
+def decode_record(call, launches: dict, edge_errs: dict, where: str) -> dict:
+    """The decode kernel on one ``ops.decode_attention`` call's q and
+    caches, beside its plain version and a masked
+    ``scaled_dot_product_attention``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention, ref
+    (q, kc, vc, kv_len), kw = call
+    dt = str(q.dtype).split(".")[1]
     b, _, hq, d = q.shape
     _, smax, hkv, _ = kc.shape
     g = hq // hkv
@@ -1862,7 +1955,7 @@ def lm_kernel_timings(calls: dict, launches: dict, edge_errs: dict,
     got = decode_attention.decode_attention_bhgd(q4, k4, v4, kl, **dkw)
     err = attn_err(got.reshape(b * hkv, g, d),
                    ref.decode_attention(qb, kb, vb, klb, **dkw), dt,
-                   "decode_attention (serve shape)")
+                   f"decode_attention ({where})")
     lib = None
     if dkw["window"] is None and dkw["softcap"] is None:
         live = (torch.arange(smax, device=q.device)[None, :]
@@ -1877,43 +1970,14 @@ def lm_kernel_timings(calls: dict, launches: dict, edge_errs: dict,
     slots = int((kv_len.clamp(max=smax) - lo).clamp(min=0).sum()) * hkv
     nbytes = (2 * slots * d + 2 * q.numel()) * q.element_size()
     flops = 4.0 * g * d * slots
-    out.append(kernel_record(
+    return kernel_record(
         "decode_attention", launches,
         max(err, edge_errs["decode_attention"]),
         lambda: decode_attention.decode_attention_bhgd(q4, k4, v4, kl, **dkw),
         lambda: ref.decode_attention(qb, kb, vb, klb, **dkw), lib, nbytes,
         flops, dt, {"B*Hkv": b * hkv, "G": g, "Smax": smax, "D": d,
                     "kv_len": [int(x) for x in kv_len], "dtype": dt},
-        where=where))
-    return out
-
-
-def hubert_flash_record(dev) -> dict:
-    """The flash kernel at hubert-xlarge's attention shape, seeded
-    inputs, beside its plain version and scaled_dot_product_attention.
-    No path of the port runs this model yet (its front end waits), so
-    the record's launches are 0."""
-    import torch.nn.functional as F
-    import torch
-    from repro_torch.kernels import flash_attention, ref
-    bh, s, d = (HUBERT_FLASH[k] for k in ("bh", "s", "d"))
-    q, k, v = (normal((bh, s, d), SEED + 120 + i, dev, torch.bfloat16)
-               for i in range(3))
-    kw = dict(g=1, causal=False)
-    err = attn_err(flash_attention.flash_attention_bhsd(q, k, v, **kw),
-                   ref.flash_attention(q, k, v, **kw), "bfloat16",
-                   "flash_attention (hubert-xlarge shape)")
-    q4, k4, v4 = (x[None] for x in (q, k, v))
-    nbytes = 4 * q.numel() * q.element_size()
-    flops = 4.0 * d * bh * s * s
-    return kernel_record(
-        "flash_attention", {"flash_attention": 0}, err,
-        lambda: flash_attention.flash_attention_bhsd(q, k, v, **kw),
-        lambda: ref.flash_attention(q, k, v, **kw),
-        lambda: F.scaled_dot_product_attention(q4, k4, v4), nbytes, flops,
-        "bfloat16", {"B*Hq": bh, "Sq": s, "Sk": s, "D": d, "g": 1,
-                     "causal": False, "dtype": "bfloat16"},
-        where="hubert-xlarge's shape")
+        where=where)
 
 
 # ---------------------------------------------------------------------------
@@ -1973,8 +2037,10 @@ def route_grads(cfg, dev, batch: int, seq: int, kernel_impl: str,
     global grad norm and each leaf's gradient must agree within ``tol``
     (``{"loss", "norm", "leaf"}``; default the TRAIN_* constants), and
     every leaf's gradient must be nonzero on both routes (the
-    attention's weights get theirs only through the backward). A MoE
-    model's aux loss must be finite and above 0 on both."""
+    attention's weights get theirs only through the backward), but for
+    the token table of a ``frames`` model (hubert), which its forward
+    never reads: its gradient must be 0 on both, as the reference's is.
+    A MoE model's aux loss must be finite and above 0 on both."""
     import torch
     from repro_torch.data.pipeline import batch_at
     from repro_torch.models import model, steps
@@ -1995,10 +2061,16 @@ def route_grads(cfg, dev, batch: int, seq: int, kernel_impl: str,
     (kl, kn, kg, ks), (pl, pn, pg, ps) = got["kernel"], got["plain"]
     require(all(math.isfinite(x) for x in (kl, kn, pl, pn)),
             f"train routes: non-finite loss or norm {kl} {kn} {pl} {pn}")
+    unused = {"embed"} if cfg.frontend == "frames" else set()
     worst, zero = 0.0, []
     for path, a, b in zip(model_paths(kg), model._leaves(kg),
                           model._leaves(pg)):
         scale = float(b.abs().max())
+        if path in unused:
+            require(float(a.abs().max()) == 0.0 and scale == 0.0,
+                    f"train routes: {path}, which the model does not read, "
+                    "has a gradient")
+            continue
         if float(a.abs().max()) == 0.0 or scale == 0.0:
             zero.append(path)
             continue
@@ -2008,7 +2080,8 @@ def route_grads(cfg, dev, batch: int, seq: int, kernel_impl: str,
            "loss_rel_err": abs(kl - pl) / abs(pl),
            "norm_rel_err": abs(kn - pn) / pn,
            "grad_leaf_rel_err": worst, "leaves": len(list(model._leaves(kg))),
-           "zero_grad_leaves": zero, "moe_aux": aux,
+           "zero_grad_leaves": zero, "unused_leaves": sorted(unused),
+           "moe_aux": aux,
            "compute_dtype": cfg.compute_dtype, "tolerances": tol,
            "kernel_s": ks, "plain_s": ps}
     log("train routes " + json.dumps(rec))
@@ -2044,7 +2117,7 @@ def train_path(dev, *, arch: str = TRAIN_ARCH, smoke: bool = False,
     (``route_grads`` under the config ``route_overrides``, within
     ``route_tol``; skipped without ``route_check``), then
     ``launch.train.train`` of ``arch`` for ``steps`` steps at full width
-    (the config's own remat, 2 microbatches and CE chunks). Prints each
+    (the config's own remat, microbatches and CE chunks). Prints each
     step's ms,
     tokens/s, MFU (``models.flops`` over the bf16 peak), peak MiB, loss,
     grad norm and, with ``counters`` (the flash wrappers, set to 0 before
@@ -2052,22 +2125,18 @@ def train_path(dev, *, arch: str = TRAIN_ARCH, smoke: bool = False,
     layers x microbatches forward (remat runs each layer's forward again
     in the backward) and attention layers x microbatches backward.
     ``capture``: a context around the training run (``LastFlash``)."""
-    import torch
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.launch.train import train
     from repro_torch.models import flops
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
-    on_cuda = dev.type == "cuda"
-    # "auto" is the kernel on CUDA; on the CPU (the rehearsal) name it
-    kernel_impl = "auto" if on_cuda else "kernel"
     route_rec = None
     if route_check:
         route_rec = route_grads(
             dataclasses.replace(cfg, **(route_overrides or {})), dev, batch,
-            seq, kernel_impl, route_tol)
+            seq, kernel_impl(dev), route_tol)
         release(dev)
 
-    micro = 2
+    micro = cfg.train_microbatches
     mult = 2 if cfg.remat else 1
     n_attn = sum(cfg.layer_spec(i).mixer.startswith("attn")
                  for i in range(cfg.num_layers))
@@ -2080,27 +2149,25 @@ def train_path(dev, *, arch: str = TRAIN_ARCH, smoke: bool = False,
         rec = {"step": step, "ms": seconds * 1e3,
                "tokens_per_s": batch * seq / seconds,
                "mfu": model_flops / seconds / PEAK_FLOPS["bfloat16"],
-               "peak_mib": (torch.cuda.max_memory_allocated(dev) / 2**20
-                            if on_cuda else 0.0),
+               "peak_mib": peak_mib(dev),
                "loss": float(metrics["loss"]),
                "grad_norm": float(metrics["grad_norm"])}
         if counters:
             rec["launches"] = {k: w.launches for k, w in counters.items()}
             for w in counters.values():
                 w.launches = 0
-        if on_cuda:
-            torch.cuda.reset_peak_memory_stats(dev)
+        reset_peak(dev)
         log(f"{tag} step " + json.dumps(rec))
         recs.append(rec)
 
     for w in (counters or {}).values():
         w.launches = 0
-    if on_cuda:
-        torch.cuda.reset_peak_memory_stats(dev)
+    reset_peak(dev)
     with capture if capture is not None else contextlib.nullcontext():
         out = train(arch, smoke=smoke, steps=steps, batch=batch, seq=seq,
                     seed=SEED, device=dev, num_microbatches=micro,
-                    log_every=steps, overrides={"attn_impl": kernel_impl},
+                    log_every=steps,
+                    overrides={"attn_impl": kernel_impl(dev)},
                     on_step=on_step)
     del out
     release(dev)
@@ -2271,22 +2338,18 @@ def kernels_run(fn) -> set:
 
 
 def train_kernel_timing(call, launches: dict, edge_errs: dict,
-                        where: str = "training shape",
-                        profile: bool = True) -> tuple[dict, dict]:
+                        templates: "TemplateCheck",
+                        where: str = "training shape") -> tuple[dict, dict]:
     """The backward kernel on what one layer of the training run gave the
     flash forward kernel (``LastFlash``: q, k, v, its output O and L) and
     a seeded dO, timed beside its plain version and the autograd
     backward of ``scaled_dot_product_attention`` on the same inputs. The
-    record names the kernel templates the backward ran, with their
-    registers and spills from the build's ptxas log; in bf16 at head_dim
-    64, 80 or 128 they must be the tensor-core pair. The forward kernel
-    at the same inputs, with L stored (training) and not (serve), is
-    timed and logged beside it, and with L stored recorded beside its
-    plain version and ``scaled_dot_product_attention``. Returns the
-    (backward, forward) records. Without ``profile`` the templates are
-    not read: phase 10 runs it after phase 9's two profiler sessions,
-    and a third session in the process returned no CUDA event on the
-    H100 machine."""
+    inputs go to ``templates``, which reads later which kernel templates
+    the backward and the forward ran. The forward kernel at the same
+    inputs, with L stored (training) and not (serve), is timed and logged
+    beside it, and with L stored recorded beside its plain version and
+    ``scaled_dot_product_attention``. Returns the (backward, forward)
+    records."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention, ref
@@ -2304,15 +2367,6 @@ def train_kernel_timing(call, launches: dict, edge_errs: dict,
         *flat[:3], return_lse=True, **kw)[1], dt,
         "flash_attention (training shape)")
     err, sizes = train_bwd_check(q, k, v, o, lse, do, kw)
-    templates = None
-    if profile:
-        names = kernels_run(lambda: flash_attention.flash_attention_bwd_bhsd(
-            q, k, v, o, do, lse, **kw))
-        templates = template_report(names, "flash_attention_bwd")
-        want = flash_attention.bwd_kernels(q.dtype, d)
-        ran = {t.split("<")[0] for t in templates}
-        require(ran == set(want), f"the backward at the training shape ran "
-                f"{sorted(templates)}, not {want}")
     # the same inputs in float32, through both float32 kernels
     q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
     o32, lse32 = flash_attention.flash_attention_bhsd(q32, k32, v32,
@@ -2323,12 +2377,8 @@ def train_kernel_timing(call, launches: dict, edge_errs: dict,
     fwd = {"serve_ms": cuda_ms(lambda: flash_attention.flash_attention_bhsd(
                q, k, v, **kw)),
            "train_ms": cuda_ms(lambda: flash_attention.flash_attention_bhsd(
-               q, k, v, return_lse=True, **kw)),
-           "templates": template_report(kernels_run(
-               lambda: flash_attention.flash_attention_bhsd(
-                   q, k, v, return_lse=True, **kw)), "flash_attention")
-           if profile else None}
-    log("kernel flash_attention at training shape, L off (serve) and on "
+               q, k, v, return_lse=True, **kw))}
+    log(f"kernel flash_attention at {where}, L off (serve) and on "
         "(training): " + json.dumps(fwd))
     lib = None
     if kw["window"] is None and kw["softcap"] is None:
@@ -2354,8 +2404,7 @@ def train_kernel_timing(call, launches: dict, edge_errs: dict,
                                                          **kw),
         lambda: ref.flash_attention_bwd(*flat, **kw),
         lib, nbytes, flops, dt,
-        {**shape, "lse_max_abs_err": lse_err, "templates": templates,
-         **sizes}, where=where)
+        {**shape, "lse_max_abs_err": lse_err, **sizes}, where=where)
     # the forward with L stored, as training runs it
     fwd_err = attn_err(o.reshape(flat[0].shape),
                        ref.flash_attention(*flat[:3], **kw), dt,
@@ -2375,7 +2424,83 @@ def train_kernel_timing(call, launches: dict, edge_errs: dict,
         (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         + lse.numel() * 4, 4.0 * d * b * hq * pairs, dt,
         {**shape, "lse": True}, where=where + ", L stored")
+    templates.add(where, bwd, fwd_rec, (q, k, v, o, lse, do), kw)
     return bwd, fwd_rec
+
+
+class TemplateCheck:
+    """Which kernel templates the flash backward and the forward with L
+    ran at each training shape, read by ``torch.profiler`` in a process
+    of its own for each shape (``template_probe``; a third profiler
+    session in one process returned no CUDA event on the H100 machine),
+    all started together at the end, on the layer inputs the training
+    run gave the kernels. Each backward record gets the templates it ran
+    with their ptxas registers and spills; in bf16 at head_dim 64, 80 or
+    128 they must be the tensor-core pair (``bwd_kernels``)."""
+
+    def __init__(self):
+        self.tmp = tempfile.TemporaryDirectory()
+        self.jobs: list = []
+
+    def add(self, where: str, bwd: dict, fwd: dict, tensors: tuple,
+            kw: dict) -> None:
+        import torch
+        path = Path(self.tmp.name) / f"{len(self.jobs)}.pt"
+        torch.save({"tensors": [t.detach() for t in tensors], "kw": kw},
+                   path)
+        self.jobs.append((where, bwd, fwd, tensors[0].dtype,
+                          tensors[0].shape[3], path))
+
+    def run(self) -> None:
+        from repro_torch.kernels import flash_attention
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--templates",
+             str(path)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for *_, path in self.jobs]
+        try:
+            outs = [p.communicate(timeout=300) for p in procs]
+            for (where, bwd, fwd, dtype, d, _), p, (out, err) in zip(
+                    self.jobs, procs, outs):
+                require(p.returncode == 0, f"template probe at {where} "
+                        f"failed ({p.returncode}): {err[-2000:]}")
+                names = json.loads(out.strip().splitlines()[-1])
+                bwd["templates"] = template_report(names["bwd"],
+                                                   "flash_attention_bwd")
+                fwd["templates"] = template_report(names["fwd"],
+                                                   "flash_attention")
+                log(f"kernel templates at {where}: " + json.dumps(
+                    {"bwd": bwd["templates"], "fwd": fwd["templates"]}))
+                want = flash_attention.bwd_kernels(dtype, d)
+                ran = {t.split("<")[0] for t in bwd["templates"]}
+                require(ran == set(want), f"the backward at {where} ran "
+                        f"{sorted(bwd['templates'])}, not {want}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            self.tmp.cleanup()
+
+
+def template_probe(path: Path) -> int:
+    """``--templates``: the flash backward, then the forward with L, on
+    the inputs ``TemplateCheck.add`` saved, each under its own profiler
+    session; prints the CUDA kernels each launched as one JSON line."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import flash_attention
+    saved = torch.load(path, map_location="cuda")
+    q, k, v, o, lse, do = saved["tensors"]
+    kw = saved["kw"]
+    names = {
+        "bwd": sorted(kernels_run(
+            lambda: flash_attention.flash_attention_bwd_bhsd(
+                q, k, v, o, do, lse, **kw))),
+        "fwd": sorted(kernels_run(
+            lambda: flash_attention.flash_attention_bhsd(
+                q, k, v, return_lse=True, **kw)))}
+    print(json.dumps(names))
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -2453,15 +2578,8 @@ def moe_path(dev, *, smoke: bool = False, requests: int = LM_REQUESTS,
     ``counters`` holding the flash pair too; ``train_capture`` around
     the run)."""
     import torch
-    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.launch.serve import serve_batch
-    from repro_torch.models import model
-    cfg = get_smoke_config(MOE_ARCH) if smoke else get_config(MOE_ARCH)
-    t0 = time.perf_counter()
-    params = model.init_params(cfg, SEED, dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    log_model("moe", MOE_ARCH, cfg, params, dev, t0)
+    cfg, params = init_model("moe", MOE_ARCH, dev, smoke)
     kw = dict(smoke=smoke, num_requests=requests, prompt_len=prompt_len,
               gen_len=gen_len, seed=SEED, device=dev, params=params)
     with RouteLog() as routes:
@@ -2553,15 +2671,7 @@ def ssm_path(dev, *, smoke: bool = False, requests: int = LM_REQUESTS,
     batches are fresh uniform random tokens each step, with nothing to
     learn but the logits' scale: their losses need not fall in 4
     steps.)"""
-    import torch
-    from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.models import model
-    cfg = get_smoke_config(SSM_ARCH) if smoke else get_config(SSM_ARCH)
-    t0 = time.perf_counter()
-    params = model.init_params(cfg, SEED, dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    log_model("ssm", SSM_ARCH, cfg, params, dev, t0)
+    cfg, params = init_model("ssm", SSM_ARCH, dev, smoke)
     kw = dict(smoke=smoke, num_requests=requests, prompt_len=prompt_len,
               gen_len=gen_len, seed=SEED, device=dev, params=params)
     runs = serve_kernel_runs(SSM_ARCH, cfg, dev, kw, counters, None,
@@ -2614,6 +2724,261 @@ def fixed_batch_fit(cfg, dev, batch: int, seq: int) -> list[float]:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the vlm and audio front ends
+# ---------------------------------------------------------------------------
+
+def vlm_serve(cfg, cparams, batch: dict, gen_len: int, dev,
+              feed=None) -> dict:
+    """``steps.make_prefill_step`` over ``batch`` (patches, tokens, M-RoPE
+    positions), its attention caches grown by ``gen_len`` slots, then
+    ``gen_len`` tokens through ``steps.greedy_decode``, the first fed the
+    prefill's argmax at position S. With ``feed`` (B, gen_len) the
+    decode steps go through ``steps.make_decode_step`` fed those tokens
+    instead (teacher forcing) and their logits are kept. Returns
+    ``serve_batch``'s keys."""
+    import torch
+    from repro_torch.models import model, steps
+    device_sync(dev)
+    t0 = time.perf_counter()
+    logits, pre = steps.make_prefill_step(cfg)(cparams, batch)
+    b, s = pre[0]["k"].shape[:2]
+    caches = model.init_cache(cfg, b, s + gen_len, dev)
+    for dst, src in zip(caches, pre):
+        dst["k"][:, :s] = src["k"]
+        dst["v"][:, :s] = src["v"]
+    del pre
+    device_sync(dev)
+    t_prefill = time.perf_counter() - t0
+    first = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    kv_len = torch.full((b,), s + 1, dtype=torch.int32, device=dev)
+    t0 = time.perf_counter()
+    step_logits = None
+    if feed is None:
+        toks, caches, _ = steps.greedy_decode(cfg, cparams, caches, first,
+                                              kv_len, gen_len)
+    else:
+        decode = steps.make_decode_step(cfg)
+        tok, outs = first, []
+        for t in range(gen_len):
+            lg, caches = decode(cparams, caches, tok, kv_len + t)
+            outs.append(lg[:, -1])
+            tok = feed[:, t:t + 1]
+        step_logits = torch.stack(outs, 1)
+        toks = torch.argmax(step_logits, -1)
+    device_sync(dev)
+    t_decode = time.perf_counter() - t0
+    return {"generated": toks.cpu().numpy(), "prefill_s": t_prefill,
+            "decode_s": t_decode,
+            "tok_per_s": b * gen_len / max(t_decode, 1e-9),
+            "prefill_logits": logits, "step_logits": step_logits}
+
+
+def vlm_routes(cfg, params, batch: dict, gen_len: int, dev, dtype: str,
+               tokens, atol: float | None, ref: dict | None = None
+               ) -> tuple[dict, dict]:
+    """Kernel route against plain route (dense attention) in ``dtype``,
+    both teacher-forced with ``tokens``: prefill and step logits within
+    ``atol`` (printed only where it is None). ``ref``: the float32 plain
+    route's outputs, against which each route's distance is printed too.
+    Returns (the record, each route's outputs)."""
+    import torch
+    from repro_torch.models import model
+    feed = torch.as_tensor(tokens, dtype=torch.int32, device=dev)
+    out, ms = {}, {}
+    for route, impl in (("kernel", kernel_impl(dev)), ("plain", "dense")):
+        c = dataclasses.replace(cfg, compute_dtype=dtype, attn_impl=impl)
+        cp = model.compute_params(c, params)
+        out[route] = vlm_serve(c, cp, batch, gen_len, dev, feed=feed)
+        ms[route] = {"prefill_ms": out[route]["prefill_s"] * 1e3,
+                     "decode_ms_per_token":
+                         out[route]["decode_s"] * 1e3 / gen_len}
+        del cp
+        release(dev)
+    b = tokens.shape[0]
+    shapes = {"prefill_logits": (b, 1, cfg.vocab_size),
+              "step_logits": (b, gen_len, cfg.vocab_size)}
+    errs = logit_errs(out["kernel"], out["plain"], shapes, f"vlm {dtype}")
+    rec = {"dtype": dtype, "logit_max_abs_err": errs, "logit_atol": atol,
+           "logit_abs_max": {k: float(out["plain"][k].abs().max())
+                             for k in shapes},
+           "kernel_argmax_is_fed": float(
+               (out["kernel"]["generated"] == tokens).mean()),
+           "plain_argmax_agrees": float(
+               (out["plain"]["generated"] == tokens).mean()), "ms": ms}
+    if ref is not None:
+        rec["from_float32_plain"] = {
+            route: logit_errs(out[route], ref, shapes, f"vlm {dtype}")
+            for route in out}
+    log("vlm routes " + json.dumps(rec))
+    if atol is not None:
+        require(max(errs.values()) <= atol, f"vlm kernel and plain routes "
+                f"disagree in {dtype}: {errs} > {atol}")
+    return rec, out
+
+
+def vlm_path(dev, *, smoke: bool = False, batch: int = TRAIN_BATCH,
+             seq: int = TRAIN_SEQ, gen_len: int = LM_GEN,
+             steps: int = TRAIN_STEPS, counters: dict | None = None,
+             capture=None, train_capture=None) -> dict:
+    """Phase 12, VLM_ARCH at full width: batch 0 of ``data.pipeline``
+    (``batch`` x ``seq`` positions, a quarter of them patches) prefilled
+    and ``gen_len`` tokens decoded greedily, cold and warm (``counters``:
+    the flash and decode wrappers, once per layer and once per layer per
+    token; ``capture`` sees the cold serve's calls), the cold and warm
+    tokens equal; then the kernel route against the plain route, teacher-
+    forced with the warm serve's tokens: in float32 within
+    VLM_F32_LOGIT_ATOL, in bf16 printed, with each bf16 route's distance
+    from the float32 plain route (the kernel route fed its own tokens
+    must give them back); then the float32 training routes and
+    ``launch.train.train`` (``train_path``)."""
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.models import model
+    cfg, params = init_model("vlm", VLM_ARCH, dev, smoke)
+    bt = batch_at(cfg, 0, batch=batch, seq=seq, seed=SEED, device=dev)
+    bt.pop("labels")
+    want = {**{k: 0 for k in counters or {}},
+            "flash_attention": cfg.num_layers,
+            "decode_attention": cfg.num_layers * gen_len}
+    cparams = model.compute_params(cfg, params)
+    runs = {}
+    for label in ("cold", "warm"):
+        for w in (counters or {}).values():
+            w.launches = 0
+        reset_peak(dev)
+        with capture if capture is not None and label == "cold" \
+                else contextlib.nullcontext():
+            out = vlm_serve(cfg, cparams, bt, gen_len, dev)
+        rec = {"arch": VLM_ARCH, "route": "kernel", "run": label,
+               "batch": batch, "patches": int(bt["patches"].shape[1]),
+               "tokens": int(bt["tokens"].shape[1]),
+               "prefill_ms": out["prefill_s"] * 1e3,
+               "decode_ms_per_token": out["decode_s"] * 1e3 / gen_len,
+               "tok_per_s": out["tok_per_s"], "peak_mib": peak_mib(dev)}
+        if counters:
+            rec["launches"] = {k: w.launches for k, w in counters.items()}
+            require(rec["launches"] == want, f"vlm {label} serve launched "
+                    f"{rec['launches']}, want {want}")
+        log("vlm serve " + json.dumps(rec))
+        runs[label] = (rec, out)
+    tokens = runs["warm"][1]["generated"]
+    require(tokens.shape == (batch, gen_len)
+            and bool((runs["cold"][1]["generated"] == tokens).all()),
+            "vlm: the cold and warm serves generated otherwise")
+    del cparams, runs["cold"], out
+    release(dev)
+    f32, f32_out = vlm_routes(cfg, params, bt, gen_len, dev, "float32",
+                              tokens, VLM_F32_LOGIT_ATOL)
+    bf16, _ = vlm_routes(cfg, params, bt, gen_len, dev, "bfloat16", tokens,
+                         None, ref=f32_out["plain"])
+    require(bf16["kernel_argmax_is_fed"] == 1.0, "vlm: the kernel route "
+            "fed its own greedy tokens did not give them back")
+    del params, bt, f32_out
+    release(dev)
+    trained = train_path(dev, arch=VLM_ARCH, smoke=smoke, steps=steps,
+                         batch=batch, seq=seq, counters=counters,
+                         capture=train_capture,
+                         route_overrides={"compute_dtype": "float32"},
+                         route_tol=FRONTEND_TRAIN_TOL, tag="vlm train")
+    return {"warm": runs["warm"][0], "bfloat16": bf16, "float32": f32,
+            "train": trained}
+
+
+def audio_forward(cfg, cparams, frames, dev) -> tuple:
+    """``model.forward`` over ``frames`` and ``logits_from_hidden`` at
+    every frame, no grad: (logits (B, S, V) float32, seconds)."""
+    import torch
+    from repro_torch.models import model
+    device_sync(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        h, _ = model.forward(cfg, cparams, {"frames": frames})
+        logits = model.logits_from_hidden(cfg, cparams, h)
+    device_sync(dev)
+    return logits, time.perf_counter() - t0
+
+
+def audio_path(dev, *, smoke: bool = False, batch: int = TRAIN_BATCH,
+               seq: int = TRAIN_SEQ, steps: int = TRAIN_STEPS,
+               counters: dict | None = None, capture=None,
+               train_capture=None) -> dict:
+    """Phase 12, AUDIO_ARCH at full width: the frames of batch 0 of
+    ``data.pipeline`` through ``model.forward`` and ``logits_from_hidden``,
+    cold and warm (``counters``: the flash wrapper, once per layer, no
+    decode; ``capture`` sees the cold run's calls); the kernel route
+    against the plain route in float32 (within AUDIO_F32_LOGIT_ATOL) and
+    bf16 (printed, with each bf16 route's distance from the float32
+    plain route); then the float32 training routes and
+    ``launch.train.train`` (``train_path``)."""
+    import torch
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.models import model
+    cfg, params = init_model("audio", AUDIO_ARCH, dev, smoke)
+    frames = batch_at(cfg, 0, batch=batch, seq=seq, seed=SEED,
+                      device=dev)["frames"]
+    want = {**{k: 0 for k in counters or {}},
+            "flash_attention": cfg.num_layers}
+    cparams = model.compute_params(cfg, params)
+    runs = {}
+    for label in ("cold", "warm"):
+        for w in (counters or {}).values():
+            w.launches = 0
+        reset_peak(dev)
+        with capture if capture is not None and label == "cold" \
+                else contextlib.nullcontext():
+            logits, sec = audio_forward(cfg, cparams, frames, dev)
+        rec = {"arch": AUDIO_ARCH, "route": "kernel", "run": label,
+               "batch": batch, "frames": seq, "ms": sec * 1e3,
+               "frames_per_s": batch * seq / sec, "peak_mib": peak_mib(dev)}
+        if counters:
+            rec["launches"] = {k: w.launches for k, w in counters.items()}
+            require(rec["launches"] == want, f"audio {label} forward "
+                    f"launched {rec['launches']}, want {want}")
+        log("audio forward " + json.dumps(rec))
+        runs[label] = (rec, logits)
+    require(bool(torch.equal(runs["cold"][1], runs["warm"][1])),
+            "audio: the cold and warm forwards differ")
+    del cparams, runs["cold"], logits
+    release(dev)
+    checks, shapes = {}, {"logits": (batch, seq, cfg.vocab_size)}
+    for dtype, atol in (("float32", AUDIO_F32_LOGIT_ATOL),
+                        ("bfloat16", None)):
+        out = {}
+        for route, impl in (("kernel", kernel_impl(dev)),
+                            ("plain", "dense")):
+            c = dataclasses.replace(cfg, compute_dtype=dtype,
+                                    attn_impl=impl)
+            cp = model.compute_params(c, params)
+            out[route] = {"logits": audio_forward(c, cp, frames, dev)[0]}
+            del cp
+            release(dev)
+        errs = logit_errs(out["kernel"], out["plain"], shapes,
+                          f"audio {dtype}")
+        checks[dtype] = {"logit_max_abs_err": errs["logits"],
+                         "logit_atol": atol, "logit_abs_max": float(
+                             out["plain"]["logits"].abs().max())}
+        if dtype == "float32":
+            ref = out["plain"]
+        else:
+            checks[dtype]["from_float32_plain"] = {
+                route: logit_errs(out[route], ref, shapes,
+                                  f"audio {dtype}")["logits"]
+                for route in out}
+        del out
+        release(dev)
+    log("audio routes " + json.dumps(checks))
+    require(checks["float32"]["logit_max_abs_err"] <= AUDIO_F32_LOGIT_ATOL,
+            f"audio kernel and plain routes disagree in float32: {checks}")
+    del params, frames, ref
+    release(dev)
+    trained = train_path(dev, arch=AUDIO_ARCH, smoke=smoke, steps=steps,
+                         batch=batch, seq=seq, counters=counters,
+                         capture=train_capture,
+                         route_overrides={"compute_dtype": "float32"},
+                         route_tol=FRONTEND_TRAIN_TOL, tag="audio train")
+    return {"warm": runs["warm"][0], "routes": checks, "train": trained}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -2625,6 +2990,8 @@ def main() -> int:
         print(f"chip_smoke: no src/repro_torch under {ROOT}; run it from "
               "a checkout of the repository", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--templates"]:
+        return template_probe(Path(sys.argv[2]))
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import Executor
     from repro_torch.core.queries import GROUPED
@@ -2701,7 +3068,6 @@ def main() -> int:
     records = {r["name"]: r for r in
                main_shape_timings(capture.best, capture.agg_calls,
                                   launches, edge_errs)}
-    hubert_flash_record(dev)
     del ex, capture
     release(dev)
 
@@ -2762,6 +3128,7 @@ def main() -> int:
     release(dev)
 
     t0 = time.perf_counter()
+    templates = TemplateCheck()
     last_flash = LastFlash()
     trained = train_path(dev, counters=wrappers, capture=last_flash)
     launches["flash_attention_bwd"] = trained["launches"][
@@ -2771,7 +3138,7 @@ def main() -> int:
     # their paths gave them
     extra_records = []
     records["flash_attention_bwd"], fwd_train = train_kernel_timing(
-        last_flash.call, trained["launches"], edge_errs)
+        last_flash.call, trained["launches"], edge_errs, templates)
     extra_records.append(fwd_train)
     del last_flash
     release(dev)
@@ -2788,8 +3155,8 @@ def main() -> int:
     extra_records += lm_kernel_timings(last.calls, moe["warm"]["launches"],
                                        edge_errs, where=f"{MOE_ARCH} serve")
     bwd, fwd_train = train_kernel_timing(
-        last_flash.call, moe["train"]["launches"], edge_errs,
-        where=f"{MOE_ARCH} training", profile=False)
+        last_flash.call, moe["train"]["launches"], edge_errs, templates,
+        where=f"{MOE_ARCH} training")
     extra_records += [fwd_train, bwd]
     del last, last_flash, moe
     release(dev)
@@ -2798,6 +3165,38 @@ def main() -> int:
     ssm_path(dev, counters=attn)
     log(f"ssm path ok ({time.perf_counter() - t0:.1f} s)")
     release(dev)
+
+    t0 = time.perf_counter()
+    last, last_flash = LastCall(ops), LastFlash()
+    vlm = vlm_path(dev, counters=attn, capture=last,
+                   train_capture=last_flash)
+    log(f"vlm path ok ({time.perf_counter() - t0:.1f} s)")
+    extra_records += lm_kernel_timings(last.calls, vlm["warm"]["launches"],
+                                       edge_errs, where=f"{VLM_ARCH} serve")
+    extra_records += train_kernel_timing(
+        last_flash.call, vlm["train"]["launches"], edge_errs, templates,
+        where=f"{VLM_ARCH} training")[::-1]
+    del last, last_flash, vlm
+    release(dev)
+    t0 = time.perf_counter()
+    last, last_flash = LastCall(ops), LastFlash()
+    audio = audio_path(dev, counters=attn, capture=last,
+                       train_capture=last_flash)
+    log(f"audio path ok ({time.perf_counter() - t0:.1f} s)")
+    require(set(last.calls) == {"flash_attention"},
+            f"the audio forward called {set(last.calls)}")
+    extra_records.append(flash_serve_record(
+        last.calls["flash_attention"], audio["warm"]["launches"], edge_errs,
+        where=f"{AUDIO_ARCH} forward"))
+    extra_records += train_kernel_timing(
+        last_flash.call, audio["train"]["launches"], edge_errs, templates,
+        where=f"{AUDIO_ARCH} training")[::-1]
+    del last, last_flash, audio
+    release(dev)
+
+    t0 = time.perf_counter()
+    templates.run()
+    log(f"kernel templates read ({time.perf_counter() - t0:.1f} s)")
     kernels = [records[name] for name in KERNELS] + extra_records
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

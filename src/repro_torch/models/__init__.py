@@ -1,3 +1,3 @@
-"""The LM stack of the port: layers, attention, the composable model and
-its serve steps (dense blocks; ``mamba``, ``moe``, M-RoPE and the
-non-token front ends wait for their own slices)."""
+"""The LM stack of the port: layers, attention, the composable model
+(dense and MoE MLPs, attention and Mamba-2 mixers, RoPE and M-RoPE, the
+token, frame and patch front ends), its train and serve steps."""

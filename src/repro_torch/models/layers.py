@@ -6,9 +6,6 @@ Parameters are nested dicts of tensors; every layer is
 drawn) and device. They draw other numbers than ``jax.random`` from the
 same seed; tests carry the JAX package's weights across instead
 (``models/convert.py``).
-
-``apply_mrope`` is not here yet: it belongs to the VLM slice
-(ROADMAP.md, item 8.4).
 """
 from __future__ import annotations
 
@@ -79,6 +76,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     inv = rope_freqs(x.shape[-1], theta, x.device)
     angles = positions[..., None].float() * inv        # (..., seq, half)
     cos = torch.cos(angles)[..., None, :]              # (..., seq, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: tuple[int, ...]) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL). x: (..., seq, heads, head_dim);
+    positions: (3, ..., seq) for (t, h, w).
+
+    ``sections`` splits the head_dim // 2 rotary channels among the
+    three position components, in order; sum(sections) == head_dim // 2.
+    The reference computes all three components' angles in float32 and
+    picks one per channel with a one-hot sum; computing each channel's
+    angle from its own component only gives the same float32 values.
+    The split is by Python ints: nothing is copied to the device or read
+    back (a tensor of ``sections`` would cost a sync a call, two a layer
+    in every decode step)."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to {half}")
+    inv = rope_freqs(x.shape[-1], theta, x.device)
+    parts, lo = [], 0
+    for comp, n in enumerate(sections):
+        parts.append(positions[comp][..., None].float() * inv[lo:lo + n])
+        lo += n
+    angles = torch.cat(parts, dim=-1)                 # (..., seq, half)
+    cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

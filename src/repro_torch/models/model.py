@@ -1,6 +1,8 @@
-"""Composable decoder LM, ported from ``repro/models/model.py``:
-attention and Mamba-2 mixers, dense and MoE MLPs, the serve path
-(prefill, decode with per-layer caches) and the forward of training.
+"""Composable decoder/encoder LM, ported from ``repro/models/model.py``:
+attention (RoPE, M-RoPE or none) and Mamba-2 mixers, dense and MoE
+MLPs, the ``tokens``, ``frames`` and ``patches`` front ends, the serve
+path (prefill, decode with per-layer caches) and the forward of
+training.
 
 A model is a stack of ``num_layers`` blocks whose specs cycle through a
 period ``pattern`` of ``BlockSpec``s, as in the JAX package. Where JAX
@@ -17,10 +19,14 @@ Left out, because it has no meaning on one card: ``_seq_constraint``
 (a GSPMD sharding constraint). ``_remat`` becomes
 ``torch.utils.checkpoint`` around each layer where ``cfg.remat`` is on
 and grad is enabled (training); ``remat_policy="dots"`` (save the
-matmul outputs) has no exact counterpart and raises. Not ported yet,
-and raising ``NotImplementedError`` naming their ROADMAP item
-(ROADMAP.md, open item 8.4): M-RoPE and the ``frames``/``patches``
-front ends.
+matmul outputs) has no exact counterpart and raises.
+
+The front ends take what the reference's stubs give: ``frames``
+(B, S, frontend_dim) or ``patches`` (B, P, frontend_dim), float32
+embeddings of a waveform or an image that ``frontend_proj``
+(frontend_dim, d_model) projects into the model (``data/pipeline.py``
+draws them from the seed). The ``patches`` rows come before the token
+rows, and M-RoPE ``positions`` are (3, B, S) for (t, h, w).
 
 The JAX steps cast the block weights to the compute dtype inside every
 jitted call (``_cast_blocks``): every float32 leaf of ndim > 1 in its
@@ -46,9 +52,9 @@ from repro_torch.core.executor import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import (apply_rope, dense_init, embed_init,
-                                       mlp, mlp_init, rmsnorm, rmsnorm_init,
-                                       softcap)
+from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init,
+                                       embed_init, mlp, mlp_init, rmsnorm,
+                                       rmsnorm_init, softcap)
 
 Params = dict[str, Any]
 
@@ -151,18 +157,11 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet
-    (module docstring)."""
-    todo = "not ported yet (ROADMAP.md, open item 8: {})"
+    """Raise ``ValueError`` for a block spec the model does not know."""
     for spec in cfg.pattern:
         if spec.mixer not in ("attn", "attn_local", "mamba") \
                 or spec.mlp not in ("dense", "moe", "none"):
             raise ValueError(spec)
-    if cfg.mrope_sections:
-        raise NotImplementedError("M-RoPE " + todo.format("vlm/audio"))
-    if cfg.frontend != "tokens":
-        raise NotImplementedError(f"{cfg.frontend} front end "
-                                  + todo.format("vlm/audio"))
 
 
 def _leaves(tree):
@@ -227,7 +226,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
     """Seeded random weights on ``device`` (``None``: the GPU; one
     ``torch.Generator`` of that device, drawn layer by layer):
     ``{"embed", "layers": [one dict per layer], "final_norm",
-    "lm_head"?}``."""
+    "frontend_proj"?, "lm_head"?}``."""
     check_supported(cfg)
     device = resolve_device(device)
     gen = None
@@ -242,6 +241,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
         "layers": layers,
         "final_norm": rmsnorm_init(cfg.d_model, cfg.pdtype, device),
     }
+    if cfg.frontend in ("frames", "patches") and cfg.frontend_dim:
+        p["frontend_proj"] = dense_init(gen, cfg.frontend_dim, cfg.d_model,
+                                        cfg.pdtype, device)
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
                                   cfg.pdtype, device)
@@ -308,14 +310,25 @@ def _qkv(cfg: ModelConfig, p: Params, h: torch.Tensor):
     return q, k, v
 
 
+def _rotate(cfg: ModelConfig, spec: BlockSpec, x: torch.Tensor,
+            positions: torch.Tensor) -> torch.Tensor:
+    """M-RoPE where the config has sections (positions (3, B, S)), else
+    RoPE where it uses rotary positions (positions (B, S)), else x."""
+    if cfg.mrope_sections:
+        return apply_mrope(x, positions, _theta(cfg, spec),
+                           cfg.mrope_sections)
+    if cfg.use_rope:
+        return apply_rope(x, positions, _theta(cfg, spec))
+    return x
+
+
 def _attn_block(cfg: ModelConfig, spec: BlockSpec, p: Params,
                 h: torch.Tensor, positions: torch.Tensor):
     b, s, _ = h.shape
     local = spec.mixer == "attn_local"
     q, k, v = _qkv(cfg, p, h)
-    if cfg.use_rope:
-        q = apply_rope(q, positions, _theta(cfg, spec))
-        k = apply_rope(k, positions, _theta(cfg, spec))
+    q = _rotate(cfg, spec, q, positions)
+    k = _rotate(cfg, spec, k, positions)
     out = attn_lib.attention(
         q, k, v, causal=cfg.causal, window=cfg.window if local else None,
         logit_softcap=cfg.attn_logit_softcap or None,
@@ -367,20 +380,47 @@ def _apply_block_with_cache(cfg: ModelConfig, spec: BlockSpec, p: Params,
     return h, aux, cache
 
 
-def _embed_inputs(cfg: ModelConfig, params: Params, batch: dict):
-    """(h (B, S, d), positions (B, S)). Rows are gathered, then cast:
-    the same values as the JAX order (cast the table, then gather) at a
-    fraction of the traffic."""
-    cd = cfg.cdtype
-    tokens = batch["tokens"]
-    h = params["embed"][tokens.long()].to(cd)
+def _scaled(cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     if cfg.embed_scale:
-        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=cd)
+        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.cdtype)
+    return h
+
+
+def _embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor):
+    """(B, S, d) token rows in the compute dtype. Rows are gathered, then
+    cast: the same values as the JAX order (cast the table, then gather)
+    at a fraction of the traffic."""
+    return params["embed"][tokens.long()].to(cfg.cdtype)
+
+
+def _project(cfg: ModelConfig, params: Params, x: torch.Tensor):
+    """Front-end embeddings (B, S, frontend_dim) through
+    ``frontend_proj``, both cast first: the product runs in the compute
+    dtype, as the reference's does."""
+    cd = cfg.cdtype
+    return x.to(cd) @ params["frontend_proj"].to(cd)
+
+
+def _embed_inputs(cfg: ModelConfig, params: Params, batch: dict):
+    """(h (B, S, d), positions): (B, S), or (3, B, S) with M-RoPE. The
+    ``patches`` rows come first, then the tokens'."""
+    if cfg.frontend == "tokens":
+        h = _embed_tokens(cfg, params, batch["tokens"])
+    elif cfg.frontend == "frames":
+        h = _project(cfg, params, batch["frames"])
+    elif cfg.frontend == "patches":
+        h = torch.cat([_project(cfg, params, batch["patches"]),
+                       _embed_tokens(cfg, params, batch["tokens"])], 1)
+    else:
+        raise ValueError(cfg.frontend)
+    h = _scaled(cfg, h)
     if "positions" in batch:
         positions = batch["positions"]
     else:
-        b, s = tokens.shape
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        b, s = h.shape[:2]
+        positions = torch.arange(s, device=h.device).expand(b, s)
+        if cfg.mrope_sections:
+            positions = positions.expand(3, b, s)
     return h, positions
 
 
@@ -491,10 +531,11 @@ def _attn_decode_block(cfg: ModelConfig, spec: BlockSpec, p: Params,
     b, s, _ = h.shape  # s == 1
     local = spec.mixer == "attn_local"
     q, k, v = _qkv(cfg, p, h)
-    if cfg.use_rope:
-        pos = (kv_len - 1)[:, None]          # (B, 1) current position
-        q = apply_rope(q, pos, _theta(cfg, spec))
-        k = apply_rope(k, pos, _theta(cfg, spec))
+    pos = (kv_len - 1)[:, None]              # (B, 1) current position
+    if cfg.mrope_sections:
+        pos = pos.expand(3, b, 1)            # the same in t, h and w
+    q = _rotate(cfg, spec, q, pos)
+    k = _rotate(cfg, spec, k, pos)
     # Write the new k/v at position kv_len - 1, in place in the
     # preallocated cache. (JAX's .at[].set, model.py:450-451, makes a
     # new cache array; outside a donating jit that is a copy per layer
@@ -518,7 +559,7 @@ def decode_step_hidden(cfg: ModelConfig, params: Params, caches,
     caches updated in place."""
     check_supported(cfg)
     layers = cast_layers(cfg, params["layers"])
-    h, _ = _embed_inputs(cfg, params, {"tokens": tokens})
+    h = _scaled(cfg, _embed_tokens(cfg, params, tokens))
     for i, (p, c) in enumerate(zip(layers, caches)):
         spec = cfg.layer_spec(i)
         x = rmsnorm(p["ln_mixer"], h, cfg.norm_eps)

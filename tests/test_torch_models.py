@@ -32,6 +32,8 @@ DENSE_ARCHS = ["qwen3-1.7b", "gemma2-9b", "gemma3-12b", "llama3-8b"]
 # the MoE and Mamba-2 blocks (tests/test_torch_moe.py, test_torch_ssm.py)
 NEW_ARCHS = ["granite-moe-1b-a400m", "llama4-scout-17b-a16e", "mamba2-370m",
              "jamba-v0.1-52b"]
+# M-RoPE and the patches / frames front ends (tests/test_torch_frontends.py)
+FRONTEND_ARCHS = ["qwen2-vl-2b", "hubert-xlarge"]
 
 
 def T(a):
@@ -326,21 +328,28 @@ def test_params_from_numpy_defaults_to_cuda(monkeypatch):
         convert.params_from_numpy(pcfg, tree)
 
 
-@pytest.mark.parametrize("arch,what", [("qwen2-vl-2b", "M-RoPE"),
-                                       ("hubert-xlarge", "frames")])
-def test_unported_blocks_raise(arch, what):
+@pytest.mark.parametrize("arch", FRONTEND_ARCHS)
+def test_frontend_archs_init(arch):
+    """The vlm and audio archs initialise on the CPU and on the meta
+    device, with ``frontend_proj`` (frontend_dim, d_model)."""
     cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match=what):
-        model.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.init_cache(cfg, 1, 4, device="cpu")
+    for device in ("cpu", "meta"):
+        params = model.init_params(cfg, 0, device)
+        assert tuple(params["frontend_proj"].shape) == (cfg.frontend_dim,
+                                                        cfg.d_model)
+        assert params["frontend_proj"].device.type == device
+        caches = model.init_cache(cfg, 2, 8, device=device)
+        assert len(caches) == cfg.num_layers
+        assert tuple(caches[0]["k"].shape) == (2, 8, cfg.num_kv_heads,
+                                               cfg.head_dim)
 
 
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["gemma3-12b", "qwen3-1.7b"] + NEW_ARCHS)
+@pytest.mark.parametrize("arch", ["gemma3-12b", "qwen3-1.7b"] + NEW_ARCHS
+                         + FRONTEND_ARCHS)
 def test_params_round_trip_exact(arch):
     jcfg, pcfg = configs(arch)
     tree = jax.tree.map(np.asarray,
@@ -356,7 +365,7 @@ def test_params_round_trip_exact(arch):
 
 
 def test_port_init_matches_jax_shapes():
-    for arch in DENSE_ARCHS + NEW_ARCHS:
+    for arch in DENSE_ARCHS + NEW_ARCHS + FRONTEND_ARCHS:
         jcfg, pcfg = configs(arch)
         want = jax.tree.map(lambda a: (a.shape, str(a.dtype)),
                             jax_model.abstract_params(jcfg))

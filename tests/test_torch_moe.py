@@ -222,17 +222,22 @@ def grown_jax_caches(jcfg, caches, b, s, max_len):
     return tuple(out)
 
 
-def check_prefill_and_decode(arch, dtype="float32", tol=TOL, atol=TOL):
+def check_prefill_and_decode(arch, dtype="float32", tol=TOL, atol=TOL,
+                             batch=None, **over):
     """Prefill's hidden states, logits and caches, then four decode
-    steps from the grown caches, against the JAX package."""
+    steps from the grown caches, against the JAX package. ``batch``: the
+    prefill's numpy inputs (default: ``prompts``); ``over``: config
+    fields of the port's side only."""
     jcfg, pcfg = configs(arch, compute_dtype=dtype)
+    pcfg = dataclasses.replace(pcfg, **over)
     jp, pp = carried(jcfg, pcfg, seed=1)
-    toks = prompts(jcfg.vocab_size)
-    b, s = toks.shape
+    if batch is None:
+        batch = {"tokens": prompts(jcfg.vocab_size)}
     jh, jcaches = jax.jit(functools.partial(jax_model.prefill, jcfg))(
-        jp, {"tokens": jnp.asarray(toks)})
+        jp, jax.tree.map(jnp.asarray, batch))
+    b, s = jh.shape[:2]
     cp = model.compute_params(pcfg, pp)
-    ph, pcaches = model.prefill(pcfg, cp, {"tokens": torch.from_numpy(toks)})
+    ph, pcaches = model.prefill(pcfg, cp, {k: T(v) for k, v in batch.items()})
     jl = jax_model.logits_from_hidden(jcfg, jp, jh)
     pl = model.logits_from_hidden(pcfg, cp, ph)
     np.testing.assert_allclose(N(pl), np.asarray(jl, np.float32), atol=atol,
@@ -254,7 +259,7 @@ def check_prefill_and_decode(arch, dtype="float32", tol=TOL, atol=TOL):
             dst["v"][:, :s] = src["v"]
         else:
             dst.update(src)
-    kv_len = np.asarray([9, 13, 16], np.int32)
+    kv_len = np.asarray([9, 13, s], np.int32)    # b == 3
     feed = prompts(jcfg.vocab_size, b, 4, seed=3)
     jdec = jax.jit(functools.partial(jax_model.decode_step_hidden, jcfg))
     for t in range(4):
@@ -284,19 +289,20 @@ def _bf16_close(got, want, what):
     assert err <= tol, (what, err, tol)
 
 
-def check_sublayers_bf16(arch):
+def check_sublayers_bf16(arch, batch=None):
     """The smoke model in its bf16 compute, layer by layer on the JAX
     run's hidden states: each layer's mixer sublayer (norm, attention or
     Mamba-2, residual) from the JAX input, and its MLP (dense or MoE)
     from the JAX run's normalised input, against the JAX package's own
     functions on the weights ``_cast_blocks`` gives; the MoE router's
-    expert ids equal."""
+    expert ids equal. ``batch``: numpy inputs (default: ``prompts``)."""
     jcfg, pcfg = configs(arch)
     assert pcfg.cdtype == torch.bfloat16 and not pcfg.use_post_norm
     jp, pp = carried(jcfg, pcfg, seed=1)
-    toks = prompts(jcfg.vocab_size)
-    h, positions = jax_model._embed_inputs(jcfg, jp, {"tokens":
-                                                      jnp.asarray(toks)})
+    if batch is None:
+        batch = {"tokens": prompts(jcfg.vocab_size)}
+    h, positions = jax_model._embed_inputs(jcfg, jp, jax.tree.map(
+        jnp.asarray, batch))
     blocks = jax_model._cast_blocks(jcfg, jp)
     layers_c = model.compute_params(pcfg, pp)["layers"]
     eps = jcfg.norm_eps

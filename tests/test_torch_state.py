@@ -296,3 +296,34 @@ def test_chip_smoke_ssm_path_rehearsal_on_cpu():
     assert len(out["train"]["losses"]) == 4
     assert all(math.isfinite(x) for x in out["train"]["losses"])
     assert out["fit"][-1] < out["fit"][0]
+
+
+def test_chip_smoke_frontend_paths_rehearsal_on_cpu():
+    """chip_smoke.py's phase 12 at the smoke sizes of qwen2-vl-2b and
+    hubert-xlarge on the CPU: the patches batch prefilled and decoded
+    cold and warm through the serve steps, the kernel route against the
+    plain route teacher-forced in bf16 and float32; the frames forward
+    cold and warm and its routes; the float32 training routes (hubert's
+    token table, which its forward never reads, with no gradient) and
+    two training steps of each, with the configs' microbatches."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    dev = torch.device("cpu")
+    vlm = chip_smoke.vlm_path(dev, smoke=True, batch=2, seq=16, gen_len=3,
+                              steps=2)
+    assert vlm["warm"]["patches"] == 4 and vlm["warm"]["tokens"] == 12
+    assert vlm["bfloat16"]["kernel_argmax_is_fed"] == 1.0
+    assert max(vlm["float32"]["logit_max_abs_err"].values()) \
+        <= chip_smoke.VLM_F32_LOGIT_ATOL
+    assert vlm["train"]["microbatches"] == 2
+    assert vlm["train"]["routes"]["unused_leaves"] == []
+    audio = chip_smoke.audio_path(dev, smoke=True, batch=4, seq=16, steps=2)
+    assert audio["routes"]["float32"]["logit_max_abs_err"] \
+        <= chip_smoke.AUDIO_F32_LOGIT_ATOL
+    assert audio["train"]["microbatches"] == 4
+    routes = audio["train"]["routes"]
+    assert routes["unused_leaves"] == ["embed"]
+    assert routes["zero_grad_leaves"] == []
+    for out in (vlm, audio):
+        assert len(out["train"]["losses"]) == 2
+        assert all(math.isfinite(x) for x in out["train"]["losses"])
