@@ -134,6 +134,17 @@ Phases, each printed as it runs:
    steps (4 microbatches: 384 flash forward, 192 backward a step). Then
    the attention kernels on the inputs these paths gave them: GQA g = 6
    at head_dim 128, and head_dim 80 not causal.
+13. the port's tooling and remat "dots": ``core.analysis.verify`` on
+   the card (an ``ok`` line for each of Q1–Q12), the linter over the
+   port and this script (no finding), the one-card dry run
+   (``launch/dryrun.py``) over every supported (arch x shape) cell and
+   over phase 9's cell under remat "full" and "dots" (its argument
+   bytes against what the card allocates for that run's params, AdamW
+   state and batch, DRYRUN_ARG_RTOL; its estimated peaks printed beside
+   the measured ones); then qwen3-1.7b under ``remat_policy="dots"``:
+   its float32 gradients against "full"'s (DOTS_TRAIN_TOL) and 4 steps
+   of ``launch.train.train`` as phase 9's (112 flash forward and 56
+   backward launches a step), printed beside phase 9's.
 
 Phase 3's ``query`` lines also give each query's peak device memory and
 the join kernel's hash-table scratch (``join_table_mib``); phase 6's
@@ -142,9 +153,10 @@ memory and the bytes copied to the host; phase 7's ``spmd`` lines the
 same for spmd mode plus the bytes all-gathered; phase 8's ``mrql``
 lines the baseline's ms and jobs; phase 9's ``train`` lines the steps,
 the routes' agreement and the resume; phases 10 and 11 the ``moe`` and
-``ssm`` lines, phase 12 the ``vlm`` and ``audio`` lines. Phases run in
-the order 1–4, 6, 7, 8, 5, 9, 10, 11, 12: one database's tables, or one
-model, on the card at a time.
+``ssm`` lines, phase 12 the ``vlm`` and ``audio`` lines, phase 13 the
+``verify``, ``lint``, dry-run (``OK``) and ``train dots`` lines. Phases
+run in the order 1–4, 6, 7, 8, 5, 9, 10, 11, 12, 13: one database's
+tables, or one model, on the card at a time.
 
 Which templates the flash backward (and the forward with L) ran at each
 training shape is read last, by ``torch.profiler`` in a process of its
@@ -273,6 +285,16 @@ AUDIO_F32_LOGIT_ATOL = 2e-4
 # Measured on the H100 (700 W): qwen2-vl 0, 6.3e-8, 1.72e-5; hubert 0, 0,
 # 1.28e-5; the limits leave 5x or more
 FRONTEND_TRAIN_TOL = {"loss": 1e-6, "norm": 1e-6, "leaf": 1e-4}
+# phase 13: the dry run's argument bytes of phase 9's cell against what
+# the card's allocator holds more once that run's params, AdamW state and
+# batch are built (each block rounds up to 512 bytes)
+DRYRUN_ARG_RTOL = 1e-3
+DRYRUN_JOBS = 8            # cells sized at once, one process each
+# remat "dots" vs "full" (route_grads), float32 on the kernel route, at
+# a batch whose saved products fit beside float32 params and gradients:
+# one computation, the 2-D products saved or recomputed
+DOTS_ROUTE_BATCH = 4
+DOTS_TRAIN_TOL = {"loss": 1e-6, "norm": 1e-6, "leaf": 1e-4}
 # result positions (DistributeResult order) that are sums, averages or
 # divisions: compared to SUM_RTOL between routes, all else exactly
 TOLERANT = {"Q3": {0}, "Q4": {0}, "Q7": {0}, "Q8": {0}, "Q9": {2},
@@ -2031,9 +2053,11 @@ class _Spy:
 
 
 def route_grads(cfg, dev, batch: int, seq: int, kernel_impl: str,
-                tol: dict | None = None) -> dict:
+                tol: dict | None = None, routes: tuple | None = None
+                ) -> dict:
     """``steps.value_and_grad`` of the same seeded params and batch 0 on
-    the kernel route and on the plain route (dense attention): loss,
+    two routes, each a name and its config overrides (default: the
+    kernel route and the plain route, dense attention): loss,
     global grad norm and each leaf's gradient must agree within ``tol``
     (``{"loss", "norm", "leaf"}``; default the TRAIN_* constants), and
     every leaf's gradient must be nonzero on both routes (the
@@ -2050,15 +2074,16 @@ def route_grads(cfg, dev, batch: int, seq: int, kernel_impl: str,
     params = model.init_params(cfg, SEED, dev)
     bt = batch_at(cfg, 0, batch=batch, seq=seq, seed=SEED, device=dev)
     got, aux = {}, {}
-    for route, impl in (("kernel", kernel_impl), ("plain", "dense")):
+    for route, over in routes or (("kernel", {"attn_impl": kernel_impl}),
+                                  ("plain", {"attn_impl": "dense"})):
         t0 = time.perf_counter()
         loss, parts, grads = steps.value_and_grad(
-            dataclasses.replace(cfg, attn_impl=impl), params, bt)
+            dataclasses.replace(cfg, **over), params, bt)
         norm = float(global_norm(grads))
         aux[route] = float(parts["moe_aux"])
         got[route] = (float(loss), norm, grads, time.perf_counter() - t0)
     del params
-    (kl, kn, kg, ks), (pl, pn, pg, ps) = got["kernel"], got["plain"]
+    (ra, (kl, kn, kg, ks)), (rb, (pl, pn, pg, ps)) = got.items()
     require(all(math.isfinite(x) for x in (kl, kn, pl, pn)),
             f"train routes: non-finite loss or norm {kl} {kn} {pl} {pn}")
     unused = {"embed"} if cfg.frontend == "frames" else set()
@@ -2075,15 +2100,15 @@ def route_grads(cfg, dev, batch: int, seq: int, kernel_impl: str,
             zero.append(path)
             continue
         worst = max(worst, float((a - b).abs().max()) / scale)
-    rec = {"loss": {"kernel": kl, "plain": pl},
-           "grad_norm": {"kernel": kn, "plain": pn},
+    rec = {"loss": {ra: kl, rb: pl},
+           "grad_norm": {ra: kn, rb: pn},
            "loss_rel_err": abs(kl - pl) / abs(pl),
            "norm_rel_err": abs(kn - pn) / pn,
            "grad_leaf_rel_err": worst, "leaves": len(list(model._leaves(kg))),
            "zero_grad_leaves": zero, "unused_leaves": sorted(unused),
            "moe_aux": aux,
            "compute_dtype": cfg.compute_dtype, "tolerances": tol,
-           "kernel_s": ks, "plain_s": ps}
+           f"{ra}_s": ks, f"{rb}_s": ps}
     log("train routes " + json.dumps(rec))
     require(not zero, f"train routes: leaves with no gradient: {zero}")
     if cfg.num_experts:
@@ -2091,7 +2116,7 @@ def route_grads(cfg, dev, batch: int, seq: int, kernel_impl: str,
                 f"train routes: moe_aux {aux}")
     require(rec["loss_rel_err"] <= tol["loss"]
             and rec["norm_rel_err"] <= tol["norm"] and worst <= tol["leaf"],
-            f"train kernel and plain routes disagree: {rec}")
+            f"train {ra} and {rb} routes disagree: {rec}")
     return rec
 
 
@@ -2112,6 +2137,7 @@ def train_path(dev, *, arch: str = TRAIN_ARCH, smoke: bool = False,
                capture=None, route_check: bool = True,
                route_overrides: dict | None = None,
                route_tol: dict | None = None,
+               overrides: dict | None = None,
                tag: str = "train") -> dict:
     """Phase 9 (and 10, 11): kernel-route vs plain-route gradients
     (``route_grads`` under the config ``route_overrides``, within
@@ -2124,11 +2150,13 @@ def train_path(dev, *, arch: str = TRAIN_ARCH, smoke: bool = False,
     each step), its flash forward and backward launches: 2 x attention
     layers x microbatches forward (remat runs each layer's forward again
     in the backward) and attention layers x microbatches backward.
-    ``capture``: a context around the training run (``LastFlash``)."""
+    ``capture``: a context around the training run (``LastFlash``);
+    ``overrides``: config fields of the whole path (``remat_policy``)."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.launch.train import train
     from repro_torch.models import flops
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    cfg = dataclasses.replace(cfg, **(overrides or {}))
     route_rec = None
     if route_check:
         route_rec = route_grads(
@@ -2167,7 +2195,8 @@ def train_path(dev, *, arch: str = TRAIN_ARCH, smoke: bool = False,
         out = train(arch, smoke=smoke, steps=steps, batch=batch, seq=seq,
                     seed=SEED, device=dev, num_microbatches=micro,
                     log_every=steps,
-                    overrides={"attn_impl": kernel_impl(dev)},
+                    overrides={**(overrides or {}),
+                               "attn_impl": kernel_impl(dev)},
                     on_step=on_step)
     del out
     release(dev)
@@ -2185,7 +2214,8 @@ def train_path(dev, *, arch: str = TRAIN_ARCH, smoke: bool = False,
     warm_s = sum(r["ms"] for r in warm) / len(warm) / 1e3
     summary = {"arch": arch, "params": cfg.num_params(),
                "batch": batch, "seq": seq, "microbatches": micro,
-               "remat": cfg.remat, "ce_chunks": cfg.ce_chunks,
+               "remat": cfg.remat, "remat_policy": cfg.remat_policy,
+               "ce_chunks": cfg.ce_chunks,
                "warm_ms": warm_s * 1e3,
                "tokens_per_s": batch * seq / warm_s,
                "mfu": model_flops / warm_s / PEAK_FLOPS["bfloat16"],
@@ -2980,6 +3010,144 @@ def audio_path(dev, *, smoke: bool = False, batch: int = TRAIN_BATCH,
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 13: the plan verifier, the linter, the dry run and remat "dots"
+# ---------------------------------------------------------------------------
+
+def captured(fn, *args) -> tuple[int, list[str]]:
+    """(``fn(*args)``'s return code, the lines it printed)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args)
+    return rc, buf.getvalue().splitlines()
+
+
+def built_bytes(cfg, dev, batch: int, seq: int) -> int:
+    """What the card's allocator holds more once a training run's seeded
+    params, AdamW state and batch 0 are built (what ``train`` builds
+    first); on the CPU (the rehearsal), their storages' bytes."""
+    import torch
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.launch.dryrun import tree_bytes
+    from repro_torch.models import model
+    from repro_torch.optim import adamw_init
+    release(dev)
+    before = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    params = model.init_params(cfg, SEED, dev)
+    state = (params, adamw_init(params),
+             batch_at(cfg, 0, batch=batch, seq=seq, seed=SEED, device=dev))
+    grown = (torch.cuda.memory_allocated(dev) - before if dev.type == "cuda"
+             else tree_bytes(state))
+    del params, state
+    release(dev)
+    return grown
+
+
+def tooling_path(dev, *, smoke: bool = False, counters: dict | None = None,
+                 full: dict | None = None, cells: list | None = None,
+                 budget: int | None = None, jobs: int = DRYRUN_JOBS,
+                 steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH,
+                 seq: int = TRAIN_SEQ, route_batch: int = DOTS_ROUTE_BATCH,
+                 overrides: dict | None = None) -> dict:
+    """Phase 13. (a) ``core.analysis.verify`` on ``dev``: exit 0 and an
+    ``ok`` line for each of Q1–Q12; (b) the linter over the port and this
+    script: no finding; (c) the dry run (``launch/dryrun.py``) over
+    ``cells`` (default every supported cell) and over phase 9's own cell
+    (``TRAIN_ARCH``, ``batch`` x ``seq``, its microbatches) under remat
+    "full" and "dots", in ``jobs`` processes; that cell's argument bytes
+    must equal what building its params, AdamW state and batch adds on
+    the card within DRYRUN_ARG_RTOL, and its estimated peaks are printed
+    beside the measured peaks of (d) and of phase 9 (``full``, that
+    phase's summary); (d) ``remat_policy="dots"`` held against "full"
+    in float32 on the kernel route (``route_grads``, DOTS_TRAIN_TOL) at
+    ``route_batch``, then ``steps`` training steps through
+    ``train_path`` under "dots", beside phase 9's. ``overrides``: config
+    fields of every model here (the rehearsal's head_dim and remat)."""
+    from repro_torch.configs import (ARCHS, SHAPES, get_config,
+                                     get_smoke_config, supported)
+    from repro_torch.core.analysis import lint, verify
+    from repro_torch.launch import dryrun
+    over = overrides or {}
+    t0 = time.perf_counter()
+    rc, lines = captured(verify.run, ["--device", dev.type])
+    for line in lines:
+        log(f"verify {line}")
+    oks = sum(line.startswith("ok ") for line in lines)
+    require(rc == 0 and oks == 12, f"verify: exit {rc}, {oks} ok lines")
+    release(dev)
+    rc, lines = captured(lint.main, [str(ROOT / "src" / "repro_torch"),
+                                     str(ROOT / "chip_smoke.py")])
+    for line in lines:
+        log(f"lint {line}")
+    require(rc == 0, f"lint: exit {rc}")
+    log(f"tooling verify and lint ok ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(
+        get_smoke_config(TRAIN_ARCH) if smoke else get_config(TRAIN_ARCH),
+        **over)
+    budget = budget or dryrun.device_bytes()
+    if cells is None:
+        cells = [(a, s) for a in ARCHS for s in SHAPES if supported(a, s)]
+    own = {"batch": batch, "seq": seq,
+           "microbatches": cfg.train_microbatches}
+    policies = ("full", "dots")
+    recs = dryrun.run_cells(
+        list(cells) + [(TRAIN_ARCH, "train_4k",
+                        {**own, "overrides": {**over, "remat_policy": p}})
+                       for p in policies],
+        jobs=jobs, budget=budget, smoke=smoke, overrides=over or None)
+    require(all(r is not None for r in recs),
+            f"dry run: {sum(r is None for r in recs)} of {len(recs)} cells "
+            "failed")
+    cell = dict(zip(policies, recs[-2:]))
+    args = cell["full"]["memory"]["argument_bytes"]
+    grown = built_bytes(cfg, dev, batch, seq)
+    arg_rec = {"arch": TRAIN_ARCH, "batch": batch, "seq": seq,
+               "argument_bytes": args,
+               "by_part": cell["full"]["memory"]["argument_bytes_by_part"],
+               "allocated_bytes": grown,
+               "rel_err": abs(grown - args) / args,
+               "rtol": DRYRUN_ARG_RTOL}
+    log("dryrun arguments " + json.dumps(arg_rec))
+    require(cell["dots"]["memory"]["argument_bytes"] == args,
+            "dry run: the policies' argument bytes differ")
+    require(arg_rec["rel_err"] <= DRYRUN_ARG_RTOL,
+            f"dry run: argument bytes {args} against {grown} allocated")
+    log(f"dryrun ok: {len(recs)} cells ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    impl = kernel_impl(dev)
+    route = route_grads(
+        dataclasses.replace(cfg, compute_dtype="float32"), dev, route_batch,
+        seq, impl, DOTS_TRAIN_TOL,
+        routes=(("dots", {"attn_impl": impl, "remat_policy": "dots"}),
+                ("full", {"attn_impl": impl, "remat_policy": "full"})))
+    release(dev)
+    dots = train_path(dev, smoke=smoke, steps=steps, batch=batch, seq=seq,
+                      counters=counters, route_check=False,
+                      overrides={**over, "remat_policy": "dots"},
+                      tag="train dots")
+    peaks = {p: {"estimated_mib":
+                 cell[p]["memory"]["estimated_peak_bytes"] / 2**20}
+             for p in policies}
+    for p, run in (("full", full), ("dots", dots)):
+        if run is not None and run["peak_mib"]:
+            peaks[p]["measured_mib"] = run["peak_mib"]
+            peaks[p]["measured_over_estimated"] = (
+                run["peak_mib"] / peaks[p]["estimated_mib"])
+    keys = ("warm_ms", "tokens_per_s", "mfu", "peak_mib",
+            "launches_per_step")
+    compare = {"dots": {k: dots[k] for k in keys},
+               "full": {k: full[k] for k in keys} if full else None,
+               "peaks": peaks}
+    log("train dots vs full " + json.dumps(compare))
+    log(f"train dots ok ({time.perf_counter() - t0:.1f} s)")
+    return {"dryrun": recs, "arguments": arg_rec, "routes": route,
+            "dots": dots, "compare": compare}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3192,6 +3360,11 @@ def main() -> int:
         last_flash.call, audio["train"]["launches"], edge_errs, templates,
         where=f"{AUDIO_ARCH} training")[::-1]
     del last, last_flash, audio
+    release(dev)
+
+    t0 = time.perf_counter()
+    tooling_path(dev, counters=attn, full=trained)
+    log(f"tooling path ok ({time.perf_counter() - t0:.1f} s)")
     release(dev)
 
     t0 = time.perf_counter()

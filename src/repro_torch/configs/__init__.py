@@ -7,7 +7,8 @@ from repro_torch.configs import (gemma2_9b, gemma3_12b, granite_moe_1b,
                                  hubert_xlarge, jamba_52b, llama3_8b,
                                  llama4_scout, mamba2_370m, qwen2_vl_2b,
                                  qwen3_1_7b)
-from repro_torch.configs.common import SHAPES, SKIPS, supported
+from repro_torch.configs.common import (SHAPES, SKIPS, input_specs,
+                                       supported)
 
 _MODULES = [mamba2_370m, gemma3_12b, gemma2_9b, llama3_8b, qwen3_1_7b,
             jamba_52b, granite_moe_1b, llama4_scout, hubert_xlarge,

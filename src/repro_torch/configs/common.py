@@ -1,8 +1,8 @@
 """Shared helpers for architecture configs, ported from
-``repro/configs/common.py``: the shape cells, the documented skips and
-the smoke-size reduction. ``input_specs`` (``jax.ShapeDtypeStruct``
-stand-ins for the dry run) waits for the tooling item (ROADMAP.md, open
-item 8).
+``repro/configs/common.py``: the shape cells, the documented skips,
+``input_specs`` (the dry run's stand-ins for every model input: tensors
+on the meta device where JAX has ``jax.ShapeDtypeStruct``) and the
+smoke-size reduction.
 
   train_4k     seq=4096   gb=256  (training)
   prefill_32k  seq=32768  gb=32   (inference prefill)
@@ -13,7 +13,9 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.models.model import ModelConfig
+import torch
+
+from repro_torch.models.model import ModelConfig, init_cache
 
 SHAPES: dict[str, dict] = {
     "train_4k": {"seq": 4096, "batch": 256, "kind": "train"},
@@ -36,6 +38,50 @@ SKIPS: dict[tuple[str, str], str] = {
 
 def supported(arch: str, shape: str) -> bool:
     return (arch, shape) not in SKIPS
+
+
+def input_specs(cfg: ModelConfig, shape_name: str, device="meta", *,
+                batch: int | None = None, seq: int | None = None) -> dict:
+    """Stand-ins for every model input of a shape cell, keyed by the
+    step's arguments: ``{"batch"}`` for train and prefill,
+    ``{"caches", "tokens", "kv_len"}`` for decode. The keys, shapes and
+    dtypes of the reference's (int32 tokens, labels and positions,
+    float32 frames and patches; a quarter of a ``patches`` sequence is
+    patches), with the caches one per layer (``init_cache``). On the
+    meta device (the default) nothing is allocated; another device gets
+    uninitialized tensors of the same shapes. ``batch``/``seq`` replace
+    the cell's own."""
+    sh = SHAPES[shape_name]
+    b, s = batch or sh["batch"], seq or sh["seq"]
+    kind = sh["kind"]
+    i32, f32 = torch.int32, torch.float32
+
+    def t(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    def batch_for(with_labels: bool) -> dict:
+        n_patch = max(s // 4, 1)
+        if cfg.frontend == "frames":
+            d = {"frames": t((b, s, cfg.frontend_dim), f32)}
+        elif cfg.frontend == "patches":
+            d = {"tokens": t((b, s - n_patch), i32),
+                 "patches": t((b, n_patch, cfg.frontend_dim), f32),
+                 "positions": t((3, b, s), i32)}
+        else:
+            d = {"tokens": t((b, s), i32)}
+        if with_labels:
+            d["labels"] = t((b, s - n_patch if cfg.frontend == "patches"
+                             else s), i32)
+        return d
+
+    if kind == "train":
+        return {"batch": batch_for(True)}
+    if kind == "prefill":
+        return {"batch": batch_for(False)}
+    if kind == "decode":
+        return {"caches": init_cache(cfg, b, s, device=device),
+                "tokens": t((b, 1), i32), "kv_len": t((b,), i32)}
+    raise ValueError(kind)
 
 
 def reduce_for_smoke(cfg: ModelConfig, **over) -> ModelConfig:

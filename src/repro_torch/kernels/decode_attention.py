@@ -4,6 +4,8 @@ CUDA tensors.
 Ports the Pallas TPU kernel ``src/repro/kernels/decode_attention.py``
 (``decode_attention_bhgd``). The kernel, its design and its bound are
 described in the source; the plain version is ``ref.decode_attention``.
+On meta tensors (the dry run) the wrapper checks its arguments and
+allocates its output and the partials' scratch, and launches nothing.
 """
 from __future__ import annotations
 
@@ -74,9 +76,15 @@ def decode_attention_bhgd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s > kv_len - 1 - window. Returns q's shape and dtype. CUDA tensors
     only."""
     dev = q.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"decode_attention kernel needs CUDA tensors, "
                          f"got {dev}")
+    if dev.type == "meta":
+        plan = _make_plan(q, k, v, kv_len, window, softcap, scale)
+        out = torch.empty_like(q)
+        # the partials' scratch, which the card keeps per plan and stream
+        torch.empty(plan.n_acc + plan.n_ml, dtype=torch.float32, device=dev)
+        return out
     key = (q.shape, q.stride(), k.shape, k.stride(), v.shape, v.stride(),
            kv_len.shape, kv_len.stride(), q.dtype, k.dtype, v.dtype,
            kv_len.dtype, dev, k.get_device(), v.get_device(),

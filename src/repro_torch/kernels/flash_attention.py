@@ -8,6 +8,10 @@ backward has no Pallas counterpart (the JAX package lets XLA
 differentiate its dense/chunked attention). The kernels, their designs
 and their bounds are described in the sources; the plain versions are
 ``ref.flash_attention`` and ``ref.flash_attention_bwd``.
+
+On meta tensors (the dry run, ``launch/dryrun.py``) each wrapper checks
+its arguments and allocates its outputs as on the card, and launches
+nothing (its count stays).
 """
 from __future__ import annotations
 
@@ -121,13 +125,15 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     call returns ``(out, lse)``; without it nothing more is stored (the
     serve path) and the output's bits are the same."""
     dev = q.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention kernel needs CUDA tensors, got {dev}")
     out = torch.empty_like(q)
     args = launch_args(q, k, v, out, g=g, causal=causal, window=window,
                        softcap=softcap, scale=scale)
     lse = (torch.empty(q.shape[:-1], dtype=torch.float32, device=dev)
            if return_lse else None)
+    if dev.type == "meta":
+        return (out, lse) if return_lse else out
     fn = _build.function("flash_attention", "repro_flash_attention", _ARGS)
     code = fn(*args[:4], lse.data_ptr() if return_lse else None,
               ctypes.addressof(args[4]), *args[5:], _build.stream(dev))
@@ -158,7 +164,7 @@ def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
     ``csrc/flash_attention_bwd.cu`` that ``bwd_kernels`` names (counted
     once). CUDA tensors only."""
     dev = q.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention_bwd kernel needs CUDA tensors, "
                          f"got {dev}")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
@@ -183,6 +189,8 @@ def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,
         return dq, dk.zero_(), dv.zero_()
     rows = -(-sq // _BWD_ROWS) * _BWD_ROWS
     scratch = torch.empty(b * hq * rows * 2, dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        return dq, dk, dv
     # strides of q, k, v (the forward's first 9), o, do, dq, dk, dv
     strides = (ctypes.c_longlong * 24)(
         *args[4][:9], *(s for t in (o4, do4, as_bhsd(dq), dk4, dv4)
@@ -204,10 +212,11 @@ flash_attention_bwd_bhsd.launches = 0
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention on (B, H, S, D) views: the forward
     kernel and the backward kernel on CUDA tensors, the plain versions
-    (``ref.flash_attention`` / ``ref.flash_attention_bwd``) on the CPU.
-    The forward also asks for each row's log-sum-exp L and saves it
-    beside q, k, v and the output; the backward takes L as it is. A
-    caller that knows no gradient will be asked for passes
+    (``ref.flash_attention`` / ``ref.flash_attention_bwd``) on the CPU;
+    meta tensors go to the wrappers too, which allocate the outputs and
+    launch nothing. The forward also asks for each row's log-sum-exp L
+    and saves it beside q, k, v and the output; the backward takes L as
+    it is. A caller that knows no gradient will be asked for passes
     ``want_lse=False`` (``ops.flash_attention`` with grad off: the serve
     path), and then no L is stored. Both kernels give the same bits
     every launch, so a recomputed forward under activation checkpointing
@@ -218,10 +227,10 @@ class FlashAttention(torch.autograd.Function):
                 want_lse=True):
         kw = dict(g=g, causal=causal, window=window, softcap=softcap,
                   scale=scale)
-        if q.is_cuda:
-            res = flash_attention_bhsd(q, k, v, return_lse=want_lse, **kw)
-        else:
+        if q.device.type == "cpu":
             res = _plain(q, k, v, return_lse=want_lse, **kw)
+        else:
+            res = flash_attention_bhsd(q, k, v, return_lse=want_lse, **kw)
         o, lse = res if want_lse else (res, None)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.kw = kw
@@ -231,10 +240,10 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()         # autograd may hand back a strided grad
-        if q.is_cuda:
-            grads = flash_attention_bwd_bhsd(q, k, v, o, do, lse, **ctx.kw)
-        else:
+        if q.device.type == "cpu":
             grads = _plain_bwd(q, k, v, o, do, lse, **ctx.kw)
+        else:
+            grads = flash_attention_bwd_bhsd(q, k, v, o, do, lse, **ctx.kw)
         return (*grads, None, None, None, None, None, None)
 
 

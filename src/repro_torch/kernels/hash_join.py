@@ -38,7 +38,7 @@ def block_join_probe(build_keys: tuple[torch.Tensor, ...],
     if nk != len(probe_keys) or not 1 <= nk <= 2:
         raise ValueError("1 or 2 key columns on each side")
     dev = probe_valid.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"block_join_probe kernel needs CUDA tensors, "
                          f"got {dev}")
     p, np_ = probe_valid.shape
@@ -59,6 +59,8 @@ def block_join_probe(build_keys: tuple[torch.Tensor, ...],
     # launcher fills it
     tsize = table_slots(nb)
     table = torch.empty(p * tsize, dtype=torch.int32, device=dev)
+    if dev.type == "meta":      # shapes only (the dry run): no launch
+        return pos, pos >= 0
     fn = _build.function("hash_join", "repro_join_probe", _ARGS)
     code = fn(pk[0].data_ptr(), pk[-1].data_ptr(), pv.data_ptr(),
               bk[0].data_ptr(), bk[-1].data_ptr(), bv.data_ptr(),

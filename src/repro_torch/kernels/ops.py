@@ -3,7 +3,11 @@
 Each entry point launches its CUDA kernel when its tensors lie on a
 CUDA device and runs the kernel's plain PyTorch version (``ref``) when
 they lie on the CPU — the only reason it takes the plain version. A
-kernel that fails to build or launch raises; nothing falls back.
+kernel that fails to build or launch raises; nothing falls back. On the
+meta device (the dry run, ``launch/dryrun.py``) the kernel's wrapper
+checks the call and allocates its outputs and scratch as on the card,
+and launches nothing: the plain versions would allocate what the
+kernels never do (the flash forward's (B, H, S, S) scores).
 
 The JAX package's ``ops`` chose among Pallas, the Pallas interpreter
 and jnp twins by backend, with a dense/scatter size split
@@ -49,7 +53,7 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, window=None,
     _, sk, hkv, _ = k_cache.shape
     g = hq // hkv
     kw = dict(window=window, softcap=logit_softcap, scale=scale)
-    if q.is_cuda:
+    if q.device.type != "cpu":
         out = _dec.decode_attention_bhgd(
             q.reshape(b, hkv, g, d), k_cache.transpose(1, 2),
             v_cache.transpose(1, 2), kv_len[:, None].expand(b, hkv), **kw)
@@ -68,7 +72,7 @@ def hash_join_probe(build_keys, build_valid, probe_keys, probe_valid):
     valid build row and verifies each hit on the keys themselves, so the
     result is exact (the smallest matching build index); there is no
     bucket to overflow and the flag is always False."""
-    if build_valid.is_cuda:
+    if build_valid.device.type != "cpu":
         pos, matched = _hj.block_join_probe(tuple(build_keys), build_valid,
                                             tuple(probe_keys), probe_valid)
     else:
@@ -83,16 +87,16 @@ def segmented_aggregate(values, ok, segments, valid, num_segments: int):
     values/ok [P, N, C] (C >= 0), segments/valid [P, N] -> counts
     [P, S], sums/mins/maxs [P, S, C]. With C == 0 only counts are
     computed."""
-    fn = _seg.segmented_aggregate if values.is_cuda \
-        else _ref.segmented_aggregate
+    fn = _ref.segmented_aggregate if values.device.type == "cpu" \
+        else _seg.segmented_aggregate
     return fn(values, ok, segments, valid, num_segments)
 
 
 def segmented_sum_count(values, segments, valid, num_segments: int):
     """Per-segment sum and count of one column: values/segments/valid
     [P, N] -> (sums [P, S], counts [P, S]) float32."""
-    fn = _seg.segmented_sum_count if values.is_cuda \
-        else _ref.segmented_sum_count
+    fn = _ref.segmented_sum_count if values.device.type == "cpu" \
+        else _seg.segmented_sum_count
     return fn(values, segments, valid, num_segments)
 
 
@@ -100,5 +104,6 @@ def segment_topk(keys, cap: int):
     """Stable top-k selection (the ORDER BY / LIMIT entry point):
     keys[0] the invalid-sink flag, then the sort keys most significant
     first (descending ones negated), each [P, N] -> idx [P, cap]."""
-    fn = _stk.segment_topk if keys[0].is_cuda else _ref.segment_topk
+    fn = _ref.segment_topk if keys[0].device.type == "cpu" \
+        else _stk.segment_topk
     return fn(tuple(keys), cap)

@@ -172,10 +172,16 @@ def segmented_aggregate(values: torch.Tensor, ok: torch.Tensor,
     valid [P, N] bool -> (counts [P, S], sums [P, S, C], mins [P, S, C],
     maxs [P, S, C]) float32. C may be 0. CUDA tensors only."""
     dev = values.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"segmented_aggregate kernel needs CUDA tensors, "
                          f"got {dev}")
     s = int(num_segments)
+    if dev.type == "meta":      # shapes only (the dry run): no launch
+        _check_agg(values, ok, segments, valid, s)
+        p, _, nc = values.shape
+        stats = torch.empty((3, p, s, nc), dtype=torch.float32, device=dev)
+        return (torch.empty((p, s), dtype=torch.float32, device=dev),
+                *stats.unbind(0))
     key = (values.shape, values.dtype, ok.shape, ok.dtype, segments.shape,
            segments.dtype, valid.shape, valid.dtype, dev, ok.device,
            segments.device, valid.device, s)
@@ -208,7 +214,7 @@ def segmented_sum_count(values: torch.Tensor, segments: torch.Tensor,
     (sums [P, S], counts [P, S]) float32 over the valid rows whose
     segment id lies in [0, S). CUDA tensors only."""
     dev = values.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"segmented_sum_count kernel needs CUDA tensors, "
                          f"got {dev}")
     s = int(num_segments)
@@ -229,6 +235,9 @@ def segmented_sum_count(values: torch.Tensor, segments: torch.Tensor,
             raise ValueError("segmented_sum_count inputs on several devices")
         if s < 0 or n >= 2**31 or 2 * s >= 2**31:
             raise ValueError(f"segment space out of range (S={s})")
+        if dev.type == "meta":  # shapes only (the dry run): no launch
+            return tuple(torch.empty((2, p, s), dtype=torch.float32,
+                                     device=dev).unbind(0))
         lc = _launch_for(key, dev, p, n, s, 1, False)
     p, n = values.shape
     vals, seg, vld = values.contiguous(), segments.contiguous(), \

@@ -44,7 +44,7 @@ def segment_topk(keys: tuple[torch.Tensor, ...], cap: int) -> torch.Tensor:
     is made contiguous first)."""
     k0 = keys[0]
     dev = k0.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"segment_topk kernel needs CUDA tensors, got {dev}")
     shape = k0.shape
     p, n = shape
@@ -72,6 +72,8 @@ def segment_topk(keys: tuple[torch.Tensor, ...], cap: int) -> torch.Tensor:
     # sorted runs of the merge, only when N spans several chunks
     runs = torch.empty((2, p, n), dtype=torch.int32, device=dev) \
         if n > chunk else None
+    if dev.type == "meta":      # shapes only (the dry run): no launch
+        return out
     fn = _build.function("seg_topk", "repro_segment_topk", _ARGS)
     code = fn(ctypes.addressof(args), nkeys, mask, p, n, cap, chunk,
               out.data_ptr(), runs.data_ptr() if runs is not None else None,

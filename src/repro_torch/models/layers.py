@@ -28,15 +28,22 @@ def _normal(shape, gen, device) -> torch.Tensor:
                        dtype=torch.float32)
 
 
+def _scaled_normal(shape, scale: float, gen, dtype: torch.dtype,
+                   device) -> torch.Tensor:
+    if gen is None:            # the meta device: shapes only, nothing drawn
+        return torch.empty(shape, dtype=dtype, device=device)
+    return (_normal(shape, gen, device) * scale).to(dtype)
+
+
 def dense_init(gen, d_in: int, d_out: int, dtype: torch.dtype,
                device) -> torch.Tensor:
-    scale = 1.0 / math.sqrt(d_in)
-    return (_normal((d_in, d_out), gen, device) * scale).to(dtype)
+    return _scaled_normal((d_in, d_out), 1.0 / math.sqrt(d_in), gen, dtype,
+                          device)
 
 
 def embed_init(gen, vocab: int, d: int, dtype: torch.dtype,
                device) -> torch.Tensor:
-    return (_normal((vocab, d), gen, device) * 0.02).to(dtype)
+    return _scaled_normal((vocab, d), 0.02, gen, dtype, device)
 
 
 # ---------------------------------------------------------------------------

@@ -18,8 +18,16 @@ one. ``forward`` returns the sum of the MoE layers' load-balance losses
 Left out, because it has no meaning on one card: ``_seq_constraint``
 (a GSPMD sharding constraint). ``_remat`` becomes
 ``torch.utils.checkpoint`` around each layer where ``cfg.remat`` is on
-and grad is enabled (training); ``remat_policy="dots"`` (save the
-matmul outputs) has no exact counterpart and raises.
+and grad is enabled (training). ``remat_policy="full"`` saves only the
+layer's inputs; ``"dots"`` (the reference's
+``dots_with_no_batch_dims_saveable``) also saves the outputs of the
+layer's 2-D products (``aten.mm``/``aten.addmm``: the projections, the
+router) through a selective-checkpoint context and recomputes the rest.
+Batched products (``aten.bmm``: the MoE experts, the plain attention)
+are recomputed, as JAX recomputes a ``dot_general`` with batch
+dimensions. The flash kernels launch through ctypes, which no dispatch
+mode sees, so the recompute launches the forward kernel again, as JAX
+recomputes a ``pallas_call``.
 
 The front ends take what the reference's stubs give: ``frames``
 (B, S, frontend_dim) or ``patches`` (B, P, frontend_dim), float32
@@ -46,7 +54,8 @@ import math
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core.executor import resolve_device
 from repro_torch.models import attention as attn_lib
@@ -111,7 +120,7 @@ class ModelConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     remat: bool = True                # training: checkpoint each layer
-    remat_policy: str = "full"        # "full" only ("dots" raises)
+    remat_policy: str = "full"        # "full" | "dots" (save 2-D products)
     attn_impl: str = "auto"           # auto | kernel (pallas) | dense | chunked
     attn_chunk: int = 512
     ce_chunks: int = 8
@@ -431,18 +440,30 @@ def _apply_block(cfg: ModelConfig, spec: BlockSpec, p: Params,
     return h, aux
 
 
-def _remat(cfg: ModelConfig, params: Params) -> bool:
-    """Checkpoint each layer (``repro/models/model.py:_remat``, policy
-    "full"): on when ``cfg.remat`` is, grad is enabled and a parameter
-    requires it (training)."""
+# the 2-D products "dots" saves: JAX's dot_general with no batch dims
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _remat(cfg: ModelConfig, params: Params) -> dict | None:
+    """The ``checkpoint`` keywords of each layer
+    (``repro/models/model.py:_remat``), or None where nothing is
+    checkpointed: on when ``cfg.remat`` is, grad is enabled and a
+    parameter requires it (training)."""
     if not (cfg.remat and torch.is_grad_enabled()
             and any(t.requires_grad for t in _leaves(params))):
-        return False
-    if cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r}: only 'full' has a torch "
-            "counterpart (torch.utils.checkpoint of each layer)")
-    return True
+        return None
+    if cfg.remat_policy == "dots":
+        return {"use_reentrant": False, "context_fn": _dots_context}
+    return {"use_reentrant": False}     # "full", as any other name there
 
 
 def _run_blocks(cfg: ModelConfig, params: Params, batch: dict,
@@ -450,15 +471,15 @@ def _run_blocks(cfg: ModelConfig, params: Params, batch: dict,
     """(final hidden states, the sum of the MoE aux losses in float32);
     appends each layer's cache to ``caches`` where given."""
     check_supported(cfg)
-    remat = caches is None and _remat(cfg, params)
+    remat = _remat(cfg, params) if caches is None else None
     layers = cast_layers(cfg, params["layers"])
     h, positions = _embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, p in enumerate(layers):
         spec = cfg.layer_spec(i)
-        if remat:
+        if remat is not None:
             h, a = checkpoint(_apply_block, cfg, spec, p, h, positions,
-                              use_reentrant=False)
+                              **remat)
         else:
             h, a, cache = _apply_block_with_cache(cfg, spec, p, h,
                                                   positions)

@@ -12,8 +12,9 @@ reference.
 
 Everything keeps a fixed shape on the device: the dispatch writes the
 dropped rows to one spare row of the buffer, and the gather back fills
-0 for them, so no step waits on a count from the card except
-``bincount`` (which reads its input's maximum).
+0 for them, and the experts' counts are a ``scatter_add_`` into E
+slots, so no step waits on a count from the card (``bincount`` would
+read its input's maximum, and has no meta kernel for the dry run).
 """
 from __future__ import annotations
 
@@ -88,7 +89,9 @@ def route(params: Params, x: torch.Tensor, *, top_k: int,
     flat_e = expert_ids.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     se = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=num_experts)
+    counts = torch.zeros(num_experts, dtype=flat_e.dtype,
+                         device=x.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(t * top_k, device=x.device) - starts[se]
     dest = torch.where(pos < cap, se * cap + pos,

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs import get_config as jax_config
 from repro.configs import get_smoke_config as jax_smoke
@@ -314,9 +315,78 @@ def test_remat_gives_the_same_grads():
     assert torch.equal(on[0], off[0])
     for a, b in zip(model._leaves(on[2]), model._leaves(off[2])):
         torch.testing.assert_close(a, b, atol=1e-7, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="dots"):
-        steps.value_and_grad(dataclasses.replace(
-            pcfg, remat=True, remat_policy="dots"), pp, bt)
+    # "dots" saves the 2-D products instead of recomputing them: the
+    # same loss and the same gradients as "full"
+    dots = steps.value_and_grad(dataclasses.replace(
+        pcfg, remat=True, remat_policy="dots"), pp, bt)
+    assert torch.equal(dots[0], on[0])
+    for a, b in zip(model._leaves(dots[2]), model._leaves(on[2])):
+        torch.testing.assert_close(a, b, atol=1e-7, rtol=1e-6)
+
+
+DOTS = dict(attn_impl="dense", remat=True, remat_policy="dots")
+
+
+@functools.lru_cache(maxsize=None)
+def jax_dots_grads(arch):
+    """The JAX package's loss, parts and gradients under remat "dots" at
+    the smoke config, weights seed 1, batch seed 2."""
+    jcfg, _ = configs(arch, **DOTS)
+    jp = jax_model.init_params(jcfg, jax.random.key(1))
+    bt = lm_batch(jcfg.vocab_size, seed=2)
+    (wl, wparts), wg = jax.jit(jax.value_and_grad(
+        functools.partial(jax_steps.loss_fn, jcfg), has_aux=True))(
+        jp, jax.tree.map(jnp.asarray, bt))
+    return wl, wparts, wg
+
+
+class _OpCount(TorchDispatchMode):
+    def __init__(self, ops):
+        super().__init__()
+        self.ops, self.n = ops, 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += func in self.ops
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("impl", ["dense", "kernel"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-1b-a400m"])
+def test_remat_dots_matches_jax_dots(arch, impl):
+    """remat_policy="dots" against the JAX package's
+    (dots_with_no_batch_dims_saveable) with carried weights, dense and
+    MoE; equal to the port's "full"; and the backward really reuses the
+    forward's 2-D products: under "dots" it runs fewer ``aten.mm`` than
+    under "full", which recomputes them, while the batched products
+    (``aten.bmm``: the experts, the dense attention) are recomputed under
+    both."""
+    jcfg, pcfg = configs(arch, **DOTS)
+    pcfg = dataclasses.replace(pcfg, attn_impl=impl)
+    _, pp = carried(jcfg, pcfg, seed=1)
+    bt = lm_batch(jcfg.vocab_size, seed=2)
+    wl, wparts, wg = jax_dots_grads(arch)
+    tb = {k: T(v) for k, v in bt.items()}
+    mm = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+    bmm = (torch.ops.aten.bmm.default,)
+    got, counts = {}, {}
+    for policy in ("dots", "full"):
+        cfg = dataclasses.replace(pcfg, remat_policy=policy)
+        tp = steps._trainable(pp)
+        loss, parts = steps.loss_fn(cfg, tp, tb)
+        with _OpCount(mm) as n_mm, _OpCount(bmm) as n_bmm:
+            loss.backward()
+        got[policy] = (loss.detach(), parts, steps._grads(tp))
+        counts[policy] = (n_mm.n, n_bmm.n)
+    loss, parts, grads = got["dots"]
+    np.testing.assert_allclose(N(loss), np.asarray(wl), rtol=LOSS_RTOL)
+    np.testing.assert_allclose(N(parts["moe_aux"]),
+                               np.asarray(wparts["moe_aux"]), rtol=LOSS_RTOL)
+    assert_grads_close(pcfg, grads, wg)
+    assert torch.equal(loss, got["full"][0])
+    for a, b in zip(model._leaves(grads), model._leaves(got["full"][2])):
+        torch.testing.assert_close(a, b, atol=1e-7, rtol=1e-6)
+    assert counts["dots"][0] < counts["full"][0]
+    assert counts["dots"][1] == counts["full"][1]
 
 
 def test_train_step_two_microbatches_matches_jax():
