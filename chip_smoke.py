@@ -145,6 +145,18 @@ Phases, each printed as it runs:
    its float32 gradients against "full"'s (DOTS_TRAIN_TOL) and 4 steps
    of ``launch.train.train`` as phase 9's (112 flash forward and 56
    backward launches a step), printed beside phase 9's.
+14. the LM mesh over an in-process NCCL group of one rank and its (1, 1)
+   ``("data", "model")`` mesh (``launch.mesh.make_host_mesh``):
+   qwen3-1.7b trained at full width through ``launch.train.train(...,
+   mesh=)`` (4 steps of 8 x 2048, 2 microbatches, remat "full": each
+   layer gathered from its blocks inside the checkpointed function,
+   ``launch/fsdp.py``; 112 flash forward and 56 backward launches a
+   step), printed beside phase 9's; its float32 gradients at 4 x 2048
+   against the one-process ``value_and_grad`` (loss, global norm and all
+   310 leaves bit for bit, else within FSDP_ROUTE_RTOL); a sharded save
+   and restore at the smoke config, bit for bit; then the dry run of the
+   33 cells on the pod meshes 16 x 16 and 2 x 16 x 16 (per-device
+   argument bytes from the specs, host only).
 
 Phase 3's ``query`` lines also give each query's peak device memory and
 the join kernel's hash-table scratch (``join_table_mib``); phase 6's
@@ -154,9 +166,10 @@ same for spmd mode plus the bytes all-gathered; phase 8's ``mrql``
 lines the baseline's ms and jobs; phase 9's ``train`` lines the steps,
 the routes' agreement and the resume; phases 10 and 11 the ``moe`` and
 ``ssm`` lines, phase 12 the ``vlm`` and ``audio`` lines, phase 13 the
-``verify``, ``lint``, dry-run (``OK``) and ``train dots`` lines. Phases
-run in the order 1–4, 6, 7, 8, 5, 9, 10, 11, 12, 13: one database's
-tables, or one model, on the card at a time.
+``verify``, ``lint``, dry-run (``OK``) and ``train dots`` lines, phase
+14 the ``fsdp`` lines and the pod-mesh dry-run (``OK ... x 16x16``)
+lines. Phases run in the order 1–4, 6, 7, 8, 5, 9, 10, 11, 12, 13, 14:
+one database's tables, or one model, on the card at a time.
 
 Which templates the flash backward (and the forward with L) ran at each
 training shape is read last, by ``torch.profiler`` in a process of its
@@ -295,6 +308,12 @@ DRYRUN_JOBS = 8            # cells sized at once, one process each
 # one computation, the 2-D products saved or recomputed
 DOTS_ROUTE_BATCH = 4
 DOTS_TRAIN_TOL = {"loss": 1e-6, "norm": 1e-6, "leaf": 1e-4}
+# phase 14: the sharded path against the one-process one in float32 at
+# one rank, where no collective runs: the same computation, expected bit
+# for bit; where not, each difference within this relative bound
+FSDP_ROUTE_BATCH = 4
+FSDP_ROUTE_RTOL = 1e-6
+FSDP_SAVE = dict(steps=2, ckpt_every=2, batch=2, seq=64)
 # result positions (DistributeResult order) that are sums, averages or
 # divisions: compared to SUM_RTOL between routes, all else exactly
 TOLERANT = {"Q3": {0}, "Q4": {0}, "Q7": {0}, "Q8": {0}, "Q9": {2},
@@ -2138,7 +2157,7 @@ def train_path(dev, *, arch: str = TRAIN_ARCH, smoke: bool = False,
                route_overrides: dict | None = None,
                route_tol: dict | None = None,
                overrides: dict | None = None,
-               tag: str = "train") -> dict:
+               tag: str = "train", mesh=None) -> dict:
     """Phase 9 (and 10, 11): kernel-route vs plain-route gradients
     (``route_grads`` under the config ``route_overrides``, within
     ``route_tol``; skipped without ``route_check``), then
@@ -2151,7 +2170,8 @@ def train_path(dev, *, arch: str = TRAIN_ARCH, smoke: bool = False,
     layers x microbatches forward (remat runs each layer's forward again
     in the backward) and attention layers x microbatches backward.
     ``capture``: a context around the training run (``LastFlash``);
-    ``overrides``: config fields of the whole path (``remat_policy``)."""
+    ``overrides``: config fields of the whole path (``remat_policy``);
+    ``mesh``: train sharded over it (phase 14)."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.launch.train import train
     from repro_torch.models import flops
@@ -2197,7 +2217,7 @@ def train_path(dev, *, arch: str = TRAIN_ARCH, smoke: bool = False,
                     log_every=steps,
                     overrides={**(overrides or {}),
                                "attn_impl": kernel_impl(dev)},
-                    on_step=on_step)
+                    on_step=on_step, mesh=mesh)
     del out
     release(dev)
     require(len(recs) == steps, f"train ran {len(recs)} of {steps} steps")
@@ -3148,6 +3168,169 @@ def tooling_path(dev, *, smoke: bool = False, counters: dict | None = None,
             "dots": dots, "compare": compare}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the LM mesh (FSDP over a one-rank group), the pod-mesh dry run
+# ---------------------------------------------------------------------------
+
+def fsdp_route_check(cfg, dev, mesh, batch: int, seq: int) -> dict:
+    """``steps.value_and_grad`` of the same seeded params and batch 0 in
+    one process and through the sharded path (``launch/fsdp.Layout`` on
+    ``mesh``, the gradients gathered whole): the loss, the global norm
+    (summed over shards) and every leaf, bit for bit, else each within
+    FSDP_ROUTE_RTOL of its own largest |value|."""
+    import torch
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.launch import fsdp
+    from repro_torch.models import model, steps
+    from repro_torch.optim.adamw import global_norm
+    params = model.init_params(cfg, SEED, dev)
+    bt = batch_at(cfg, 0, batch=batch, seq=seq, seed=SEED, device=dev)
+    t0 = time.perf_counter()
+    loss0, _, g0 = steps.value_and_grad(cfg, params, bt)
+    n0 = global_norm(g0)
+    t1 = time.perf_counter()
+    layout = fsdp.Layout(cfg, mesh)
+    loss1, _, g1 = steps.value_and_grad(cfg, layout.shard(params), bt,
+                                        layout=layout)
+    n1 = global_norm(g1, layout.norm_groups(g1))
+    g1 = layout.full(g1)
+    t2 = time.perf_counter()
+    del params
+    pairs = list(zip(model_paths(g0), model._leaves(g0),
+                     model._leaves(g1)))
+    unequal = [p for p, a, b in pairs if not torch.equal(a, b)]
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                 1e-30)
+                for _, a, b in pairs)
+    rec = {"arch": cfg.name, "compute_dtype": cfg.compute_dtype,
+           "batch": batch, "seq": seq, "leaves": len(pairs),
+           "loss": {"one": float(loss0), "mesh": float(loss1)},
+           "grad_norm": {"one": float(n0), "mesh": float(n1)},
+           "loss_equal": bool(torch.equal(loss0, loss1)),
+           "norm_equal": bool(torch.equal(n0, n1)),
+           "unequal_leaves": unequal, "grad_leaf_rel_err": worst,
+           "rtol": FSDP_ROUTE_RTOL, "one_s": t1 - t0, "mesh_s": t2 - t1}
+    log("fsdp routes " + json.dumps(rec))
+    del g0, g1
+    rel = max(abs(float(loss1) - float(loss0)) / abs(float(loss0)),
+              abs(float(n1) - float(n0)) / float(n0))
+    require(rel <= FSDP_ROUTE_RTOL and worst <= FSDP_ROUTE_RTOL,
+            f"fsdp routes disagree: {rec}")
+    return rec
+
+
+def fsdp_save_check(dev, mesh, overrides: dict | None = None) -> dict:
+    """``launch.train.train`` of TRAIN_ARCH's smoke config on ``mesh``
+    with a sharded checkpoint at its last step, then that checkpoint
+    restored onto the mesh's blocks (``restore_latest`` with
+    ``shardings``): params and AdamW state equal bit for bit."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import fsdp
+    from repro_torch.launch.mesh import named, opt_specs
+    from repro_torch.launch.train import train
+    from repro_torch.models import model
+    from repro_torch.optim import adamw_init
+    cfg = dataclasses.replace(get_smoke_config(TRAIN_ARCH),
+                              **(overrides or {}))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = train(TRAIN_ARCH, smoke=True, steps=FSDP_SAVE["steps"],
+                    batch=FSDP_SAVE["batch"], seq=FSDP_SAVE["seq"],
+                    ckpt_dir=tmp, ckpt_every=FSDP_SAVE["ckpt_every"],
+                    seed=SEED, device=dev, log_every=100,
+                    overrides=overrides, mesh=mesh)
+        layout = fsdp.Layout(cfg, mesh)
+        like = layout.shard(model.abstract_params(cfg))
+        shardings = named(mesh, {"params": layout.specs,
+                                 "opt": opt_specs(layout.specs)})
+        step, state = CheckpointManager(tmp).restore_latest(
+            {"params": like, "opt": adamw_init(like)}, dev, shardings)
+    saved = {"params": out["params"], "opt": out["opt"]}
+    pairs = list(zip(model._leaves(saved), model._leaves(state)))
+    unequal = sum(not torch.equal(a, b) for a, b in pairs)
+    rec = {"arch": TRAIN_ARCH, "smoke": True, "step": step,
+           "leaves": len(pairs), "unequal_leaves": unequal,
+           "stored_numel": fsdp.numel(saved), "losses": out["losses"]}
+    log("fsdp save " + json.dumps(rec))
+    require(step == FSDP_SAVE["steps"] and unequal == 0,
+            f"fsdp save and restore differ: {rec}")
+    return rec
+
+
+def fsdp_path(dev, backend: str, *, smoke: bool = False,
+              counters: dict | None = None, full: dict | None = None,
+              steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH,
+              seq: int = TRAIN_SEQ, route_batch: int = FSDP_ROUTE_BATCH,
+              overrides: dict | None = None, smoke_overrides: dict | None
+              = None, cells: list | None = None) -> dict:
+    """Phase 14, over an in-process process group of one rank
+    (``backend``: NCCL on the card, gloo in the CPU rehearsal) and its
+    (1, 1) ``("data", "model")`` mesh (``launch.mesh.make_host_mesh``):
+    (a) TRAIN_ARCH trained through ``launch.train.train(..., mesh=)``
+    as phase 9 trains it (``train_path``: steps, ms, MFU, peak, flash
+    launches a step), printed beside phase 9's (``full``); (b) the
+    sharded gradients against the one-process ones in float32 at
+    ``route_batch`` x ``seq`` (``fsdp_route_check``); (c) a sharded save
+    and restore at the smoke config (``fsdp_save_check``;
+    ``smoke_overrides``, e.g. the card's head_dim); then, after the group
+    is gone, (d) the dry run of ``cells`` (default every supported cell)
+    on the pod meshes 16 x 16 and 2 x 16 x 16 (host only). Nothing is
+    caught: a failure fails the phase. ``overrides``: config fields of
+    (a) and (b)."""
+    import torch.distributed as dist
+    from repro_torch.configs import (ARCHS, SHAPES, get_config,
+                                     get_smoke_config, supported)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    over = overrides or {}
+    cfg = dataclasses.replace(
+        get_smoke_config(TRAIN_ARCH) if smoke else get_config(TRAIN_ARCH),
+        **over)
+    dist.init_process_group(backend, init_method="tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(device=dev)
+        require(tuple(mesh.shape) == (1, 1)
+                and mesh.mesh_dim_names == ("data", "model"),
+                f"fsdp mesh {mesh}")
+        log(f"fsdp mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} "
+            f"({dist.get_backend()})")
+        t0 = time.perf_counter()
+        trained = train_path(dev, smoke=smoke, steps=steps, batch=batch,
+                             seq=seq, counters=counters, route_check=False,
+                             overrides=over, tag="fsdp train", mesh=mesh)
+        keys = ("warm_ms", "tokens_per_s", "mfu", "peak_mib",
+                "launches_per_step")
+        log("fsdp train vs phase 9 " + json.dumps(
+            {"fsdp": {k: trained[k] for k in keys},
+             "phase9": {k: full[k] for k in keys} if full else None}))
+        log(f"fsdp train ok ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        route = fsdp_route_check(
+            dataclasses.replace(cfg, compute_dtype="float32",
+                                attn_impl=kernel_impl(dev)),
+            dev, mesh, route_batch, seq)
+        release(dev)
+        saved = fsdp_save_check(dev, mesh, smoke_overrides)
+        release(dev)
+        log(f"fsdp routes and save ok ({time.perf_counter() - t0:.1f} s)")
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    if cells is None:
+        cells = [(a, s) for a in ARCHS for s in SHAPES if supported(a, s)]
+    recs = dryrun.run_mesh_cells(cells, [False, True])
+    require(all(r is not None for r in recs),
+            f"pod-mesh dry run: {sum(r is None for r in recs)} of "
+            f"{len(recs)} cells failed")
+    log(f"fsdp dryrun ok: {len(recs)} cells on 16x16 and 2x16x16 "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"train": trained, "routes": route, "save": saved,
+            "dryrun": recs}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3365,6 +3548,12 @@ def main() -> int:
     t0 = time.perf_counter()
     tooling_path(dev, counters=attn, full=trained)
     log(f"tooling path ok ({time.perf_counter() - t0:.1f} s)")
+    release(dev)
+
+    t0 = time.perf_counter()
+    fsdp_path(dev, "nccl", counters=attn, full=trained,
+              smoke_overrides={"head_dim": 64})
+    log(f"fsdp path ok ({time.perf_counter() - t0:.1f} s)")
     release(dev)
 
     t0 = time.perf_counter()

@@ -1,0 +1,222 @@
+"""The port's sharded training across several ranks, held against one
+process: what ``tests/test_torch_fsdp.py`` checks over gloo on the CPU,
+here over the collectives of the device's own backend (NCCL on cards).
+
+    python -m torch.distributed.run --nproc-per-node 4 \\
+        scripts/torch_fsdp_cards.py                    # four cards, NCCL
+    python -m torch.distributed.run --nproc-per-node 4 \\
+        scripts/torch_fsdp_cards.py --device cpu       # four gloo ranks
+
+Each rank takes one card (``LOCAL_RANK``). For each (mesh, compute
+dtype) of ``RUNS``, llama3-8b's smoke config trains ``STEPS`` steps
+from the same seeded weights through ``launch/fsdp.py``: the blocks
+cast and all-gathered, the float32 gradients summed over the data
+ranks, the global norm summed over the shards. Rank 0 then runs the
+one-process step on its own device on the same weights and batches,
+and holds the losses and grad norms, and in float32 the gathered
+params, in bfloat16 the first batch's gathered gradients, to the CPU
+tests' bounds (``TOL``); every rank must report the same losses. Then the
+(2, 2) run's params and AdamW state are saved sharded and restored onto
+the mesh bit for bit, and a save whose write fails must raise on every
+rank, in ``save`` and at ``save_async``'s ``wait``. Attention takes the
+plain route (``attn_impl="dense"``): the check is of the collectives,
+and the kernels' own are ``chip_smoke.py``'s.
+
+Rank 0 prints one JSON line a check and ``{"ok": ...}`` last; every
+rank exits 1 if a check failed.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import shutil
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+from repro_torch.checkpoint import CheckpointManager, restore, save  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.core.executor import resolve_device  # noqa: E402
+from repro_torch.data.pipeline import batch_at  # noqa: E402
+from repro_torch.launch import fsdp  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
+from repro_torch.models import model, steps  # noqa: E402
+from repro_torch.optim import adamw_init  # noqa: E402
+
+ARCH = "llama3-8b"
+RUNS = (((2, 2), "bfloat16"), ((4, 1), "bfloat16"), ((2, 2), "float32"))
+STEPS, BATCH, SEQ, SEED = 2, 8, 64, 0
+KW = dict(num_microbatches=2, peak_lr=1e-3, warmup_steps=1, total_steps=10)
+#: per compute dtype, ``tests/test_torch_fsdp.py``'s bounds: losses and
+#: grad norms (rtol); float32 params (atol); bfloat16 gradients, each
+#: leaf's largest error over its largest |value| ("grad")
+TOL = {"float32": {"rtol": 1e-5, "atol": 1e-6},
+       "bfloat16": {"rtol": 2e-5, "grad": 2e-2}}
+
+
+def run_steps(params, opt, step_fn, batches):
+    losses, norms = [], []
+    for b in batches:
+        params, opt, m = step_fn(params, opt, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return params, opt, losses, norms
+
+
+def rel_err(a: list, b: list) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def train_check(dev, shape, dtype):
+    """(record, layout, params blocks, opt blocks) of one mesh run; the
+    record's comparison is filled on rank 0."""
+    cfg = dataclasses.replace(get_smoke_config(ARCH), compute_dtype=dtype,
+                              attn_impl="dense")
+    batches = [batch_at(cfg, i, batch=BATCH, seq=SEQ, seed=SEED, device=dev)
+               for i in range(STEPS)]
+    layout = fsdp.Layout(cfg, mesh_lib.make_mesh(shape, dev))
+    t0 = time.perf_counter()
+    params = fsdp.init_params(cfg, layout, SEED, dev)
+    params, opt, losses, norms = run_steps(
+        params, adamw_init(params),
+        steps.make_train_step(cfg, layout=layout, **KW), batches)
+    whole = layout.full(params)
+    if dtype == "bfloat16":
+        # the first batch's gradients from the same initial weights
+        start = fsdp.init_params(cfg, layout, SEED, dev)
+        _, _, grads = steps.value_and_grad(cfg, start, batches[0],
+                                           layout=layout)
+        grads = layout.full(grads)
+        del start
+    rec = {"check": "train", "arch": ARCH, "mesh": list(shape),
+           "compute_dtype": dtype, "steps": STEPS, "batch": BATCH,
+           "seq": SEQ, "mesh_s": time.perf_counter() - t0,
+           "losses": losses, "grad_norms": norms,
+           "stored_numel": fsdp.numel(params),
+           "whole_numel": fsdp.numel(whole)}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, losses)
+    rec["ranks_agree"] = all(x == losses for x in every)
+    if dist.get_rank() == 0:
+        ref = model.init_params(cfg, SEED, dev)
+        ref, _, ref_losses, ref_norms = run_steps(
+            ref, adamw_init(ref), steps.make_train_step(cfg, **KW), batches)
+        tol = TOL[dtype]
+        rec.update({
+            "one_process": {"losses": ref_losses, "grad_norms": ref_norms},
+            "loss_rel_err": rel_err(losses, ref_losses),
+            "norm_rel_err": rel_err(norms, ref_norms), "tol": tol})
+        close = (rec["ranks_agree"] and rec["loss_rel_err"] <= tol["rtol"]
+                 and rec["norm_rel_err"] <= tol["rtol"])
+        if dtype == "bfloat16":
+            ref = model.init_params(cfg, SEED, dev)
+            _, _, ref_grads = steps.value_and_grad(cfg, ref, batches[0])
+            rec["grad_leaf_rel_err"] = max(
+                float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(model._leaves(grads),
+                                model._leaves(ref_grads)))
+            close = close and rec["grad_leaf_rel_err"] <= tol["grad"]
+        else:
+            pairs = list(zip(model._leaves(whole), model._leaves(ref)))
+            rec["param_max_abs_err"] = max(float((a - b).abs().max())
+                                           for a, b in pairs)
+            close = close and all(
+                torch.allclose(a, b, rtol=tol["rtol"], atol=tol["atol"])
+                for a, b in pairs)
+        rec["ok"] = bool(close)
+    return rec, layout, params, opt
+
+
+def save_check(dev, layout, params, opt) -> dict:
+    """The sharded save restored onto the same mesh bit for bit; a save
+    whose write fails raises on every rank."""
+    rank = dist.get_rank()
+    box = [tempfile.mkdtemp(prefix="fsdp_cards_") if rank == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    tmp = box[0]
+    bad = os.path.join(tmp, "not_a_directory")
+    if rank == 0:
+        Path(bad).write_text("")
+    specs = mesh_lib.named(layout.mesh, {
+        "params": layout.specs, "opt": mesh_lib.opt_specs(layout.specs)})
+    tree = {"params": params, "opt": opt}
+    save(os.path.join(tmp, "ckpt"), STEPS, tree, shardings=specs)
+    like = layout.shard(model.abstract_params(layout.cfg))
+    state = restore(os.path.join(tmp, "ckpt"), STEPS,
+                    {"params": like, "opt": adamw_init(like)}, dev, specs)
+    unequal = sum(not torch.equal(a, b) for a, b in
+                  zip(model._leaves(tree), model._leaves(state)))
+    errors = {}
+    try:
+        save(bad, 1, params, shardings=specs["params"])
+        errors["save"] = "no error"
+    except (OSError, RuntimeError) as e:
+        errors["save"] = type(e).__name__
+    mgr = CheckpointManager(bad)
+    mgr.save_async(1, params, shardings=specs["params"])
+    try:
+        mgr.wait()
+        errors["save_async"] = "no error"
+    except (OSError, RuntimeError) as e:
+        errors["save_async"] = type(e).__name__
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, {"unequal": unequal, "errors": errors})
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(tmp)
+    writer_raised = all(r["errors"][k] in ("FileExistsError",
+                                           "NotADirectoryError")
+                        for r in every[:1] for k in r["errors"])
+    others_raised = all(v == "RuntimeError" for r in every[1:]
+                        for v in r["errors"].values())
+    return {"check": "save", "mesh": list(layout.sizes.values()),
+            "ranks": every,
+            "ok": bool(all(r["unequal"] == 0 for r in every)
+                       and writer_raised and others_raised)}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", default=None,
+                    help="default: the GPU; 'cpu' runs gloo ranks")
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group(mesh_lib.BACKENDS[dev.type])
+    try:
+        if dist.get_world_size() != 4:
+            raise SystemExit("run on 4 ranks: the meshes are (2, 2) and "
+                             "(4, 1)")
+        records = []
+        for shape, dtype in RUNS:
+            rec, layout, params, opt = train_check(dev, shape, dtype)
+            records.append(rec)
+            if shape == (2, 2) and dtype == "bfloat16":
+                records.append(save_check(dev, layout, params, opt))
+            del layout, params, opt
+        ok = [all(r.get("ok", True) for r in records)]
+        dist.broadcast_object_list(ok, src=0)
+        if dist.get_rank() == 0:
+            if dev.type == "cuda":
+                records.append({"check": "device",
+                                "name": torch.cuda.get_device_name(0),
+                                "count": torch.cuda.device_count()})
+            for r in records:
+                print(json.dumps(r), flush=True)
+            print(json.dumps({"ok": ok[0]}), flush=True)
+        return 0 if ok[0] else 1
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,11 +7,19 @@ ported from ``repro/checkpoint/manager.py``.
 * **Async save** — the device-to-host copy happens on the caller's
   thread, the write on a background thread; the train loop only blocks
   on the *previous* save (one outstanding), hiding I/O behind compute.
-* **Restore onto a device** — arrays are stored whole (numpy) with the
-  tree's paths, so a checkpoint restores into any tree of the same
-  structure, on the device the caller names (``device=``; the JAX
-  package's ``shardings`` place shards on a mesh instead: a sharded
-  restore waits for a multi-card slice).
+* **Restore onto a device or a mesh** — arrays are stored whole
+  (numpy) with the tree's paths, so a checkpoint restores into any tree
+  of the same structure, on the device the caller names (``device=``),
+  and with ``shardings=`` (a tree, or a prefix of one, of
+  ``launch.mesh.NamedSpec`` or None) as each rank's blocks of a mesh:
+  a checkpoint written on one mesh restores on any other, or in one
+  process. This is what makes restore elastic across mesh changes.
+* **Sharded save** — ``save(..., shardings=)`` of a tree of blocks
+  gathers each leaf whole (every rank of the mesh takes part), the
+  mesh's first rank writes, and then every rank learns whether the
+  write was committed (``sharding.all_ranks_ok``): a failed write
+  raises on every rank, in ``save`` and at ``save_async``'s next
+  ``wait``. The file format is the unsharded one.
 * **Self-describing** — ``metadata.json`` carries step, timestamp, the
   caller's extra keys and the flattened tree's paths.
 
@@ -31,6 +39,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch import sharding
 
 
 def _flatten(tree, prefix: tuple = ()) -> list[tuple[str, Any]]:
@@ -73,23 +83,114 @@ def _to_host(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def _broadcast_prefix(prefix: Any, full: Any) -> list:
+    """Flatten ``prefix`` against ``full``'s structure (``_flatten``
+    order), broadcasting leaf values (``NamedSpec`` or None) over whole
+    subtrees — so callers can pass e.g. {"params": spec_tree, "opt":
+    None}."""
+    out: list = []
+
+    def rec(p, f):
+        if p is None or not isinstance(p, (dict, list, tuple)):
+            out.extend([p] * len(_flatten(f)))
+        elif isinstance(p, dict) and isinstance(f, dict):
+            for k in sorted(f):
+                rec(p[k], f[k])
+        elif isinstance(p, (list, tuple)) and isinstance(f, (list, tuple)):
+            for a, b in zip(p, f):
+                rec(a, b)
+        else:
+            raise TypeError(f"sharding prefix mismatch: {type(p)} vs "
+                            f"{type(f)}")
+
+    rec(prefix, full)
+    return out
+
+
+class _Mesh:
+    """What a sharded save or restore needs of the mesh of its specs:
+    this rank's coordinates, the axis groups, whether it writes, and
+    whether the writer committed."""
+
+    def __init__(self, specs: list):
+        meshes = {id(ns.mesh): ns.mesh for ns in specs if ns is not None}
+        if len(meshes) != 1:
+            raise ValueError(f"shardings name {len(meshes)} meshes; one "
+                             "is needed")
+        (self.mesh,) = meshes.values()
+        coords = self.mesh.get_coordinate()
+        if coords is None:
+            raise RuntimeError("this rank is not in the shardings' mesh")
+        self.coords = tuple(coords)
+        self.sizes = sharding.axis_sizes(self.mesh)
+        self.groups = sharding.mesh_groups(self.mesh)
+        self.writer = not any(self.coords)
+
+    def gather(self, leaf, ns):
+        if ns is None or not isinstance(leaf, torch.Tensor):
+            return leaf
+        return sharding.gather_block(leaf.detach(), ns.spec, self.sizes,
+                                     self.groups)
+
+    def committed(self, ok: bool) -> None:
+        """Every rank waits for the writer, and raises unless it
+        committed (``ok``: this rank's own part went well; the writer
+        re-raises its own error instead)."""
+        if not sharding.all_ranks_ok(ok, self.groups,
+                                     self.mesh.device_type) and ok:
+            raise RuntimeError("the checkpoint was not committed: its "
+                               "writer, the mesh's first rank, failed")
+
+
+def _host_leaves(tree: Any, shardings: Any):
+    """(the host copies of ``tree``'s leaves, or None on a rank that does
+    not write; the mesh, or None unsharded)."""
+    flat = _flatten(tree)
+    if shardings is None:
+        return [_to_host(leaf) for _, leaf in flat], None
+    specs = _broadcast_prefix(shardings, tree)
+    mesh = _Mesh(specs)
+    host = []
+    for (_, leaf), ns in zip(flat, specs):
+        whole = mesh.gather(leaf, ns)
+        if mesh.writer:
+            host.append(_to_host(whole))
+    return (host if mesh.writer else None), mesh
+
+
 def save(directory: str, step: int, tree: Any, *,
-         extra_meta: Optional[dict] = None) -> str:
+         extra_meta: Optional[dict] = None,
+         shardings: Any = None) -> str:
     """Blocking atomic save of a tree of tensors or arrays. Returns the
-    committed directory."""
+    committed directory. ``shardings``: the tree is this rank's blocks
+    (module docstring); every rank of the mesh calls this."""
+    host, mesh = _host_leaves(tree, shardings)
+    try:
+        if host is not None:
+            _write(directory, step, [p for p, _ in _flatten(tree)], host,
+                   extra_meta)
+    except BaseException:
+        if mesh is not None:
+            mesh.committed(False)
+        raise
+    if mesh is not None:
+        mesh.committed(True)
+    return os.path.join(directory, f"step_{step:08d}")
+
+
+def _write(directory: str, step: int, paths: list, host_leaves: list,
+           extra_meta: Optional[dict]) -> None:
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    flat = _flatten(tree)
-    host_leaves = [_to_host(leaf) for _, leaf in flat]
     np.savez(os.path.join(tmp, "arrays.npz"),
              **{f"leaf_{i}": a for i, a in enumerate(host_leaves)})
     meta = {"step": step, "time": time.time(),
             "num_leaves": len(host_leaves),
-            "paths": [path for path, _ in flat],
+            "paths": paths,
             **(extra_meta or {})}
     with open(os.path.join(tmp, "metadata.json"), "w") as f:
         json.dump(meta, f)
@@ -98,7 +199,6 @@ def save(directory: str, step: int, tree: Any, *,
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)      # atomic commit
-    return final
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -114,24 +214,40 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(directory: str, step: int, like: Any, device=None) -> Any:
-    """Restore into the structure of ``like`` (a tree of tensors): each
-    leaf in its ``like`` leaf's dtype, on ``device`` (``None``: the
-    ``like`` leaf's own device)."""
+def restore(directory: str, step: int, like: Any, device=None,
+            shardings: Any = None) -> Any:
+    """Restore into the structure of ``like`` (a tree of tensors, meta
+    ones included): each leaf in its ``like`` leaf's dtype, on
+    ``device`` (``None``: the ``like`` leaf's own device). With
+    ``shardings`` (a tree or prefix of ``NamedSpec`` or None), a leaf
+    with a spec becomes this rank's block of the stored array, and its
+    ``like`` leaf has the block's shape. Leaves are read one at a time."""
     path = os.path.join(directory, f"step_{step:08d}")
-    with np.load(os.path.join(path, "arrays.npz")) as z:
-        leaves = [z[f"leaf_{i}"] for i in range(len(z.files))]
     like_leaves = [leaf for _, leaf in _flatten(like)]
-    if len(leaves) != len(like_leaves):
-        raise ValueError(f"checkpoint has {len(leaves)} leaves, "
-                         f"target needs {len(like_leaves)}")
-    for got, want in zip(leaves, like_leaves):
-        if tuple(got.shape) != tuple(want.shape):
-            raise ValueError(f"shape mismatch {got.shape} vs "
-                             f"{tuple(want.shape)}")
-    out = [torch.from_numpy(a).to(device=device if device is not None
-                                   else want.device, dtype=want.dtype)
-           for a, want in zip(leaves, like_leaves)]
+    specs = (_broadcast_prefix(shardings, like) if shardings is not None
+             else [None] * len(like_leaves))
+    mesh = _Mesh(specs) if shardings is not None else None
+    out = []
+    with np.load(os.path.join(path, "arrays.npz")) as z:
+        if len(z.files) != len(like_leaves):
+            raise ValueError(f"checkpoint has {len(z.files)} leaves, "
+                             f"target needs {len(like_leaves)}")
+        for i, (want, ns) in enumerate(zip(like_leaves, specs)):
+            got = z[f"leaf_{i}"]
+            shape = (tuple(got.shape) if ns is None
+                     else sharding.block_shape(got.shape, ns.spec,
+                                               ns.mesh))
+            if shape != tuple(want.shape):
+                raise ValueError(f"shape mismatch {got.shape} "
+                                 f"({ns.spec if ns else 'whole'}) vs "
+                                 f"{tuple(want.shape)}")
+            t = torch.from_numpy(got)
+            if ns is not None:
+                t = sharding.block(t, ns.spec, ns.mesh, mesh.coords)
+                if t.numel() != got.size:
+                    t = t.clone()
+            out.append(t.to(device=device if device is not None
+                            else want.device, dtype=want.dtype))
     return _unflatten(like, out)
 
 
@@ -143,26 +259,36 @@ class CheckpointManager:
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._mesh: Optional[_Mesh] = None
 
     def wait(self) -> None:
+        """Until the outstanding save is committed; raises if it failed
+        (on a mesh, on every rank: each waits for the writer)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._error is not None:
-            err, self._error = self._error, None
+        mesh, self._mesh = self._mesh, None
+        err, self._error = self._error, None
+        if mesh is not None:
+            mesh.committed(err is None)
+        if err is not None:
             raise err
 
     def save_async(self, step: int, tree: Any,
-                   extra_meta: Optional[dict] = None) -> None:
+                   extra_meta: Optional[dict] = None,
+                   shardings: Any = None) -> None:
+        """``save`` in the background. The device-to-host copy (and on a
+        mesh the gathers) runs on the caller's thread: the tree may be
+        updated in place by the next step."""
         self.wait()                       # one outstanding save
-        # the device-to-host copy on the caller's thread: the tree may be
-        # updated in place by the next step
-        host = _unflatten(tree, [_to_host(leaf) for _, leaf in
-                                 _flatten(tree)])
+        host, self._mesh = _host_leaves(tree, shardings)
+        if host is None:                  # a rank of a mesh that does
+            return                        # not write
+        paths = [p for p, _ in _flatten(tree)]
 
         def work():
             try:
-                save(self.directory, step, host, extra_meta=extra_meta)
+                _write(self.directory, step, paths, host, extra_meta)
                 self._gc()
             except BaseException as e:     # surfaced on next wait()
                 self._error = e
@@ -179,10 +305,10 @@ class CheckpointManager:
                                        f"step_{s:08d}"),
                           ignore_errors=True)
 
-    def restore_latest(self, like: Any, device=None
+    def restore_latest(self, like: Any, device=None, shardings: Any = None
                        ) -> tuple[Optional[int], Any]:
         self.wait()
         step = latest_step(self.directory)
         if step is None:
             return None, like
-        return step, restore(self.directory, step, like, device)
+        return step, restore(self.directory, step, like, device, shardings)

@@ -5,6 +5,7 @@ device and size it for one H100, ported from ``repro/launch/dryrun.py``.
         --device-bytes 85520809984
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-1.7b \\
         --shape train_4k --batch 8 --seq 2048 --microbatches 2
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
 
 Per cell (``configs.SHAPES`` minus ``SKIPS``) it builds the step the
 port would run (``steps.make_train_step`` with ``adamw_init`` state,
@@ -33,10 +34,19 @@ allocated on any device. It records
   ``torch.cuda.get_device_properties(0).total_memory`` where a card is
   present, else under ``--device-bytes``.
 
-Not ported: the JAX version's pod meshes (``16x16``, ``2x16x16``) and
-their sharded argument sizes. They need ``param_specs``/``opt_specs``
-over a ``DeviceMesh``, which waits for the port's multi-card slice
-(ROADMAP.md). ``--batch/--seq/--microbatches`` name a shape of one's
+``--mesh pod|multipod|both`` sizes each cell on the reference's pod
+meshes instead (16 x 16 and 2 x 16 x 16, ``launch.mesh.
+make_production_mesh``; ``--mesh one``, the default, is the one-card
+run above): per device, the argument bytes of each part (params, AdamW
+state and batch; caches, tokens and ``kv_len`` for decode) from
+``mesh.param_specs``/``opt_specs``/``batch_specs``/``cache_specs`` on
+the meta device, the reference's ``argument_size_in_bytes``, and the
+model FLOPs per chip. No per-device activation peak is estimated on a
+pod mesh, since the port has no per-device program of such a mesh
+(its sharded step gathers weights and computes on one card's rows):
+the line says ``peak: not estimated``.
+
+``--batch/--seq/--microbatches`` name a shape of one's
 own (a chip phase's); ``--smoke`` takes the reduced configs (whose
 16-wide heads the flash kernels refuse: add ``--set head_dim=64``);
 ``--jobs`` sizes cells in that many processes
@@ -59,6 +69,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import (ARCHS, SHAPES, get_config,
                                  get_smoke_config, input_specs, supported)
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import model as model_lib
 from repro_torch.models import steps as steps_lib
 from repro_torch.models.flops import model_flops
@@ -251,6 +262,95 @@ def cell_line(r: dict) -> str:
             f"build={r['build_s']:.1f}s")
 
 
+def mesh_name(multi_pod: bool) -> str:
+    return "2x16x16" if multi_pod else "16x16"
+
+
+def run_mesh_cell(arch: str, shape_name: str, multi_pod: bool, *,
+                  outdir: str | None = None, overrides: dict | None = None,
+                  tag: str = "", smoke: bool = False) -> dict:
+    """One cell on a pod mesh (module docstring): per-device argument
+    bytes by part from the specs, model FLOPs per chip."""
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    mesh = mesh_lib.make_production_mesh(multi_pod=multi_pod)
+    chips = mesh.size()
+    sh = SHAPES[shape_name]
+    t0 = time.perf_counter()
+    spec = input_specs(cfg, shape_name)
+    params = model_lib.abstract_params(cfg)
+    ps = mesh_lib.param_specs(cfg, mesh, params)
+    parts = {"params": mesh_lib.block_bytes(params, ps, mesh)}
+    if sh["kind"] == "train":
+        parts["opt"] = mesh_lib.block_bytes(
+            adamw_init(params), mesh_lib.opt_specs(ps), mesh)
+    if sh["kind"] in ("train", "prefill"):
+        parts["batch"] = mesh_lib.block_bytes(
+            spec["batch"], mesh_lib.batch_specs(cfg, mesh, spec["batch"]),
+            mesh)
+    else:
+        parts["caches"] = mesh_lib.block_bytes(
+            spec["caches"], mesh_lib.cache_specs(cfg, mesh, spec["caches"]),
+            mesh)
+        io = {"tokens": spec["tokens"], "kv_len": spec["kv_len"]}
+        io_specs = mesh_lib.batch_specs(cfg, mesh, io)
+        for k, t in io.items():
+            parts[k] = mesh_lib.block_bytes({k: t}, {k: io_specs[k]}, mesh)
+    mf = model_flops(cfg, sh["kind"], sh["batch"], sh["seq"])
+    result = {
+        "arch": arch, "shape": shape_name, "kind": sh["kind"],
+        "batch": sh["batch"], "seq": sh["seq"],
+        "mesh": mesh_name(multi_pod), "chips": chips, "ok": True,
+        "build_s": time.perf_counter() - t0,
+        "memory": {"argument_bytes_per_device": sum(parts.values()),
+                   "argument_bytes_by_part": parts,
+                   "peak": "not estimated"},
+        "model_flops": mf,
+        "model_flops_per_chip": mf["total"] / chips,
+    }
+    if overrides:
+        result["overrides"] = {k: list(v) if isinstance(v, tuple) else v
+                               for k, v in overrides.items()}
+    if outdir:
+        os.makedirs(outdir, exist_ok=True)
+        suffix = f".{tag}" if tag else ""
+        with open(os.path.join(outdir, f"{arch}_{shape_name}_"
+                               f"{result['mesh']}{suffix}.json"), "w") as f:
+            json.dump(result, f, indent=1)
+    return result
+
+
+def mesh_cell_line(r: dict) -> str:
+    m = r["memory"]
+    parts = " ".join(f"{k}={v / 2**30:.3f}GiB"
+                     for k, v in m["argument_bytes_by_part"].items())
+    return (f"OK   {r['arch']} x {r['shape']} x {r['mesh']} "
+            f"({r['chips']} chips): args/dev="
+            f"{m['argument_bytes_per_device'] / 2**30:.3f}GiB ({parts}) "
+            f"flops/chip={r['model_flops_per_chip']:.4g} "
+            "peak: not estimated")
+
+
+def run_mesh_cells(cells: list, meshes: list, **kw) -> list:
+    """Every (arch, shape) of ``cells`` on each pod mesh of ``meshes``
+    (``multi_pod`` flags), in this process (specs only: no step runs);
+    prints each line and returns the records (None for a failure)."""
+    out = []
+    for a, s in cells:
+        for mp in meshes:
+            try:
+                r = run_mesh_cell(a, s, mp, **kw)
+                line = mesh_cell_line(r)
+            except Exception as e:  # noqa: BLE001 - a cell's failure is its line
+                r, line = None, (f"FAIL {a} x {s} x {mesh_name(mp)}: "
+                                 f"{type(e).__name__}: {e}\n"
+                                 f"{traceback.format_exc()}")
+            print(line, flush=True)
+            out.append(r)
+    return out
+
+
 def _run_one(job: tuple) -> tuple[dict | None, str]:
     """(record or None, the cell's printed line) of one cell."""
     a, s, kw = job
@@ -309,18 +409,29 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced configs")
     ap.add_argument("--jobs", type=int, default=1)
+    ap.add_argument("--mesh", choices=["one", "pod", "multipod", "both"],
+                    default="one",
+                    help="one card (default), or the pod meshes 16x16 "
+                    "and 2x16x16 (both)")
     args = ap.parse_args(argv)
     overrides = dict(_parse_override(kv) for kv in args.overrides)
-    budget = device_bytes(args.device_bytes)
     archs = [args.arch] if args.arch else list(ARCHS)
     shapes = [args.shape] if args.shape else list(SHAPES)
     cells = [(a, s) for a in archs for s in shapes if supported(a, s)]
-    got = run_cells(cells, jobs=args.jobs, budget=budget,
-                    outdir=args.outdir, overrides=overrides, tag=args.tag,
-                    batch=args.batch, seq=args.seq,
-                    microbatches=args.microbatches, smoke=args.smoke)
+    if args.mesh == "one":
+        got = run_cells(cells, jobs=args.jobs,
+                        budget=device_bytes(args.device_bytes),
+                        outdir=args.outdir, overrides=overrides,
+                        tag=args.tag, batch=args.batch, seq=args.seq,
+                        microbatches=args.microbatches, smoke=args.smoke)
+    else:
+        meshes = {"pod": [False], "multipod": [True],
+                  "both": [False, True]}[args.mesh]
+        got = run_mesh_cells(cells, meshes, outdir=args.outdir,
+                             overrides=overrides, tag=args.tag,
+                             smoke=args.smoke)
     failures = sum(r is None for r in got)
-    print(f"done: {len(cells) - failures}/{len(cells)} cells OK")
+    print(f"done: {len(got) - failures}/{len(got)} cells OK")
     return 1 if failures else 0
 
 

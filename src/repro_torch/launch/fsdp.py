@@ -1,0 +1,232 @@
+"""Fully sharded parameters over a ``("data", "model")`` (or ``("pod",
+"data", "model")``) ``DeviceMesh``: each rank holds its block of every
+leaf, as ``launch/mesh.py``'s specs say, and blocks move between ranks
+where the model uses them. The reference leaves this to GSPMD, which
+places each leaf by its ``NamedSharding`` and inserts the collectives.
+
+* **Storage.** ``Layout.shard`` (or ``init_params``, which draws the
+  model layer by layer and keeps each layer's blocks at once, so no
+  rank ever holds the whole float32 model) keeps only this rank's
+  block of each leaf: the rank's parameter, gradient, m and v bytes are
+  the reference's per-device argument bytes.
+* **Compute runs on gathered weights.** ``gather_layer`` casts each
+  block to the compute dtype (which halves the traffic; the cast is
+  elementwise, so the values are those of casting the whole leaf) and
+  all-gathers it over the axes its spec uses. The model gathers each
+  layer inside the function that ``checkpoint`` wraps, so the backward
+  gathers it again instead of keeping every layer's full weights.
+* **Gradients.** The gather's backward upcasts the full-shape gradient
+  to float32, sums it over the ranks that split the batch (``pod``,
+  ``data``) and keeps this rank's block: a reduce-scatter in float32,
+  as the reference's gradients of its float32 params are float32 (a
+  bfloat16 sum would drift). A slice alone, which is what DTensor's
+  Replicate-to-Shard backward does, would drop the other ranks' rows.
+  The sum is an all-reduce followed by the slice (gloo has no
+  reduce-scatter).
+* **The ``model`` axis is storage only.** Every rank along ``model``
+  computes the same rows with the same gathered weights; nothing sums
+  over it. Tensor-parallel compute over ``model`` is later work.
+* **Batches.** Every rank builds the same global batch; ``local_batch``
+  keeps its rows of each microbatch (per ``batch_specs``), which must
+  split evenly over (pod, data). The loss divides each rank's summed
+  nll by the token count summed over those ranks (``batch_sum``), so
+  the ranks' losses and gradients add up to the global ones.
+* **MoE under data x pod > 1 is refused** (``check_supported``):
+  capacity and the Switch aux loss are computed over the whole
+  microbatch's tokens in the reference, and a rank's own tokens give
+  other drops and another aux.
+
+Collectives run over the mesh's own groups (one per axis of size > 1),
+so a mesh over a subgroup of the world works (``runtime/elastic.py``).
+At world 1 no collective runs and the results are those of the
+one-process path, bit for bit.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import sharding
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import model as model_lib
+
+Params = dict[str, Any]
+
+
+def batch_ranks(mesh) -> int:
+    """How many ranks split the batch: the product of the pod and data
+    axis sizes."""
+    return math.prod(sharding.axis_sizes(mesh).get(a, 1)
+                     for a in mesh_lib.BATCH)
+
+
+def check_supported(cfg, mesh) -> None:
+    """Raise ``ValueError`` for what the sharded step cannot compute as
+    the reference does: MoE routing when the batch is split."""
+    if cfg.num_experts and batch_ranks(mesh) > 1:
+        raise ValueError(
+            f"{cfg.name}: MoE capacity and aux loss are computed over the "
+            "whole microbatch; a batch split over "
+            f"{batch_ranks(mesh)} ranks (pod x data) would route each "
+            "rank's tokens alone. Use data = pod = 1 for MoE models")
+
+
+def _map2(fn, tree, specs):
+    """``fn(leaf, spec)`` in the tree's structure."""
+    if isinstance(tree, dict):
+        return {k: _map2(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map2(fn, v, s) for v, s in zip(tree, specs))
+    return fn(tree, specs)
+
+
+class _Gather(torch.autograd.Function):
+    """Forward: cast the block, all-gather it. Backward: upcast the
+    gradient to float32, sum it over the batch ranks, keep the block."""
+
+    @staticmethod
+    def forward(ctx, shard, layout, spec, dtype):
+        ctx.layout, ctx.spec, ctx.dtype = layout, spec, shard.dtype
+        x = shard if dtype is None else shard.to(dtype)
+        return layout.all_gather(x, spec)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = ctx.layout.reduce_block(grad.float(), ctx.spec)
+        return g.to(ctx.dtype), None, None, None
+
+
+class Layout:
+    """Where each parameter leaf lives on ``mesh`` (a ``DeviceMesh``
+    named ``("data", "model")`` or ``("pod", "data", "model")``) and how
+    its blocks move: ``specs`` is ``mesh.param_specs(cfg, mesh)``.
+    Raises ``ValueError`` where ``check_supported`` does."""
+
+    def __init__(self, cfg, mesh):
+        check_supported(cfg, mesh)
+        mesh_lib.require_group(mesh.device_type, "a sharded layout")
+        self.cfg = cfg
+        self.mesh = mesh
+        self.sizes = sharding.axis_sizes(mesh)
+        coords = mesh.get_coordinate()
+        if coords is None:
+            raise RuntimeError(f"rank {dist.get_rank()} is not in the mesh "
+                               f"{mesh}")
+        self.coords = tuple(coords)
+        self.groups = sharding.mesh_groups(mesh)
+        self.batch_axes = tuple(a for a in mesh_lib.BATCH
+                                if a in self.groups)
+        self.specs = mesh_lib.param_specs(cfg, mesh)
+
+    # -- blocks ------------------------------------------------------------
+
+    def block(self, full: torch.Tensor, spec: tuple) -> torch.Tensor:
+        """This rank's block of ``full``: a copy where the spec splits
+        it (the full tensor may be freed), ``full`` itself where not."""
+        out = sharding.block(full, spec, self.mesh, self.coords)
+        return out.clone() if out.shape != full.shape else out
+
+    def shard(self, tree: Params) -> Params:
+        """Copies of this rank's blocks of a parameter-shaped tree; the
+        tree is left as it is."""
+        return _map2(lambda t, s: sharding.block(t, s, self.mesh,
+                                                 self.coords).clone(),
+                     tree, self.specs)
+
+    def keep(self, where: tuple, tree):
+        """``model.init_params``'s hook: the blocks of the subtree at
+        ``where`` (a key path), as soon as it is drawn."""
+        specs = self.specs
+        for k in where:
+            specs = specs[k]
+        return _map2(self.block, tree, specs)
+
+    # -- collectives -------------------------------------------------------
+
+    def all_gather(self, x: torch.Tensor, spec: tuple) -> torch.Tensor:
+        """The whole leaf from this rank's block ``x``
+        (``sharding.gather_block``)."""
+        return sharding.gather_block(x, spec, self.sizes, self.groups)
+
+    def reduce_block(self, g: torch.Tensor, spec: tuple) -> torch.Tensor:
+        """The sum over the batch ranks of a full-shape gradient, then
+        this rank's block of it."""
+        if self.batch_axes:
+            g = g.contiguous()
+            for a in self.batch_axes:
+                dist.all_reduce(g, group=self.groups[a])
+        return self.block(g, spec)
+
+    def batch_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the ranks that split the batch, detached."""
+        if not self.batch_axes:
+            return x.detach()
+        x = x.detach().clone()
+        for a in self.batch_axes:
+            dist.all_reduce(x, group=self.groups[a])
+        return x
+
+    # -- what the model and the step call ----------------------------------
+
+    def gather(self, shard: torch.Tensor, spec: tuple, dtype=None):
+        """The whole leaf for compute, in ``dtype`` (cast before the
+        gather) where given; differentiable."""
+        if dtype is not None and shard.dtype != torch.float32:
+            dtype = None
+        return _Gather.apply(shard, self, spec, dtype)
+
+    def gather_layer(self, i: int, p: Params) -> Params:
+        """Layer ``i``'s weights from its blocks ``p``, every float32
+        leaf in the compute dtype (``model.cast_layers``' rule)."""
+        cd = self.cfg.cdtype
+        return _map2(lambda t, s: self.gather(t, s, cd), p,
+                     self.specs["layers"][i])
+
+    def gather_top(self, params: Params, names, dtype=None) -> Params:
+        """The top-level entries ``names`` (those present) gathered."""
+        return {k: _map2(lambda t, s: self.gather(t, s, dtype), params[k],
+                         self.specs[k])
+                for k in names if k in params}
+
+    def local_batch(self, batch: dict) -> dict:
+        """This rank's rows of a (micro)batch, which must split evenly
+        over every batch axis of the mesh."""
+        specs = mesh_lib.batch_specs(self.cfg, self.mesh, batch)
+        out = {}
+        for key, x in batch.items():
+            spec = specs[key]
+            ax = 1 if key == "positions" else 0
+            if set(self.batch_axes) - set(sharding.entry_axes(spec[ax])):
+                raise ValueError(
+                    f"{key}: {x.shape[ax]} rows do not split over the "
+                    f"{batch_ranks(self.mesh)} batch ranks (pod x data)")
+            out[key] = sharding.block(x, spec, self.mesh, self.coords)
+        return out
+
+    def norm_groups(self, tree: Params) -> list:
+        """For each leaf of ``tree`` (``model._leaves`` order), the groups
+        to sum its squares over: the axes its spec splits (a replicated
+        axis holds copies, counted once)."""
+        return [tuple(self.groups[a] for a in sharding.spec_axes(s)
+                      if a in self.groups)
+                for _, s in mesh_lib.zip_specs(tree, self.specs)]
+
+    def full(self, tree: Params) -> Params:
+        """The whole leaves of a parameter-shaped tree of blocks (no
+        gradient)."""
+        with torch.no_grad():
+            return _map2(self.all_gather, tree, self.specs)
+
+
+def init_params(cfg, layout: Layout, seed: int = 0, device=None) -> Params:
+    """``model.init_params``' seeded weights, each layer's and each
+    top-level leaf's blocks kept as soon as it is drawn: the same values
+    as the whole model's blocks."""
+    return model_lib.init_params(cfg, seed, device, keep=layout.keep)
+
+
+def numel(tree) -> int:
+    return sum(t.numel() for t in model_lib._leaves(tree))

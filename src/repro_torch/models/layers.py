@@ -188,7 +188,19 @@ def chunked_cross_entropy_loss(x: torch.Tensor, embed: torch.Tensor,
                                labels: torch.Tensor, num_chunks: int = 8,
                                final_softcap: float | None = None
                                ) -> torch.Tensor:
-    """Cross-entropy without materializing the full (T, V) logits.
+    """The mean nll over the valid labels: ``chunked_cross_entropy_sums``'
+    sum over max(count, 1)."""
+    tot, cnt = chunked_cross_entropy_sums(x, embed, labels, num_chunks,
+                                          final_softcap)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def chunked_cross_entropy_sums(x: torch.Tensor, embed: torch.Tensor,
+                               labels: torch.Tensor, num_chunks: int = 8,
+                               final_softcap: float | None = None
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy without materializing the full (T, V) logits: (the
+    sum of nll over the valid labels, their count), float32.
 
     x: (T, d) final hidden states, embed: (V, d) output embedding matrix,
     labels: (T,), -1 ignored. T is padded to a multiple of
@@ -216,4 +228,4 @@ def chunked_cross_entropy_loss(x: torch.Tensor, embed: torch.Tensor,
             nll, valid = _chunk_nll(xi, embed, li, final_softcap)
         tot = tot + nll
         cnt = cnt + valid
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot, cnt

@@ -231,31 +231,39 @@ def _init_block(cfg: ModelConfig, spec: BlockSpec, gen, device) -> Params:
     return p
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Params:
+def init_params(cfg: ModelConfig, seed: int = 0, device=None,
+                keep=None) -> Params:
     """Seeded random weights on ``device`` (``None``: the GPU; one
     ``torch.Generator`` of that device, drawn layer by layer):
     ``{"embed", "layers": [one dict per layer], "final_norm",
-    "frontend_proj"?, "lm_head"?}``."""
+    "frontend_proj"?, "lm_head"?}``. ``keep(where, tree)``, where given,
+    replaces each layer's tree (``where`` ``("layers", i)``) and each
+    top-level leaf (``(name,)``) as soon as it is drawn: a sharded run
+    keeps its blocks (``launch/fsdp.py``); the draws are unchanged."""
     check_supported(cfg)
     device = resolve_device(device)
     gen = None
     if device.type != "meta":
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-    layers = [_init_block(cfg, cfg.layer_spec(i), gen, device)
+    keep = keep or (lambda where, tree: tree)
+    layers = [keep(("layers", i), _init_block(cfg, cfg.layer_spec(i), gen,
+                                              device))
               for i in range(cfg.num_layers)]
     p: Params = {
-        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, cfg.pdtype,
-                            device),
+        "embed": keep(("embed",), embed_init(gen, cfg.vocab_size,
+                                             cfg.d_model, cfg.pdtype,
+                                             device)),
         "layers": layers,
-        "final_norm": rmsnorm_init(cfg.d_model, cfg.pdtype, device),
+        "final_norm": keep(("final_norm",),
+                           rmsnorm_init(cfg.d_model, cfg.pdtype, device)),
     }
     if cfg.frontend in ("frames", "patches") and cfg.frontend_dim:
-        p["frontend_proj"] = dense_init(gen, cfg.frontend_dim, cfg.d_model,
-                                        cfg.pdtype, device)
+        p["frontend_proj"] = keep(("frontend_proj",), dense_init(
+            gen, cfg.frontend_dim, cfg.d_model, cfg.pdtype, device))
     if not cfg.tie_embeddings:
-        p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
-                                  cfg.pdtype, device)
+        p["lm_head"] = keep(("lm_head",), dense_init(
+            gen, cfg.d_model, cfg.vocab_size, cfg.pdtype, device))
     return p
 
 
@@ -466,20 +474,43 @@ def _remat(cfg: ModelConfig, params: Params) -> dict | None:
     return {"use_reentrant": False}     # "full", as any other name there
 
 
+def _apply_gathered(cfg: ModelConfig, spec: BlockSpec, layout, i: int,
+                    p: Params, h: torch.Tensor, positions: torch.Tensor):
+    """``_apply_block`` on layer ``i``'s weights gathered from its blocks
+    ``p`` (``launch/fsdp.py``): under ``checkpoint`` the backward gathers
+    them again."""
+    return _apply_block(cfg, spec, layout.gather_layer(i, p), h, positions)
+
+
 def _run_blocks(cfg: ModelConfig, params: Params, batch: dict,
-                caches: list | None):
+                caches: list | None, layout=None):
     """(final hidden states, the sum of the MoE aux losses in float32);
-    appends each layer's cache to ``caches`` where given."""
+    appends each layer's cache to ``caches`` where given. ``layout``
+    (``launch/fsdp.Layout``): ``params`` are this rank's blocks,
+    gathered where they are used."""
     check_supported(cfg)
     remat = _remat(cfg, params) if caches is None else None
-    layers = cast_layers(cfg, params["layers"])
+    if layout is None:
+        layers = cast_layers(cfg, params["layers"])
+    else:
+        if caches is not None:
+            raise ValueError("a sharded forward has no decode caches")
+        layers = params["layers"]
+        params = layout.gather_top(params, ("embed", "frontend_proj",
+                                            "final_norm"))
     h, positions = _embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, p in enumerate(layers):
         spec = cfg.layer_spec(i)
+        if layout is not None:
+            fn, args = _apply_gathered, (cfg, spec, layout, i, p, h,
+                                         positions)
+        else:
+            fn, args = _apply_block, (cfg, spec, p, h, positions)
         if remat is not None:
-            h, a = checkpoint(_apply_block, cfg, spec, p, h, positions,
-                              **remat)
+            h, a = checkpoint(fn, *args, **remat)
+        elif layout is not None:
+            h, a = fn(*args)
         else:
             h, a, cache = _apply_block_with_cache(cfg, spec, p, h,
                                                   positions)
@@ -490,10 +521,11 @@ def _run_blocks(cfg: ModelConfig, params: Params, batch: dict,
     return rmsnorm(params["final_norm"], h, cfg.norm_eps), aux
 
 
-def forward(cfg: ModelConfig, params: Params, batch: dict):
+def forward(cfg: ModelConfig, params: Params, batch: dict, layout=None):
     """Full-sequence forward -> (final hidden states (B, S, d), the MoE
-    layers' summed load-balance loss (0 without MoE))."""
-    return _run_blocks(cfg, params, batch, None)
+    layers' summed load-balance loss (0 without MoE)). ``layout``: the
+    sharded run's (``params`` this rank's blocks)."""
+    return _run_blocks(cfg, params, batch, None, layout)
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: dict):

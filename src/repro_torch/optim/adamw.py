@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.model import _leaves, tree_map
 
@@ -30,19 +31,38 @@ def adamw_init(params: Params) -> dict:
     }
 
 
-def global_norm(tree: Params) -> torch.Tensor:
-    total = None
-    for leaf in _leaves(tree):
+def global_norm(tree: Params, norm_groups: list | None = None
+                ) -> torch.Tensor:
+    """The square root of the sum of every leaf's squares. Over a
+    sharded tree (each rank holds blocks, ``launch/fsdp.py``),
+    ``norm_groups`` gives each leaf (``_leaves`` order) the process
+    groups whose ranks hold its distinct blocks: leaves that share
+    groups are summed locally, all-reduced over those groups, then
+    added, so a leaf replicated over an axis counts once and every rank
+    gets the same norm. With no group anywhere (one rank) the sum is
+    the unsharded one, in the same order."""
+    if norm_groups is None:
+        norm_groups = [()] * len(list(_leaves(tree)))
+    buckets: dict = {}
+    for leaf, groups in zip(_leaves(tree), norm_groups):
         sq = torch.sum(torch.square(leaf.float()))
+        buckets[groups] = sq if groups not in buckets \
+            else buckets[groups] + sq
+    total = None
+    for groups, sq in buckets.items():
+        for group in groups:
+            dist.all_reduce(sq, group=group)
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: Params, max_norm: float
+def clip_by_global_norm(grads: Params, max_norm: float,
+                        norm_groups: list | None = None
                         ) -> tuple[Params, torch.Tensor]:
-    """Scale the gradients in place so that their global norm is at most
-    ``max_norm``; returns them and the norm before clipping."""
-    norm = global_norm(grads)
+    """Scale the gradients in place so that their global norm
+    (``global_norm``) is at most ``max_norm``; returns them and the norm
+    before clipping."""
+    norm = global_norm(grads, norm_groups)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     with torch.no_grad():
         for g in _leaves(grads):
@@ -67,16 +87,20 @@ def decompress_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 def adamw_update(grads: Params, opt_state: dict, params: Params, *,
                  lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.1, max_grad_norm: float = 1.0,
-                 decay_mask: Params | None = None
+                 decay_mask: Params | None = None,
+                 norm_groups: list | None = None
                  ) -> tuple[Params, dict, dict]:
     """One AdamW step with global-norm clipping. Updates ``params`` and
     the state's m and v in place (the gradients too: cast to float32 and
     clipped) and returns (params, new state, {"grad_norm"}). Weight decay
     applies to leaves with ndim >= 2 only (not norms or biases), or
     where ``decay_mask`` (a tree of bools like ``params``) says so; the
-    bias corrections are ``1 - b ** step`` in float32."""
+    bias corrections are ``1 - b ** step`` in float32. On a sharded
+    tree, ``norm_groups`` (``global_norm``) makes the clip the same on
+    every rank; the update is elementwise and runs on the blocks."""
     grads = tree_map(lambda g: g.float(), grads)
-    grads, grad_norm = clip_by_global_norm(grads, max_grad_norm)
+    grads, grad_norm = clip_by_global_norm(grads, max_grad_norm,
+                                           norm_groups)
     step = opt_state["step"] + 1
     stepf = step.to(torch.float32)
     bc1 = 1.0 - b1 ** stepf

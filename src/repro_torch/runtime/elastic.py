@@ -1,6 +1,7 @@
 """Elastic re-meshing after node loss, ported from
 ``repro/runtime/elastic.py``: ``remesh_plan`` is a copy;
-``build_mesh_from_plan`` builds a torch ``DeviceMesh``.
+``build_mesh_from_plan`` builds a torch ``DeviceMesh``, over a subgroup
+of the surviving ranks where the plan uses fewer than the world.
 
 On failure/straggler exclusion the driver: (1) stops issuing steps,
 (2) computes a new mesh over surviving hosts (largest power-of-two
@@ -67,12 +68,22 @@ def remesh_plan(state: ElasticState, surviving_hosts: list[int],
 
 
 def build_mesh_from_plan(plan: dict, device_type: str = "cuda"):
-    """The plan's (data, model) mesh as a ``DeviceMesh`` over the first
-    data x model ranks of the initialized ``torch.distributed`` group
-    (the JAX version takes the first devices of ``jax.devices()``)."""
+    """The plan's (data, model) mesh as a ``DeviceMesh`` of the
+    initialized ``torch.distributed`` group (the JAX version takes the
+    first devices of ``jax.devices()``): over the first data x model
+    of the plan's surviving ``hosts``, a host being one rank (torchrun
+    starts one process a device), or of the whole group for a plan
+    without ``hosts``. Where that is fewer ranks than the world, the
+    mesh lives on a subgroup: every rank of the group calls this (the
+    groups are made collectively), and a rank outside the mesh gets one
+    whose ``get_coordinate()`` is None."""
     import torch
     from torch.distributed.device_mesh import DeviceMesh
-    shape = plan["mesh_shape"]
-    ranks = torch.arange(shape[0] * shape[1]).reshape(shape)
-    return DeviceMesh(device_type, ranks,
+    shape = tuple(plan["mesh_shape"])
+    n = shape[0] * shape[1]
+    ranks = list(plan["hosts"])[:n] if "hosts" in plan else list(range(n))
+    if len(ranks) < n:
+        raise ValueError(f"plan {shape} needs {n} ranks; the surviving "
+                         f"hosts hold {len(ranks)}")
+    return DeviceMesh(device_type, torch.tensor(ranks).reshape(shape),
                       mesh_dim_names=tuple(plan["axis_names"]))
