@@ -154,9 +154,15 @@ Phases, each printed as it runs:
    step), printed beside phase 9's; its float32 gradients at 4 x 2048
    against the one-process ``value_and_grad`` (loss, global norm and all
    310 leaves bit for bit, else within FSDP_ROUTE_RTOL); a sharded save
-   and restore at the smoke config, bit for bit; then the dry run of the
-   33 cells on the pod meshes 16 x 16 and 2 x 16 x 16 (per-device
-   argument bytes from the specs, host only).
+   and restore at the smoke config, bit for bit; granite-moe-1b-a400m
+   trained the same way (14e: 4 steps of 8 x 2048, the MoE layers
+   through ``fsdp.MoeExchange`` with all 32 experts on the one ``model``
+   rank; 96 flash forward and 48 backward launches a step), printed
+   beside phase 10's, and its float32 gradients at 4 x 2048 against the
+   one-process ones (loss, global norm, ``moe_aux`` and every leaf, as
+   qwen3's); then the dry run of the 33 cells on the pod meshes 16 x 16
+   and 2 x 16 x 16 (per-device argument bytes from the specs, host
+   only).
 
 Phase 3's ``query`` lines also give each query's peak device memory and
 the join kernel's hash-table scratch (``join_table_mib``); phase 6's
@@ -308,9 +314,10 @@ DRYRUN_JOBS = 8            # cells sized at once, one process each
 # one computation, the 2-D products saved or recomputed
 DOTS_ROUTE_BATCH = 4
 DOTS_TRAIN_TOL = {"loss": 1e-6, "norm": 1e-6, "leaf": 1e-4}
-# phase 14: the sharded path against the one-process one in float32 at
-# one rank, where no collective runs: the same computation, expected bit
-# for bit; where not, each difference within this relative bound
+# phase 14 (qwen3-1.7b and, 14e, granite-moe-1b-a400m): the sharded path
+# against the one-process one in float32 at one rank, where no
+# collective runs: the same computation, expected bit for bit; where
+# not, each difference within this relative bound
 FSDP_ROUTE_BATCH = 4
 FSDP_ROUTE_RTOL = 1e-6
 FSDP_SAVE = dict(steps=2, ckpt_every=2, batch=2, seq=64)
@@ -3176,8 +3183,9 @@ def fsdp_route_check(cfg, dev, mesh, batch: int, seq: int) -> dict:
     """``steps.value_and_grad`` of the same seeded params and batch 0 in
     one process and through the sharded path (``launch/fsdp.Layout`` on
     ``mesh``, the gradients gathered whole): the loss, the global norm
-    (summed over shards) and every leaf, bit for bit, else each within
-    FSDP_ROUTE_RTOL of its own largest |value|."""
+    (summed over shards), a MoE model's ``moe_aux`` and every leaf, bit
+    for bit, else each within FSDP_ROUTE_RTOL of its own largest
+    |value|. The record's ``holds`` says which."""
     import torch
     from repro_torch.data.pipeline import batch_at
     from repro_torch.launch import fsdp
@@ -3186,12 +3194,12 @@ def fsdp_route_check(cfg, dev, mesh, batch: int, seq: int) -> dict:
     params = model.init_params(cfg, SEED, dev)
     bt = batch_at(cfg, 0, batch=batch, seq=seq, seed=SEED, device=dev)
     t0 = time.perf_counter()
-    loss0, _, g0 = steps.value_and_grad(cfg, params, bt)
+    loss0, parts0, g0 = steps.value_and_grad(cfg, params, bt)
     n0 = global_norm(g0)
     t1 = time.perf_counter()
     layout = fsdp.Layout(cfg, mesh)
-    loss1, _, g1 = steps.value_and_grad(cfg, layout.shard(params), bt,
-                                        layout=layout)
+    loss1, parts1, g1 = steps.value_and_grad(cfg, layout.shard(params), bt,
+                                             layout=layout)
     n1 = global_norm(g1, layout.norm_groups(g1))
     g1 = layout.full(g1)
     t2 = time.perf_counter()
@@ -3202,18 +3210,26 @@ def fsdp_route_check(cfg, dev, mesh, batch: int, seq: int) -> dict:
     worst = max(float((a - b).abs().max()) / max(float(b.abs().max()),
                                                  1e-30)
                 for _, a, b in pairs)
+    scalars = {"loss": (loss0, loss1), "grad_norm": (n0, n1)}
+    if cfg.num_experts:
+        scalars["moe_aux"] = (parts0["moe_aux"], parts1["moe_aux"])
+    equal = {k: bool(torch.equal(a, b)) for k, (a, b) in scalars.items()}
+    rel = max(abs(float(b) - float(a)) / abs(float(a))
+              for a, b in scalars.values())
     rec = {"arch": cfg.name, "compute_dtype": cfg.compute_dtype,
            "batch": batch, "seq": seq, "leaves": len(pairs),
-           "loss": {"one": float(loss0), "mesh": float(loss1)},
-           "grad_norm": {"one": float(n0), "mesh": float(n1)},
-           "loss_equal": bool(torch.equal(loss0, loss1)),
-           "norm_equal": bool(torch.equal(n0, n1)),
+           **{k: {"one": float(a), "mesh": float(b)}
+              for k, (a, b) in scalars.items()},
+           "loss_equal": equal["loss"], "norm_equal": equal["grad_norm"],
+           **({"aux_equal": equal["moe_aux"]} if "moe_aux" in equal
+              else {}),
            "unequal_leaves": unequal, "grad_leaf_rel_err": worst,
+           "scalar_rel_err": rel,
+           "holds": ("bit for bit" if all(equal.values()) and not unequal
+                     else "within rtol"),
            "rtol": FSDP_ROUTE_RTOL, "one_s": t1 - t0, "mesh_s": t2 - t1}
     log("fsdp routes " + json.dumps(rec))
     del g0, g1
-    rel = max(abs(float(loss1) - float(loss0)) / abs(float(loss0)),
-              abs(float(n1) - float(n0)) / float(n0))
     require(rel <= FSDP_ROUTE_RTOL and worst <= FSDP_ROUTE_RTOL,
             f"fsdp routes disagree: {rec}")
     return rec
@@ -3259,8 +3275,39 @@ def fsdp_save_check(dev, mesh, overrides: dict | None = None) -> dict:
     return rec
 
 
+def fsdp_moe_path(dev, mesh, *, smoke: bool, counters: dict | None,
+                  full: dict | None, steps: int, batch: int, seq: int,
+                  route_batch: int) -> dict:
+    """Phase 14e on ``mesh``: MOE_ARCH trained through
+    ``launch.train.train(..., mesh=)`` as phase 10 trains it
+    (``train_path``), printed beside phase 10's (``full``); then its
+    float32 gradients at ``route_batch`` x ``seq`` against the
+    one-process ones (``fsdp_route_check``: loss, norm, ``moe_aux`` and
+    every leaf)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    t0 = time.perf_counter()
+    trained = train_path(dev, arch=MOE_ARCH, smoke=smoke, steps=steps,
+                         batch=batch, seq=seq, counters=counters,
+                         route_check=False, tag="fsdp moe train", mesh=mesh)
+    keys = ("warm_ms", "tokens_per_s", "mfu", "peak_mib",
+            "launches_per_step")
+    log("fsdp moe train vs phase 10 " + json.dumps(
+        {"fsdp": {k: trained[k] for k in keys},
+         "phase10": {k: full[k] for k in keys} if full else None}))
+    cfg = get_smoke_config(MOE_ARCH) if smoke else get_config(MOE_ARCH)
+    route = fsdp_route_check(
+        dataclasses.replace(cfg, compute_dtype="float32",
+                            attn_impl=kernel_impl(dev)),
+        dev, mesh, route_batch, seq)
+    release(dev)
+    log(f"fsdp moe ok: gradients {route['holds']}, largest leaf difference "
+        f"{route['grad_leaf_rel_err']} ({time.perf_counter() - t0:.1f} s)")
+    return {"train": trained, "routes": route}
+
+
 def fsdp_path(dev, backend: str, *, smoke: bool = False,
               counters: dict | None = None, full: dict | None = None,
+              moe_full: dict | None = None,
               steps: int = TRAIN_STEPS, batch: int = TRAIN_BATCH,
               seq: int = TRAIN_SEQ, route_batch: int = FSDP_ROUTE_BATCH,
               overrides: dict | None = None, smoke_overrides: dict | None
@@ -3274,11 +3321,12 @@ def fsdp_path(dev, backend: str, *, smoke: bool = False,
     sharded gradients against the one-process ones in float32 at
     ``route_batch`` x ``seq`` (``fsdp_route_check``); (c) a sharded save
     and restore at the smoke config (``fsdp_save_check``;
-    ``smoke_overrides``, e.g. the card's head_dim); then, after the group
-    is gone, (d) the dry run of ``cells`` (default every supported cell)
-    on the pod meshes 16 x 16 and 2 x 16 x 16 (host only). Nothing is
-    caught: a failure fails the phase. ``overrides``: config fields of
-    (a) and (b)."""
+    ``smoke_overrides``, e.g. the card's head_dim); (e) MOE_ARCH trained
+    and checked the same way (``fsdp_moe_path``, beside phase 10's
+    ``moe_full``); then, after the group is gone, (d) the dry run of
+    ``cells`` (default every supported cell) on the pod meshes 16 x 16
+    and 2 x 16 x 16 (host only). Nothing is caught: a failure fails the
+    phase. ``overrides``: config fields of (a) and (b)."""
     import torch.distributed as dist
     from repro_torch.configs import (ARCHS, SHAPES, get_config,
                                      get_smoke_config, supported)
@@ -3316,6 +3364,9 @@ def fsdp_path(dev, backend: str, *, smoke: bool = False,
         saved = fsdp_save_check(dev, mesh, smoke_overrides)
         release(dev)
         log(f"fsdp routes and save ok ({time.perf_counter() - t0:.1f} s)")
+        moe = fsdp_moe_path(dev, mesh, smoke=smoke, counters=counters,
+                            full=moe_full, steps=steps, batch=batch,
+                            seq=seq, route_batch=route_batch)
     finally:
         dist.destroy_process_group()
     t0 = time.perf_counter()
@@ -3327,7 +3378,7 @@ def fsdp_path(dev, backend: str, *, smoke: bool = False,
             f"{len(recs)} cells failed")
     log(f"fsdp dryrun ok: {len(recs)} cells on 16x16 and 2x16x16 "
         f"({time.perf_counter() - t0:.1f} s)")
-    return {"train": trained, "routes": route, "save": saved,
+    return {"train": trained, "routes": route, "save": saved, "moe": moe,
             "dryrun": recs}
 
 
@@ -3509,6 +3560,7 @@ def main() -> int:
         last_flash.call, moe["train"]["launches"], edge_errs, templates,
         where=f"{MOE_ARCH} training")
     extra_records += [fwd_train, bwd]
+    moe_trained = moe["train"]
     del last, last_flash, moe
     release(dev)
 
@@ -3552,7 +3604,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     fsdp_path(dev, "nccl", counters=attn, full=trained,
-              smoke_overrides={"head_dim": 64})
+              moe_full=moe_trained, smoke_overrides={"head_dim": 64})
     log(f"fsdp path ok ({time.perf_counter() - t0:.1f} s)")
     release(dev)
 

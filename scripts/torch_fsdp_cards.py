@@ -7,20 +7,24 @@ here over the collectives of the device's own backend (NCCL on cards).
     python -m torch.distributed.run --nproc-per-node 4 \\
         scripts/torch_fsdp_cards.py --device cpu       # four gloo ranks
 
-Each rank takes one card (``LOCAL_RANK``). For each (mesh, compute
-dtype) of ``RUNS``, llama3-8b's smoke config trains ``STEPS`` steps
-from the same seeded weights through ``launch/fsdp.py``: the blocks
-cast and all-gathered, the float32 gradients summed over the data
-ranks, the global norm summed over the shards. Rank 0 then runs the
-one-process step on its own device on the same weights and batches,
-and holds the losses and grad norms, and in float32 the gathered
-params, in bfloat16 the first batch's gathered gradients, to the CPU
-tests' bounds (``TOL``); every rank must report the same losses. Then the
-(2, 2) run's params and AdamW state are saved sharded and restored onto
-the mesh bit for bit, and a save whose write fails must raise on every
-rank, in ``save`` and at ``save_async``'s ``wait``. Attention takes the
-plain route (``attn_impl="dense"``): the check is of the collectives,
-and the kernels' own are ``chip_smoke.py``'s.
+Each rank takes one card (``LOCAL_RANK``). For each (arch, mesh,
+compute dtype) of ``RUNS``, the arch's smoke config trains ``STEPS``
+steps from the same seeded weights through ``launch/fsdp.py``: the
+blocks cast and all-gathered, the float32 gradients summed over the
+data ranks, the global norm summed over the shards. The MoE archs
+(granite-moe-1b-a400m, llama4-scout) also route each microbatch over
+every batch rank's tokens (``fsdp.MoeExchange``) and, on (2, 2),
+compute each expert on the ``model`` rank that holds it. Rank 0 then
+runs the one-process step on its own device on the same weights and
+batches, and holds the losses and grad norms, and in float32 the
+gathered params, in bfloat16 the first batch's gathered gradients, to
+the CPU tests' bounds (``TOL``); every rank must report the same
+losses. Then llama3-8b's bf16 (2, 2) run's params and AdamW state are
+saved sharded and restored onto the mesh bit for bit, and a save whose
+write fails must raise on every rank, in ``save`` and at
+``save_async``'s ``wait``. Attention takes the plain route
+(``attn_impl="dense"``): the check is of the collectives, and the
+kernels' own are ``chip_smoke.py``'s.
 
 Rank 0 prints one JSON line a check and ``{"ok": ...}`` last; every
 rank exits 1 if a check failed.
@@ -51,8 +55,11 @@ from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.models import model, steps  # noqa: E402
 from repro_torch.optim import adamw_init  # noqa: E402
 
-ARCH = "llama3-8b"
-RUNS = (((2, 2), "bfloat16"), ((4, 1), "bfloat16"), ((2, 2), "float32"))
+MOE_ARCHS = ("granite-moe-1b-a400m", "llama4-scout-17b-a16e")
+RUNS = ((("llama3-8b", (2, 2), "bfloat16"), ("llama3-8b", (4, 1), "bfloat16"),
+         ("llama3-8b", (2, 2), "float32"))
+        + tuple((a, m, "float32") for a in MOE_ARCHS
+                for m in ((2, 2), (4, 1))))
 STEPS, BATCH, SEQ, SEED = 2, 8, 64, 0
 KW = dict(num_microbatches=2, peak_lr=1e-3, warmup_steps=1, total_steps=10)
 #: per compute dtype, ``tests/test_torch_fsdp.py``'s bounds: losses and
@@ -75,10 +82,10 @@ def rel_err(a: list, b: list) -> float:
     return max(abs(x - y) / abs(y) for x, y in zip(a, b))
 
 
-def train_check(dev, shape, dtype):
+def train_check(dev, arch, shape, dtype):
     """(record, layout, params blocks, opt blocks) of one mesh run; the
     record's comparison is filled on rank 0."""
-    cfg = dataclasses.replace(get_smoke_config(ARCH), compute_dtype=dtype,
+    cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=dtype,
                               attn_impl="dense")
     batches = [batch_at(cfg, i, batch=BATCH, seq=SEQ, seed=SEED, device=dev)
                for i in range(STEPS)]
@@ -96,7 +103,7 @@ def train_check(dev, shape, dtype):
                                            layout=layout)
         grads = layout.full(grads)
         del start
-    rec = {"check": "train", "arch": ARCH, "mesh": list(shape),
+    rec = {"check": "train", "arch": arch, "mesh": list(shape),
            "compute_dtype": dtype, "steps": STEPS, "batch": BATCH,
            "seq": SEQ, "mesh_s": time.perf_counter() - t0,
            "losses": losses, "grad_norms": norms,
@@ -197,10 +204,10 @@ def main(argv=None) -> int:
             raise SystemExit("run on 4 ranks: the meshes are (2, 2) and "
                              "(4, 1)")
         records = []
-        for shape, dtype in RUNS:
-            rec, layout, params, opt = train_check(dev, shape, dtype)
+        for arch, shape, dtype in RUNS:
+            rec, layout, params, opt = train_check(dev, arch, shape, dtype)
             records.append(rec)
-            if shape == (2, 2) and dtype == "bfloat16":
+            if arch == "llama3-8b" and shape == (2, 2) and dtype == "bfloat16":
                 records.append(save_check(dev, layout, params, opt))
             del layout, params, opt
         ok = [all(r.get("ok", True) for r in records)]

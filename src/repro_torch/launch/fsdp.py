@@ -23,18 +23,27 @@ places each leaf by its ``NamedSharding`` and inserts the collectives.
   Replicate-to-Shard backward does, would drop the other ranks' rows.
   The sum is an all-reduce followed by the slice (gloo has no
   reduce-scatter).
-* **The ``model`` axis is storage only.** Every rank along ``model``
-  computes the same rows with the same gathered weights; nothing sums
-  over it. Tensor-parallel compute over ``model`` is later work.
+* **The ``model`` axis splits the experts' compute, and stores the
+  rest.** Where the specs put a MoE layer's E experts over ``model``
+  (E divisible by its size), ``gather_layer`` gathers them over
+  ``data`` only and each ``model`` rank computes the assignments routed
+  to its E/m experts (``models/moe.py``, expert parallelism, as the
+  reference's rules name it). Every other leaf is gathered whole, and
+  every rank along ``model`` computes the same rows with it;
+  tensor-parallel compute of the dense layers is later work.
 * **Batches.** Every rank builds the same global batch; ``local_batch``
   keeps its rows of each microbatch (per ``batch_specs``), which must
   split evenly over (pod, data). The loss divides each rank's summed
   nll by the token count summed over those ranks (``batch_sum``), so
   the ranks' losses and gradients add up to the global ones.
-* **MoE under data x pod > 1 is refused** (``check_supported``):
-  capacity and the Switch aux loss are computed over the whole
-  microbatch's tokens in the reference, and a rank's own tokens give
-  other drops and another aux.
+* **MoE routing is the whole microbatch's.** Capacity, each
+  assignment's rank within its expert and the Switch aux loss are
+  computed over every batch rank's tokens, as the reference computes
+  them over the whole microbatch: ``MoeExchange`` gathers each rank's
+  per-expert counts once a MoE layer and microbatch (inside the
+  checkpointed function, so the recompute gathers them again), and
+  each rank's aux is its share of the global one, so that
+  ``batch_sum`` gives the reference's.
 
 Collectives run over the mesh's own groups (one per axis of size > 1),
 so a mesh over a subgroup of the world works (``runtime/elastic.py``).
@@ -63,17 +72,6 @@ def batch_ranks(mesh) -> int:
                      for a in mesh_lib.BATCH)
 
 
-def check_supported(cfg, mesh) -> None:
-    """Raise ``ValueError`` for what the sharded step cannot compute as
-    the reference does: MoE routing when the batch is split."""
-    if cfg.num_experts and batch_ranks(mesh) > 1:
-        raise ValueError(
-            f"{cfg.name}: MoE capacity and aux loss are computed over the "
-            "whole microbatch; a batch split over "
-            f"{batch_ranks(mesh)} ranks (pod x data) would route each "
-            "rank's tokens alone. Use data = pod = 1 for MoE models")
-
-
 def _map2(fn, tree, specs):
     """``fn(leaf, spec)`` in the tree's structure."""
     if isinstance(tree, dict):
@@ -99,14 +97,84 @@ class _Gather(torch.autograd.Function):
         return g.to(ctx.dtype), None, None, None
 
 
+class _ModelSum(torch.autograd.Function):
+    """g: forward, the sum over the ``model`` ranks; backward, the
+    identity (what follows is replicated along ``model``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _ModelEnter(torch.autograd.Function):
+    """f: forward, the identity; backward, the gradient summed over the
+    ``model`` ranks (each holds its experts' share of it)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class MoeExchange:
+    """What a MoE layer (``models/moe.py``: ``route``, ``moe_apply``)
+    needs of ``mesh``: ``ranks`` split the batch (pod x data), this
+    rank's rows are block ``index`` of them (pod-major, as
+    ``batch_specs`` splits them), and ``model_rank`` is its coordinate
+    along ``model``, whose ranks hold the experts in that order."""
+
+    def __init__(self, mesh):
+        self.sizes = sharding.axis_sizes(mesh)
+        coords = mesh.get_coordinate()
+        if coords is None:
+            raise RuntimeError(f"rank {dist.get_rank()} is not in the mesh "
+                               f"{mesh}")
+        coord = dict(zip(self.sizes, coords))
+        groups = sharding.mesh_groups(mesh)
+        self.ranks = batch_ranks(mesh)
+        self.index = 0
+        for a in mesh_lib.BATCH:
+            if a in self.sizes:
+                self.index = self.index * self.sizes[a] + coord[a]
+        self.batch_groups = {a: g for a, g in groups.items()
+                             if a in mesh_lib.BATCH}
+        self.model_rank = coord.get(mesh_lib.TP, 0)
+        self.model_group = groups.get(mesh_lib.TP)
+
+    def gather_counts(self, counts: torch.Tensor) -> torch.Tensor:
+        """(ranks, n): every batch rank's ``counts`` (n,), in block
+        order (integers: the same on every rank, and no gradient)."""
+        return sharding.gather_block(counts[None], (mesh_lib.BATCH,),
+                                     self.sizes, self.batch_groups)
+
+    def model_sum(self, y: torch.Tensor) -> torch.Tensor:
+        """g of the experts' partial outputs."""
+        return _ModelSum.apply(y, self.model_group)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """f of a tensor that enters this rank's experts."""
+        return _ModelEnter.apply(x, self.model_group)
+
+
 class Layout:
     """Where each parameter leaf lives on ``mesh`` (a ``DeviceMesh``
     named ``("data", "model")`` or ``("pod", "data", "model")``) and how
-    its blocks move: ``specs`` is ``mesh.param_specs(cfg, mesh)``.
-    Raises ``ValueError`` where ``check_supported`` does."""
+    its blocks move: ``specs`` is ``mesh.param_specs(cfg, mesh)``;
+    ``moe_exchange`` the ``MoeExchange`` of a MoE model (else None)."""
 
     def __init__(self, cfg, mesh):
-        check_supported(cfg, mesh)
         mesh_lib.require_group(mesh.device_type, "a sharded layout")
         self.cfg = cfg
         self.mesh = mesh
@@ -120,6 +188,7 @@ class Layout:
         self.batch_axes = tuple(a for a in mesh_lib.BATCH
                                 if a in self.groups)
         self.specs = mesh_lib.param_specs(cfg, mesh)
+        self.moe_exchange = MoeExchange(mesh) if cfg.num_experts else None
 
     # -- blocks ------------------------------------------------------------
 
@@ -180,10 +249,18 @@ class Layout:
 
     def gather_layer(self, i: int, p: Params) -> Params:
         """Layer ``i``'s weights from its blocks ``p``, every float32
-        leaf in the compute dtype (``model.cast_layers``' rule)."""
+        leaf in the compute dtype (``model.cast_layers``' rule). A MoE
+        layer's experts are gathered over every axis but ``model``:
+        this rank's E/m of them where the spec splits E."""
         cd = self.cfg.cdtype
-        return _map2(lambda t, s: self.gather(t, s, cd), p,
-                     self.specs["layers"][i])
+        specs = self.specs["layers"][i]
+        if "moe" in specs:
+            moe = dict(specs["moe"])
+            for k in ("wi_gate", "wi_up", "wo"):     # (E, ...)
+                if moe[k][0] == mesh_lib.TP:
+                    moe[k] = (None,) + moe[k][1:]
+            specs = {**specs, "moe": moe}
+        return _map2(lambda t, s: self.gather(t, s, cd), p, specs)
 
     def gather_top(self, params: Params, names, dtype=None) -> Params:
         """The top-level entries ``names`` (those present) gathered."""

@@ -7,6 +7,8 @@ ported from ``repro/launch/train.py``.
         --device cpu --steps 8                       # smoke size, CPU
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch llama3-8b --device cpu --mesh 2,2 --steps 4   # FSDP, CPU
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch granite-moe-1b-a400m --device cpu --mesh 2,2  # MoE, CPU
 
 Wires together, on one device (the GPU unless ``device="cpu"``) or,
 with ``mesh=``, on each rank of a ``("data", "model")`` mesh:
@@ -26,8 +28,10 @@ the params and the AdamW state are placed as the JAX driver places them
 (``launch/fsdp.py``; the model is drawn layer by layer and sharded as
 it goes), the global batch of ``batch_at`` is split over the batch
 axes (``mesh.batch_specs``), and checkpoints are written whole and
-restored onto this mesh's blocks. ``--mesh DATA,MODEL`` under
-``torchrun`` starts the group from torchrun's environment.
+restored onto this mesh's blocks. A MoE model routes each microbatch
+whole across the batch ranks and computes each expert on the ``model``
+ranks that hold it. ``--mesh DATA,MODEL`` under ``torchrun`` starts the
+group from torchrun's environment.
 """
 from __future__ import annotations
 
@@ -155,7 +159,8 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
                     help="train sharded over a (data, model) mesh of the "
                     "ranks torchrun starts (NCCL on the GPU, gloo on the "
-                    "CPU)")
+                    "CPU); a MoE model routes over the whole microbatch "
+                    "and splits its experts over MODEL")
     args = ap.parse_args(argv)
     mesh = None
     if args.mesh:

@@ -362,8 +362,9 @@ def _ssm_kw(cfg: ModelConfig) -> dict:
 
 
 def _mlp_part(cfg: ModelConfig, spec: BlockSpec, p: Params,
-              h: torch.Tensor):
-    """(h + the MLP sublayer's output, its MoE aux loss or None)."""
+              h: torch.Tensor, exchange=None):
+    """(h + the MLP sublayer's output, its MoE aux loss or None).
+    ``exchange``: a sharded run's ``fsdp.MoeExchange`` (``moe_apply``)."""
     if spec.mlp == "none":
         return h, None
     x = rmsnorm(p["ln_mlp"], h, cfg.norm_eps)
@@ -374,7 +375,8 @@ def _mlp_part(cfg: ModelConfig, spec: BlockSpec, p: Params,
         b, s, d = x.shape
         out, aux = moe_lib.moe_apply(
             p["moe"], x.reshape(b * s, d), top_k=cfg.top_k,
-            capacity_factor=cfg.capacity_factor, act=cfg.act)
+            capacity_factor=cfg.capacity_factor, act=cfg.act,
+            exchange=exchange)
         out = out.reshape(b, s, d)
     if cfg.use_post_norm:
         out = rmsnorm(p["post_ln_mlp"], out, cfg.norm_eps)
@@ -382,7 +384,8 @@ def _mlp_part(cfg: ModelConfig, spec: BlockSpec, p: Params,
 
 
 def _apply_block_with_cache(cfg: ModelConfig, spec: BlockSpec, p: Params,
-                            h: torch.Tensor, positions: torch.Tensor):
+                            h: torch.Tensor, positions: torch.Tensor,
+                            exchange=None):
     """(h, MoE aux or None, the layer's decode cache)."""
     x = rmsnorm(p["ln_mixer"], h, cfg.norm_eps)
     if spec.mixer.startswith("attn"):
@@ -393,7 +396,7 @@ def _apply_block_with_cache(cfg: ModelConfig, spec: BlockSpec, p: Params,
             **_ssm_kw(cfg))
     if cfg.use_post_norm:
         out = rmsnorm(p["post_ln_mixer"], out, cfg.norm_eps)
-    h, aux = _mlp_part(cfg, spec, p, h + out)
+    h, aux = _mlp_part(cfg, spec, p, h + out, exchange)
     return h, aux, cache
 
 
@@ -442,9 +445,10 @@ def _embed_inputs(cfg: ModelConfig, params: Params, batch: dict):
 
 
 def _apply_block(cfg: ModelConfig, spec: BlockSpec, p: Params,
-                 h: torch.Tensor, positions: torch.Tensor):
+                 h: torch.Tensor, positions: torch.Tensor, exchange=None):
     """(h, MoE aux or None): what ``checkpoint`` recomputes."""
-    h, aux, _ = _apply_block_with_cache(cfg, spec, p, h, positions)
+    h, aux, _ = _apply_block_with_cache(cfg, spec, p, h, positions,
+                                        exchange)
     return h, aux
 
 
@@ -478,8 +482,9 @@ def _apply_gathered(cfg: ModelConfig, spec: BlockSpec, layout, i: int,
                     p: Params, h: torch.Tensor, positions: torch.Tensor):
     """``_apply_block`` on layer ``i``'s weights gathered from its blocks
     ``p`` (``launch/fsdp.py``): under ``checkpoint`` the backward gathers
-    them again."""
-    return _apply_block(cfg, spec, layout.gather_layer(i, p), h, positions)
+    them again (and a MoE layer exchanges its counts again)."""
+    return _apply_block(cfg, spec, layout.gather_layer(i, p), h, positions,
+                        layout.moe_exchange)
 
 
 def _run_blocks(cfg: ModelConfig, params: Params, batch: dict,

@@ -17,9 +17,9 @@ measured readings. Then the elastic case of
 ``tests/test_distributed.py``: a sharded save on (2, 2),
 ``remesh_plan`` after losing half the ranks, a restore onto the (1, 2)
 mesh of the two survivors (the saved params back bit for bit) and one
-step there. A sharded save whose write fails raises on every rank; a
-MoE model on data 2 is refused. ``chip_smoke.py`` phase 14 is rehearsed
-on one in-process gloo rank.
+step there. A sharded save whose write fails raises on every rank.
+``chip_smoke.py`` phase 14 is rehearsed on one in-process gloo rank.
+MoE models on the mesh: ``tests/test_torch_fsdp_moe.py``.
 """
 import builtins
 import dataclasses
@@ -146,14 +146,6 @@ for arch, shape in job["bf16"]:
     if rank == 0:
         run["grads"] = model.tree_map(N, grads)
     res["bf16"][arch, shape] = run
-
-# MoE with the batch split over data: refused
-try:
-    fsdp.Layout(get_smoke_config("granite-moe-1b-a400m"),
-                mesh_lib.make_mesh((2, 2), "cpu"))
-    res["moe"] = "ran"
-except ValueError as e:
-    res["moe"] = str(e)
 
 # elastic: save on (2, 2), lose ranks 2 and 3, restore on (1, 2)
 cfg = get_smoke_config("qwen3-1.7b")
@@ -400,16 +392,6 @@ def test_failed_sharded_save_raises_on_every_rank(group):
         assert [r[key] for r in ranks[1:]] == ["RuntimeError"] * 3, key
 
 
-def test_moe_on_data_2_is_refused(group):
-    ranks, _ = group
-    assert all("MoE" in r["moe"] for r in ranks)
-    with pytest.raises(ValueError, match="MoE"):
-        fsdp.check_supported(get_smoke_config("granite-moe-1b-a400m"),
-                             mesh_lib.MeshShape((2, 1), ("data", "model")))
-    fsdp.check_supported(get_smoke_config("granite-moe-1b-a400m"),
-                         mesh_lib.MeshShape((1, 4), ("data", "model")))
-
-
 # ---------------------------------------------------------------------------
 # one process: no fallback, and chip_smoke.py phase 14 rehearsed
 # ---------------------------------------------------------------------------
@@ -440,8 +422,10 @@ def test_meshes_and_train_need_a_group_of_the_device_backend():
 def test_chip_smoke_fsdp_path_rehearsal_on_cpu():
     """chip_smoke.py's phase 14 at the smoke size of qwen3-1.7b on one
     in-process gloo rank: two sharded training steps, the float32
-    routes bit for bit, the sharded save and restore, and the pod-mesh
-    dry run of three cells; the group is destroyed afterwards."""
+    routes bit for bit, the sharded save and restore, 14e's two steps of
+    granite-moe-1b-a400m and its float32 routes (``moe_aux`` too) bit
+    for bit, and the pod-mesh dry run of three cells; the group is
+    destroyed afterwards."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     out = chip_smoke.fsdp_path(
@@ -455,5 +439,11 @@ def test_chip_smoke_fsdp_path_rehearsal_on_cpu():
     assert routes["loss_equal"] and routes["norm_equal"]
     assert routes["unequal_leaves"] == [] and routes["leaves"] > 10
     assert out["save"]["unequal_leaves"] == 0 and out["save"]["step"] == 2
+    moe = out["moe"]
+    assert len(moe["train"]["losses"]) == 2
+    assert moe["train"]["arch"] == "granite-moe-1b-a400m"
+    routes = moe["routes"]
+    assert routes["holds"] == "bit for bit" and routes["aux_equal"]
+    assert routes["moe_aux"]["one"] > 0 and routes["leaves"] > 10
     assert [r["mesh"] for r in out["dryrun"]] == ["16x16", "2x16x16"] * 3
     assert all(r["memory"]["peak"] == "not estimated" for r in out["dryrun"])
