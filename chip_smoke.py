@@ -163,6 +163,26 @@ Phases, each printed as it runs:
    qwen3's); then the dry run of the 33 cells on the pod meshes 16 x 16
    and 2 x 16 x 16 (per-device argument bytes from the specs, host
    only).
+15. the dense archs no other phase serves, at their published width
+   and depth, one on the card at a time, their seeded weights drawn in
+   bf16 layer by layer (``model.init_compute_params``): llama3-8b (32
+   layers, d_model 4096, 32/8 heads of 128: GQA g = 4, vocab 128256,
+   untied head) and gemma3-12b (48 layers, d_model 3840, 16/8 heads of
+   256, window 1024 in a 5:1 local/global pattern, qk-norm, vocab
+   262144) with phase 5's traffic, gemma2-9b (42 layers, d_model 3584,
+   16/8 heads of 256, window 4096 on alternate layers, attention softcap
+   50, final softcap 30) with 4 prompts of 3072-6144 tokens, so that its
+   window cuts keys in prefill and decode; each through ``serve_batch``
+   cold and warm on the kernel route (32, 42, 48 flash launches and 32
+   x 32, 42 x 32, 48 x 32 decode launches a serve), the plain route
+   teacher-forced in bf16 (printed), then the gate in float32 at full
+   width and 8, 8 and 12 layers (DENSE_F32_LOGIT_ATOL); then the
+   attention kernels on the inputs of each model's last local and last
+   global layer, each row with the launches of its window that the
+   wrappers counted in the warm serve; the library column
+   ``flex_attention`` (compiled; the window as its block mask, the
+   softcap as its score_mod) where a window or a softcap is on, else
+   ``scaled_dot_product_attention``, each held to the plain version.
 
 Phase 3's ``query`` lines also give each query's peak device memory and
 the join kernel's hash-table scratch (``join_table_mib``); phase 6's
@@ -174,8 +194,11 @@ the routes' agreement and the resume; phases 10 and 11 the ``moe`` and
 ``ssm`` lines, phase 12 the ``vlm`` and ``audio`` lines, phase 13 the
 ``verify``, ``lint``, dry-run (``OK``) and ``train dots`` lines, phase
 14 the ``fsdp`` lines and the pod-mesh dry-run (``OK ... x 16x16``)
-lines. Phases run in the order 1–4, 6, 7, 8, 5, 9, 10, 11, 12, 13, 14:
-one database's tables, or one model, on the card at a time.
+lines, phase 15 the ``dense`` lines (params, seconds to initialise,
+prefill ms, decode ms/token, tok/s, peak MiB and launches a serve; the
+routes' differences). Phases run in the order 1–4, 6, 7, 8, 5, 9, 10,
+11, 12, 13, 14, 15: one database's tables, or one model, on the card at
+a time.
 
 Which templates the flash backward (and the forward with L) ran at each
 training shape is read last, by ``torch.profiler`` in a process of its
@@ -321,6 +344,28 @@ DOTS_TRAIN_TOL = {"loss": 1e-6, "norm": 1e-6, "leaf": 1e-4}
 FSDP_ROUTE_BATCH = 4
 FSDP_ROUTE_RTOL = 1e-6
 FSDP_SAVE = dict(steps=2, ckpt_every=2, batch=2, seq=64)
+# phase 15: the dense archs no other phase runs, served at their
+# published width and depth, one on the card at a time
+DENSE_ARCHS = ("llama3-8b", "gemma2-9b", "gemma3-12b")
+# (requests, prompt_len): prompts of prompt_len / 2 to prompt_len tokens,
+# all padded to prompt_len, then LM_GEN greedy tokens. gemma2's prompts
+# of 3072-6144 tokens are the only traffic at which its window of 4096
+# cuts keys (and at seed 0 three of the four are longer than 4096)
+DENSE_TRAFFIC = {"llama3-8b": (LM_REQUESTS, LM_PROMPT),
+                 "gemma2-9b": (4, 6144), "gemma3-12b": (LM_REQUESTS,
+                                                         LM_PROMPT)}
+# the gate runs in float32 at full width with the depth cut to whole
+# pattern periods (gemma3: two 5:1 periods), whose float32 weights,
+# caches and the plain route's dense scores fit the card together
+DENSE_F32_LAYERS = {"llama3-8b": 8, "gemma2-9b": 8, "gemma3-12b": 12}
+# float32 compute, kernel route (the FP32-core flash and decode kernels)
+# vs plain route (dense attention), teacher-forced: the largest |logit|
+# difference of any prefill or decode-step logit, at DENSE_F32_LAYERS.
+# Measured on the H100 (NVIDIA H100 80GB HBM3, 700.00 W): llama3-8b
+# 2.02e-5, gemma2-9b 1.85e-5, gemma3-12b 1.76e-5; the limits leave 4.9x
+# or more
+DENSE_F32_LOGIT_ATOL = {"llama3-8b": 1e-4, "gemma2-9b": 1e-4,
+                        "gemma3-12b": 1e-4}
 # result positions (DistributeResult order) that are sums, averages or
 # divisions: compared to SUM_RTOL between routes, all else exactly
 TOLERANT = {"Q3": {0}, "Q4": {0}, "Q7": {0}, "Q8": {0}, "Q9": {2},
@@ -1537,10 +1582,12 @@ def agg_library(vals, ok, segs, valid, s):
 
 def kernel_record(name: str, launches: dict, err: float, run, plain, lib,
                   nbytes: float, flops: float, dtype: str, shape: dict,
-                  where: str = "main-path shape") -> dict:
+                  where: str = "main-path shape",
+                  library: str | None = None) -> dict:
     """Time one kernel beside its plain version and library call; the
     bound is the larger of bytes over the memory rate and operations
-    over the peak rate of the input type."""
+    over the peak rate of the input type. ``library``: the name of the
+    library call, where the record states it."""
     from repro_torch.kernels.registry import KERNELS
     entry = KERNELS[name]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1552,6 +1599,8 @@ def kernel_record(name: str, launches: dict, err: float, run, plain, lib,
            "bound_by": "operations" if t_ops > t_bytes else "bytes",
            "library_ms": cuda_ms(lib) if lib is not None else None,
            "where": where}
+    if library is not None:
+        rec["library"] = library
     log(f"kernel {name} at {where} {json.dumps(shape)}: " + json.dumps(rec))
     return rec
 
@@ -1691,7 +1740,10 @@ def main_shape_timings(best: dict, agg_calls: list, launches: dict,
 class LastCall:
     """Wraps the attention entry points of ``kernels.ops`` and keeps the
     arguments of each one's last call: the inputs of the last layer of
-    the prefill and of the last (longest) decode step."""
+    the prefill and of the last (longest) decode step. ``by_window``
+    keeps each one's last call with each ``window`` too, keyed (name,
+    window): a model whose last layer is global (gemma2, gemma3) keeps
+    its last windowed layer's inputs as well."""
 
     NAMES = ("flash_attention", "decode_attention")
 
@@ -1699,6 +1751,7 @@ class LastCall:
         self.ops = ops
         self.saved = {}
         self.calls: dict[str, tuple] = {}
+        self.by_window: dict[tuple, tuple] = {}
 
     def __enter__(self):
         for name in self.NAMES:
@@ -1707,6 +1760,7 @@ class LastCall:
 
             def wrapped(*args, _fn=fn, _name=name, **kw):
                 self.calls[_name] = (args, kw)
+                self.by_window[_name, kw.get("window")] = (args, kw)
                 return _fn(*args, **kw)
 
             setattr(self.ops, name, wrapped)
@@ -1718,14 +1772,16 @@ class LastCall:
 
 
 def serve_kernel_runs(arch: str, cfg, dev, kw: dict, counters: dict | None,
-                      capture, tag: str = "lm") -> dict:
+                      capture, tag: str = "lm", info: dict | None = None
+                      ) -> dict:
     """``serve_batch`` of ``arch`` cold and warm on the kernel route:
     {"cold"/"warm": (record, output)}. ``counters``: the kernel wrappers
     by name; the flash and decode ones are set to 0 before each serve and
     read after it (flash once
     per attention layer, decode once per attention layer per generated
     token; none on a model without attention); ``capture``: a context
-    that sees the cold serve's kernel calls."""
+    that sees the cold serve's kernel calls; ``info``: fields put first
+    in each serve's record."""
     from repro_torch.launch.serve import serve_batch
     n_attn = sum(cfg.layer_spec(i).mixer.startswith("attn")
                  for i in range(cfg.num_layers))
@@ -1737,11 +1793,12 @@ def serve_kernel_runs(arch: str, cfg, dev, kw: dict, counters: dict | None,
     for label in ("cold", "warm"):
         for w in (counters or {}).values():
             w.launches = 0
+            w.by_window.clear()
         reset_peak(dev)
         with capture if capture is not None and label == "cold" \
                 else contextlib.nullcontext():
             out = serve_batch(arch, **kw)
-        rec = {"arch": arch, "route": "kernel", "run": label,
+        rec = {"arch": arch, **(info or {}), "route": "kernel", "run": label,
                "prefill_ms": out["prefill_s"] * 1e3,
                "decode_ms_per_token": out["decode_s"] * 1e3 / gen_len,
                "tok_per_s": out["tok_per_s"], "peak_mib": peak_mib(dev)}
@@ -1751,9 +1808,31 @@ def serve_kernel_runs(arch: str, cfg, dev, kw: dict, counters: dict | None,
                     "decode_attention": n_attn * gen_len}
             require(rec["launches"] == want, f"{tag} {label} serve launched "
                     f"{rec['launches']}, want {want}")
+            by = {k: dict(w.by_window) for k, w in counters.items()}
+            want = window_launches(cfg, gen_len)
+            require(by == want, f"{tag} {label} serve launched by window "
+                    f"{by}, want {want}")
+            rec["launches_by_window"] = {
+                k: {str(w): n for w, n in v.items()} for k, v in by.items()}
+            runs[label] = (rec, out, by)
+        else:
+            runs[label] = (rec, out, None)
         log(f"{tag} serve " + json.dumps(rec))
-        runs[label] = (rec, out)
     return runs
+
+
+def window_launches(cfg, gen_len: int) -> dict:
+    """{kernel: {window: launches}} a serve of ``cfg`` makes: the flash
+    kernel once per attention layer of that window (``None``: global),
+    the decode kernel once per such layer per generated token."""
+    flash: dict = {}
+    for i in range(cfg.num_layers):
+        mixer = cfg.layer_spec(i).mixer
+        if mixer.startswith("attn"):
+            w = cfg.window if mixer == "attn_local" else None
+            flash[w] = flash.get(w, 0) + 1
+    return {"flash_attention": flash,
+            "decode_attention": {w: n * gen_len for w, n in flash.items()}}
 
 
 class RouteLog:
@@ -1918,17 +1997,23 @@ def logit_errs(a: dict, b: dict, shapes: dict, tag: str) -> dict:
     return errs
 
 
-def live_pairs(sq: int, sk: int, causal: bool, window) -> int:
-    """(query, key) pairs a causal/windowed mask keeps."""
+def live_mask(sq: int, sk: int, causal: bool, window, device=None):
+    """(Sq, Sk) bool: the (query, key) pairs a causal/windowed mask
+    keeps."""
     import torch
-    qp = torch.arange(sq)[:, None]
-    kp = torch.arange(sk)[None, :]
-    ok = torch.ones((sq, sk), dtype=torch.bool)
+    qp = torch.arange(sq, device=device)[:, None]
+    kp = torch.arange(sk, device=device)[None, :]
+    ok = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
         ok &= kp <= qp
     if window is not None:
         ok &= kp > qp - window
-    return int(ok.sum())
+    return ok
+
+
+def live_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs a causal/windowed mask keeps."""
+    return int(live_mask(sq, sk, causal, window).sum())
 
 
 def lm_kernel_timings(calls: dict, launches: dict, edge_errs: dict,
@@ -1943,12 +2028,100 @@ def lm_kernel_timings(calls: dict, launches: dict, edge_errs: dict,
                           where)]
 
 
+_FLEX: list = []
+
+
+def flex_call(q, k, v, mask_mod, batch, softcap, scale):
+    """One ``flex_attention`` call on (B, H, S, D) q, k, v: the block
+    mask of ``mask_mod(b, h, q_idx, kv_idx)`` (made here, outside the
+    call, as SDPA's boolean mask is), GQA by ``enable_gqa``, and where a
+    softcap is on the score_mod cap * tanh(s / cap) on the scaled score.
+    On the card the call is compiled, as flex_attention's own docs ask
+    (eager, it runs a math reference that materialises the scores);
+    on the CPU it runs eager."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    bm = create_block_mask(mask_mod, batch, None, q.shape[2], k.shape[2],
+                           device=q.device)
+    cap = softcap
+
+    def capped(score, b, h, qi, ki):
+        return cap * torch.tanh(score / cap)
+
+    fa = flex_attention
+    if q.is_cuda:
+        if not _FLEX:
+            _FLEX.append(torch.compile(flex_attention, dynamic=False))
+        fa = _FLEX[0]
+
+    def lib():
+        return fa(q, k, v, score_mod=capped if cap else None,
+                  block_mask=bm, scale=scale, enable_gqa=True)
+    return lib
+
+
+def flash_library(call) -> tuple:
+    """(one PyTorch call that computes what the flash kernel computes on
+    one ``ops.flash_attention`` call's (B, S, H, D) q, k, v; its name):
+    ``scaled_dot_product_attention`` on the (B, H, S, D) views where
+    neither a window nor a softcap is on, else ``flex_call`` with the
+    causal window as its block mask."""
+    import torch.nn.functional as F
+    (q, k, v), kw = call
+    causal, window = kw.get("causal", True), kw.get("window")
+    softcap = kw.get("logit_softcap")
+    qv, kv, vv = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if window is None and softcap is None:
+        def lib():
+            return F.scaled_dot_product_attention(
+                qv, kv, vv, is_causal=causal, enable_gqa=True,
+                scale=kw.get("scale"))
+        return lib, "scaled_dot_product_attention"
+
+    def live(b, h, qi, ki):
+        ok = qi >= ki if causal else qi >= 0
+        return ok & (ki > qi - window) if window is not None else ok
+    return (flex_call(qv, kv, vv, live, None, softcap, kw.get("scale")),
+            "flex_attention")
+
+
+def decode_library(call) -> tuple:
+    """(one PyTorch call that computes what the decode kernel computes on
+    one ``ops.decode_attention`` call's q over its (B, Smax, Hkv, D)
+    caches; its name): each row's live slots, and of those the last
+    ``window`` where a window is on, as ``scaled_dot_product_attention``'s
+    boolean mask where neither a window nor a softcap is on, else as
+    ``flex_call``'s block mask."""
+    import torch
+    import torch.nn.functional as F
+    (q, kc, vc, kv_len), kw = call
+    window, softcap = kw.get("window"), kw.get("logit_softcap")
+    lo = (kv_len - window).clamp(min=0) if window \
+        else torch.zeros_like(kv_len)
+    q4, k4, v4 = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+    if window is None and softcap is None:
+        slot = torch.arange(kc.shape[1], device=q.device)[None, :]
+        live = ((slot < kv_len[:, None])
+                & (slot >= lo[:, None]))[:, None, None, :]
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=live, enable_gqa=True,
+                scale=kw.get("scale"))
+        return lib, "scaled_dot_product_attention"
+
+    def slots(b, h, qi, ki):
+        return (ki < kv_len[b]) & (ki >= lo[b])
+    return (flex_call(q4, k4, v4, slots, q.shape[0], softcap,
+                      kw.get("scale")), "flex_attention")
+
+
 def flash_serve_record(call, launches: dict, edge_errs: dict,
                        where: str) -> dict:
     """The flash kernel (L not stored) on one ``ops.flash_attention``
     call's (B, S, H, D) q, k, v, beside its plain version and
-    ``scaled_dot_product_attention``."""
-    import torch.nn.functional as F
+    ``flash_library``'s call."""
     from repro_torch.kernels import flash_attention, ref
     (q, k, v), kw = call
     b, sq, hq, d = q.shape
@@ -1961,14 +2134,13 @@ def flash_serve_record(call, launches: dict, edge_errs: dict,
     kb, vb = kv.reshape(b * hkv, sk, d), vv.reshape(b * hkv, sk, d)
     dt = str(q.dtype).split(".")[1]
     got = flash_attention.flash_attention_bhsd(qv, kv, vv, **fkw)
-    err = attn_err(got.reshape(b * hq, sq, d), ref.flash_attention(
-        qb, kb, vb, **fkw), dt, f"flash_attention ({where})")
-    lib = None
-    if fkw["window"] is None and fkw["softcap"] is None:
-        def lib():
-            return F.scaled_dot_product_attention(
-                qv, kv, vv, is_causal=fkw["causal"], enable_gqa=True,
-                scale=fkw["scale"])
+    want = ref.flash_attention(qb, kb, vb, **fkw)
+    err = attn_err(got.reshape(b * hq, sq, d), want, dt,
+                   f"flash_attention ({where})")
+    lib, lib_name = flash_library(call)
+    attn_err(lib().reshape(b * hq, sq, d), want, dt,
+             f"{lib_name} ({where}), the library column's call")
+    del want
     flops = 4.0 * d * b * hq * live_pairs(sq, sk, fkw["causal"],
                                           fkw["window"])
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
@@ -1977,15 +2149,15 @@ def flash_serve_record(call, launches: dict, edge_errs: dict,
         lambda: flash_attention.flash_attention_bhsd(qv, kv, vv, **fkw),
         lambda: ref.flash_attention(qb, kb, vb, **fkw), lib, nbytes, flops,
         dt, {"B*Hq": b * hq, "Sq": sq, "Sk": sk, "D": d, "g": g,
-             "causal": fkw["causal"], "dtype": dt}, where=where)
+             "causal": fkw["causal"], "window": fkw["window"],
+             "softcap": fkw["softcap"], "dtype": dt}, where=where,
+        library=lib_name)
 
 
 def decode_record(call, launches: dict, edge_errs: dict, where: str) -> dict:
     """The decode kernel on one ``ops.decode_attention`` call's q and
-    caches, beside its plain version and a masked
-    ``scaled_dot_product_attention``."""
+    caches, beside its plain version and ``decode_library``'s call."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import decode_attention, ref
     (q, kc, vc, kv_len), kw = call
     dt = str(q.dtype).split(".")[1]
@@ -2001,20 +2173,14 @@ def decode_record(call, launches: dict, edge_errs: dict, where: str) -> dict:
     kb, vb = k4.reshape(b * hkv, smax, d), v4.reshape(b * hkv, smax, d)
     klb = torch.repeat_interleave(kv_len, hkv)
     got = decode_attention.decode_attention_bhgd(q4, k4, v4, kl, **dkw)
-    err = attn_err(got.reshape(b * hkv, g, d),
-                   ref.decode_attention(qb, kb, vb, klb, **dkw), dt,
+    want = ref.decode_attention(qb, kb, vb, klb, **dkw)
+    err = attn_err(got.reshape(b * hkv, g, d), want, dt,
                    f"decode_attention ({where})")
-    lib = None
-    if dkw["window"] is None and dkw["softcap"] is None:
-        live = (torch.arange(smax, device=q.device)[None, :]
-                < kv_len[:, None])[:, None, None, :]
-
-        def lib():
-            return F.scaled_dot_product_attention(
-                q.transpose(1, 2), k4, v4, attn_mask=live, enable_gqa=True,
-                scale=dkw["scale"])
     lo = (kv_len - dkw["window"]).clamp(min=0) if dkw["window"] \
         else torch.zeros_like(kv_len)
+    lib, lib_name = decode_library(call)
+    attn_err(lib().reshape(b * hkv, g, d), want, dt,
+             f"{lib_name} ({where}), the library column's call")
     slots = int((kv_len.clamp(max=smax) - lo).clamp(min=0).sum()) * hkv
     nbytes = (2 * slots * d + 2 * q.numel()) * q.element_size()
     flops = 4.0 * g * d * slots
@@ -2024,8 +2190,9 @@ def decode_record(call, launches: dict, edge_errs: dict, where: str) -> dict:
         lambda: decode_attention.decode_attention_bhgd(q4, k4, v4, kl, **dkw),
         lambda: ref.decode_attention(qb, kb, vb, klb, **dkw), lib, nbytes,
         flops, dt, {"B*Hkv": b * hkv, "G": g, "Smax": smax, "D": d,
-                    "kv_len": [int(x) for x in kv_len], "dtype": dt},
-        where=where)
+                    "kv_len": [int(x) for x in kv_len],
+                    "window": dkw["window"], "softcap": dkw["softcap"],
+                    "dtype": dt}, where=where, library=lib_name)
 
 
 # ---------------------------------------------------------------------------
@@ -2038,8 +2205,8 @@ class LastFlash:
     wherever a gradient follows): q, k, v (the model's transposed (B, H,
     S, D) views), the output O, L and the options of one layer, for the
     backward kernel's timing at the training shape. The stand-in passes
-    its ``launches`` through to the wrapper's own count, which the
-    wrapper increments through the module's name."""
+    its ``launches`` and ``by_window`` through to the wrapper's own
+    counts, which the wrapper increments through the module's name."""
 
     def __init__(self):
         from repro_torch.kernels import flash_attention
@@ -2069,6 +2236,10 @@ class _Spy:
     @launches.setter
     def launches(self, n: int) -> None:
         self.fn.launches = n
+
+    @property
+    def by_window(self) -> dict:
+        return self.fn.by_window
 
     def __call__(self, q, k, v, *, return_lse=False, **kw):
         res = self.fn(q, k, v, return_lse=return_lse, **kw)
@@ -3382,6 +3553,124 @@ def fsdp_path(dev, backend: str, *, smoke: bool = False,
             "dryrun": recs}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the dense archs served at full width
+# ---------------------------------------------------------------------------
+
+def dense_path(dev, arch: str, *, smoke: bool = False,
+               requests: int | None = None, prompt_len: int | None = None,
+               gen_len: int = LM_GEN, f32_layers: int | None = None,
+               counters: dict | None = None, capture=None) -> dict:
+    """Phase 15, one of DENSE_ARCHS at its published width and depth:
+    seeded weights drawn in the compute dtype layer by layer
+    (``model.init_compute_params``: the float32 model is never whole on
+    the card); ``serve_batch`` with DENSE_TRAFFIC's requests cold and
+    warm on the kernel route (``serve_kernel_runs``: ``counters`` the
+    flash and decode wrappers, once per layer and once per layer per
+    token; ``capture`` sees the cold serve), the tokens of both equal;
+    the plain route (dense attention) teacher-forced in bf16, printed
+    with the share of argmax tokens it agrees on (bf16 noise through
+    32-48 layers is bounded by nothing that would show a fault); then
+    the gate in float32 at full width and DENSE_F32_LAYERS layers:
+    kernel route against plain route within DENSE_F32_LOGIT_ATOL."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import model
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    req, plen = DENSE_TRAFFIC[arch]
+    requests, prompt_len = requests or req, prompt_len or plen
+    f32_layers = f32_layers or DENSE_F32_LAYERS[arch]
+    require(f32_layers % cfg.period == 0,
+            f"{arch}: {f32_layers} float32 layers are no whole periods "
+            f"of {cfg.period}")
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    params = model.init_compute_params(cfg, SEED, dev)
+    device_sync(dev)
+    init_s = time.perf_counter() - t0
+    log_model("dense", arch, cfg, params, dev, t0)
+    n_params = sum(t.numel() for t in model._leaves(params))
+    kw = dict(smoke=smoke, num_requests=requests, prompt_len=prompt_len,
+              gen_len=gen_len, seed=SEED, device=dev, params=params,
+              overrides={"attn_impl": kernel_impl(dev)})
+    runs = serve_kernel_runs(arch, cfg, dev, kw, counters, capture,
+                             tag=f"dense {arch}",
+                             info={"params": n_params, "init_s": init_s,
+                                   "requests": requests,
+                                   "prompt_len": prompt_len})
+    kernel = runs["warm"][1]
+    require(bool((runs["cold"][1]["generated"] == kernel["generated"])
+                 .all()), f"{arch}: the cold and warm serves generated "
+            "otherwise")
+    bf16 = plain_route_check(arch, cfg, dev, kw, kernel, None,
+                             tag=f"dense {arch} bf16")
+    warm, by_window = runs["warm"][0], runs["warm"][2]
+    del params, kw, runs, kernel
+    release(dev)
+    over = {"num_layers": f32_layers, "compute_dtype": "float32",
+            "attn_impl": kernel_impl(dev)}
+    c32 = dataclasses.replace(cfg, **over)
+    kw32 = dict(smoke=smoke, num_requests=requests, prompt_len=prompt_len,
+                gen_len=gen_len, seed=SEED, device=dev,
+                params=model.init_compute_params(c32, SEED, dev),
+                overrides=over)
+    reset_peak(dev)
+    k32 = serve_batch(arch, **kw32)
+    f32 = plain_route_check(arch, c32, dev, kw32, k32,
+                            DENSE_F32_LOGIT_ATOL[arch],
+                            tag=f"dense {arch} f32")
+    del kw32, k32
+    release(dev)
+    log(f"dense {arch} check " + json.dumps(
+        {"bfloat16": {k: bf16[k] for k in ("logit_max_abs_err",
+                                            "plain_argmax_agrees")},
+         "float32": {"layers": f32_layers, **{k: f32[k] for k in (
+             "logit_max_abs_err", "logit_atol", "plain_argmax_agrees")}}}))
+    return {"arch": arch, "params": n_params, "init_s": init_s,
+            "warm": warm, "by_window": by_window, "bfloat16": bf16,
+            "float32": f32}
+
+
+def dense_calls(arch: str, cfg, last: LastCall) -> list:
+    """[(where, flash call, decode call)]: of each window the cold
+    serve's last prefill layer's q/k/v and last decode step's q and
+    caches (``LastCall.by_window``): gemma's local layers, where the
+    window must have cut keys in prefill and in decode, and its global
+    ones; llama3's layers, all global."""
+    want = {None, cfg.window} if cfg.window else {None}
+    got = {w for _, w in last.by_window}
+    require(got == want and len(last.by_window) == 2 * len(want),
+            f"{arch}: the serve called the kernels with windows "
+            f"{sorted(last.by_window, key=str)}, want {want}")
+    out = []
+    for w in sorted(want, key=lambda x: x is None):
+        fcall = last.by_window["flash_attention", w]
+        dcall = last.by_window["decode_attention", w]
+        where = f"{arch} serve"
+        if cfg.window:
+            where += f", local (window {w})" if w else ", global"
+        if w:
+            sq, longest = fcall[0][0].shape[1], int(dcall[0][3].max())
+            require(sq > w and longest > w, f"{arch}: the window {w} cut "
+                    f"no key (prefill {sq}, longest decode {longest})")
+        out.append((where, fcall, dcall))
+    return out
+
+
+def dense_kernel_timings(arch: str, cfg, last: LastCall, by_window: dict,
+                         edge_errs: dict) -> list:
+    """Phase 15's flash and decode rows on ``dense_calls``' inputs, each
+    with the launches of its window in the warm serve (``by_window``,
+    {kernel: {window: launches}} as the wrappers counted them)."""
+    rows = []
+    for where, fcall, dcall in dense_calls(arch, cfg, last):
+        w = fcall[1].get("window")
+        launches = {k: v[w] for k, v in by_window.items()}
+        rows += [flash_serve_record(fcall, launches, edge_errs, where),
+                 decode_record(dcall, launches, edge_errs, where)]
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3395,6 +3684,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--templates"]:
         return template_probe(Path(sys.argv[2]))
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
     from repro_torch.core import Executor
     from repro_torch.core.queries import GROUPED
     from repro_torch.data.weather import WeatherSpec, build_database
@@ -3421,6 +3711,9 @@ def main() -> int:
     spills = {n: v for n, v in ptx.items()
               if n.startswith("flash_fwd_tc") and any(v["spill_bytes"])}
     require(not spills, f"the bf16 forward kernel spills: {spills}")
+    # phase 15's gemma layers run the head_dim 256 template
+    require("flash_fwd_tc<256,256>" in ptx,
+            f"no bf16 head_dim 256 forward in the ptxas report: {list(ptx)}")
 
     t0 = time.perf_counter()
     edge_errs = edge_checks(dev)
@@ -3607,6 +3900,21 @@ def main() -> int:
               moe_full=moe_trained, smoke_overrides={"head_dim": 64})
     log(f"fsdp path ok ({time.perf_counter() - t0:.1f} s)")
     release(dev)
+
+    t0 = time.perf_counter()
+    for arch in DENSE_ARCHS:
+        ta = time.perf_counter()
+        last = LastCall(ops)
+        wrappers["flash_attention_bwd"].launches = 0
+        dense = dense_path(dev, arch, counters=attn, capture=last)
+        require(wrappers["flash_attention_bwd"].launches == 0,
+                f"the {arch} serve launched the flash backward kernel")
+        extra_records += dense_kernel_timings(
+            arch, get_config(arch), last, dense["by_window"], edge_errs)
+        del last, dense
+        release(dev)
+        log(f"dense {arch} ok ({time.perf_counter() - ta:.1f} s)")
+    log(f"dense path ok ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
     templates.run()

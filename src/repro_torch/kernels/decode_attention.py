@@ -115,6 +115,8 @@ def decode_attention_bhgd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               plan.device, stream)
     _build.check("decode_attention", "decode_attention", code)
     decode_attention_bhgd.launches += 1
+    by = decode_attention_bhgd.by_window
+    by[window or None] = by.get(window or None, 0) + 1
     return out
 
 
@@ -163,3 +165,5 @@ def _make_plan(q, k, v, kv_len, window, softcap, scale) -> _Plan:
 
 
 decode_attention_bhgd.launches = 0
+# the launches by ``window`` (None: no window), counted with ``launches``
+decode_attention_bhgd.by_window = {}

@@ -139,10 +139,14 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               ctypes.addressof(args[4]), *args[5:], _build.stream(dev))
     _build.check("flash_attention", "flash_attention", code)
     flash_attention_bhsd.launches += 1
+    by = flash_attention_bhsd.by_window
+    by[window or None] = by.get(window or None, 0) + 1
     return (out, lse) if return_lse else out
 
 
 flash_attention_bhsd.launches = 0
+# the launches by ``window`` (None: no window), counted with ``launches``
+flash_attention_bhsd.by_window = {}
 
 
 def flash_attention_bwd_bhsd(q: torch.Tensor, k: torch.Tensor,

@@ -55,9 +55,10 @@ def serve_batch(arch: str = "qwen3-1.7b", *, smoke: bool = True,
     if cfg.frontend != "tokens":
         raise SystemExit(f"{arch}: serving demo targets token LMs")
     rng = np.random.default_rng(seed)
-    if params is None:
-        params = model_lib.init_params(cfg, seed, device)
-    cparams = model_lib.compute_params(cfg, params)
+    # the seeded weights drawn in the compute dtype layer by layer; given
+    # weights are cast once per serve
+    cparams = (model_lib.init_compute_params(cfg, seed, device)
+               if params is None else model_lib.compute_params(cfg, params))
 
     max_len = prompt_len + gen_len
     lens = rng.integers(prompt_len // 2, prompt_len + 1, num_requests)

@@ -294,16 +294,37 @@ def cast_layers(cfg: ModelConfig, layers: list) -> list:
                     layers)
 
 
+def _cast_matrices(cfg: ModelConfig, tree):
+    """Every float32 matrix of ``tree`` in the compute dtype (the rule
+    for the leaves outside the layers)."""
+    cd = cfg.cdtype
+    return tree_map(lambda a: a.to(cd) if a.dtype == torch.float32
+                    and a.dim() > 1 else a, tree)
+
+
 def compute_params(cfg: ModelConfig, params: Params) -> Params:
     """The tree in the compute dtype as the reference uses it, made once
     per serve (module docstring): the layers by ``cast_layers``; of the
     rest every float32 matrix (``final_norm`` stays float32)."""
-    cd = cfg.cdtype
-    out = {k: tree_map(lambda a: a.to(cd) if a.dtype == torch.float32
-                       and a.dim() > 1 else a, v)
-           for k, v in params.items() if k != "layers"}
+    out = {k: _cast_matrices(cfg, v) for k, v in params.items()
+           if k != "layers"}
     out["layers"] = cast_layers(cfg, params["layers"])
     return out
+
+
+def init_compute_params(cfg: ModelConfig, seed: int = 0,
+                        device=None) -> Params:
+    """``compute_params(cfg, init_params(cfg, seed, device))``, bit for
+    bit, with each layer and each top-level leaf cast as soon as it is
+    drawn (``init_params``' ``keep``): the whole float32 model never
+    exists at once. A 12B model's float32 weights (48 GB) beside their
+    bf16 copy would not fit on one 80 GB card."""
+    def keep(where, tree):
+        if where[0] == "layers":
+            return cast_layers(cfg, [tree])[0]
+        return _cast_matrices(cfg, tree)
+
+    return init_params(cfg, seed, device, keep=keep)
 
 
 # ---------------------------------------------------------------------------

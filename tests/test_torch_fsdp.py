@@ -6,7 +6,11 @@ Four gloo ranks are spawned as ``tests/test_torch_spmd.py`` spawns
 them (a free port, a 120 s limit, one log a rank). They train the smoke
 configs of llama3-8b and mamba2-370m in float32 from the JAX package's
 initial weights (carried by ``models/convert.py``) on (data, model)
-meshes (2, 2) and (4, 1): 2 steps of 8 x 16 tokens, 2 microbatches.
+meshes (2, 2) and (4, 1), and those of qwen2-vl-2b, hubert-xlarge,
+gemma2-9b and gemma3-12b on (2, 2): 2 steps of 8 x 16 tokens (or
+positions: qwen2-vl's patches, tokens and M-RoPE positions, hubert's
+frames, as ``tests/test_torch_frontends.py`` builds them), 2
+microbatches.
 Against the one-process step on the same weights: the gathered params
 (rtol 1e-5, atol 1e-6), losses and grad norms (rtol 1e-5); only the
 order of the sum over the data ranks differs. The first loss is held
@@ -35,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
+from test_torch_frontends import frontend_batch
 from test_torch_spmd import _start, _wait, free_port
 
 from repro.configs import get_smoke_config as jax_smoke
@@ -53,6 +58,17 @@ ROOT = Path(__file__).resolve().parents[1]
 WORLD = 4
 ARCHS = ("llama3-8b", "mamba2-370m")
 MESHES = ((2, 2), (4, 1))
+# on (2, 2), the archs whose inputs and layers the two above do not
+# reach: M-RoPE positions split on axis 1 and the gathered frontend_proj
+# (qwen2-vl); frames, no causal mask and a token table nothing reads, so
+# that it gets no gradient (hubert); softcaps, windows of 8 that cut the
+# 16 positions, post-norms, embed_scale and a tied embedding read for
+# the input and again for the logits (gemma2, gemma3)
+MORE_ARCHS = ("qwen2-vl-2b", "hubert-xlarge", "gemma2-9b", "gemma3-12b")
+CASES = [pytest.param(a, s, id=f"{a}-shape{MESHES.index(s)}")
+         for a, s in [(a, s) for a in ARCHS for s in MESHES]
+         + [(a, (2, 2)) for a in MORE_ARCHS]]
+ALL_ARCHS = ARCHS + MORE_ARCHS
 STEPS, BATCH, SEQ, MICRO = 2, 8, 16, 2
 KW = dict(num_microbatches=MICRO, peak_lr=1e-3, warmup_steps=1,
           total_steps=10)
@@ -94,7 +110,8 @@ with open(os.path.join(out, "job.pkl"), "rb") as f:
     job = pickle.load(f)
 N = lambda t: t.detach().numpy().copy()
 res = {"runs": {}, "bf16": {}}
-batches = [{k: torch.from_numpy(v) for k, v in b.items()} for b in job["batches"]]
+batches = {arch: [{k: torch.from_numpy(v) for k, v in b.items()} for b in bs]
+           for arch, bs in job["batches"].items()}
 
 
 def train_on(cfg, arch, shape):
@@ -109,7 +126,7 @@ def train_on(cfg, arch, shape):
     run = {"losses": [], "norms": [], "coords": layout.coords,
            "stored": {"params": fsdp.numel(params), "m": fsdp.numel(opt["m"]),
                       "v": fsdp.numel(opt["v"])}}
-    for b in batches:
+    for b in batches[arch]:
         params, opt, m = step(params, opt, b)
         run["losses"].append(float(m["loss"]))
         run["norms"].append(float(m["grad_norm"]))
@@ -119,28 +136,27 @@ def train_on(cfg, arch, shape):
     return run, layout, params, whole
 
 
-for arch in job["archs"]:
+for arch, shape in job["cases"]:
     cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype="float32")
-    for shape in job["meshes"]:
-        run, layout, params, whole = train_on(cfg, arch, shape)
-        mesh = layout.mesh
-        if arch == job["archs"][0] and shape == job["meshes"][0]:
-            # the blocks are DTensor's under mesh.placements; init keeps them
-            drawn = fsdp.init_params(cfg, layout, 0, "cpu")
-            ref = model.init_params(cfg, 0, "cpu")
-            run["init_equal"] = all(torch.equal(a, layout.block(b, s)) for (a, s), b in zip(
-                mesh_lib.zip_specs(drawn, layout.specs), model._leaves(ref)))
-            run["dtensor_equal"] = all(
-                torch.equal(DTensor.from_local(t, mesh, mesh_lib.placements(s, mesh)).full_tensor(), w)
-                for (t, s), w in zip(mesh_lib.zip_specs(params, layout.specs),
-                                     model._leaves(whole)))
-        res["runs"][arch, shape] = run
+    run, layout, params, whole = train_on(cfg, arch, shape)
+    mesh = layout.mesh
+    if (arch, shape) == job["cases"][0]:
+        # the blocks are DTensor's under mesh.placements; init keeps them
+        drawn = fsdp.init_params(cfg, layout, 0, "cpu")
+        ref = model.init_params(cfg, 0, "cpu")
+        run["init_equal"] = all(torch.equal(a, layout.block(b, s)) for (a, s), b in zip(
+            mesh_lib.zip_specs(drawn, layout.specs), model._leaves(ref)))
+        run["dtensor_equal"] = all(
+            torch.equal(DTensor.from_local(t, mesh, mesh_lib.placements(s, mesh)).full_tensor(), w)
+            for (t, s), w in zip(mesh_lib.zip_specs(params, layout.specs),
+                                 model._leaves(whole)))
+    res["runs"][arch, shape] = run
 # the compute dtype the configs train in: bf16 gathers, f32 gradient sums
 for arch, shape in job["bf16"]:
     cfg = get_smoke_config(arch)
     run, layout, _, _ = train_on(cfg, arch, shape)
     full = convert.params_from_numpy(cfg, job["weights"][arch], "cpu")
-    _, _, grads = steps.value_and_grad(cfg, layout.shard(full), batches[0],
+    _, _, grads = steps.value_and_grad(cfg, layout.shard(full), batches[arch][0],
                                        layout=layout)
     grads = layout.full(grads)
     if rank == 0:
@@ -154,7 +170,7 @@ layout = fsdp.Layout(cfg, mesh)
 params = fsdp.init_params(cfg, layout, 0, "cpu")
 opt = adamw_init(params)
 step = steps.make_train_step(cfg, layout=layout)
-params, opt, m = step(params, opt, batches[0])
+params, opt, m = step(params, opt, batches["llama3-8b"][0])
 res["elastic_loss_before"] = float(m["loss"])
 shardings = mesh_lib.named(mesh, {"params": layout.specs,
                                   "opt": mesh_lib.opt_specs(layout.specs)})
@@ -191,7 +207,7 @@ if mesh2.get_coordinate() is not None:
     if rank == 0:
         res["restored_params"] = model.tree_map(N, restored)
     step2 = steps.make_train_step(cfg, num_microbatches=plan["microbatches"], layout=layout2)
-    _, _, m2 = step2(state["params"], state["opt"], batches[0])
+    _, _, m2 = step2(state["params"], state["opt"], batches["llama3-8b"][0])
     res["elastic_loss_after"] = float(m2["loss"])
 with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
     pickle.dump(res, f)
@@ -203,6 +219,15 @@ def lm_batch(vocab, seed):
     toks = np.random.default_rng(seed).integers(1, vocab, (BATCH, SEQ + 1)) \
         .astype(np.int32)
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def train_batches(arch, vocab):
+    """The global batches of every step, the same on every rank: tokens,
+    or the front end's inputs with labels."""
+    if get_smoke_config(arch).frontend == "tokens":
+        return [lm_batch(vocab, 10 + i) for i in range(STEPS)]
+    return [frontend_batch(arch, b=BATCH, s=SEQ, seed=10 + i, labels=True)
+            for i in range(STEPS)]
 
 
 def configs(arch):
@@ -217,13 +242,14 @@ def group(tmp_path_factory):
     """(each rank's results, the JAX weights and batches, the checkpoint
     directory): the 4-rank gloo group runs while this process waits."""
     out = tmp_path_factory.mktemp("fsdp")
-    weights, batches = {}, None
-    for arch in ARCHS:
+    weights, batches = {}, {}
+    for arch in ALL_ARCHS:
         jcfg, _ = configs(arch)
         jp = jax_model.init_params(jcfg, jax.random.key(0))
         weights[arch] = jax.tree.map(np.asarray, jp)
-        batches = [lm_batch(jcfg.vocab_size, 10 + i) for i in range(STEPS)]
-    job = {"archs": ARCHS, "meshes": MESHES, "bf16": BF16, "weights": weights,
+        batches[arch] = train_batches(arch, jcfg.vocab_size)
+    job = {"cases": [tuple(c.values) for c in CASES], "bf16": BF16,
+           "weights": weights,
            "batches": batches, "kw": KW, "ckpt": str(out / "ckpt"),
            "bad_ckpt": str(out / "not_a_directory")}
     (out / "not_a_directory").write_text("")
@@ -262,16 +288,15 @@ def one_process(group):
     compute: {arch: (losses, grad norms, params)}."""
     _, job = group
     return {arch: one_process_steps(configs(arch)[1], job["weights"][arch],
-                                    job["batches"])
-            for arch in ARCHS}
+                                    job["batches"][arch])
+            for arch in ALL_ARCHS}
 
 
 def _numpy(tree):
     return [np.asarray(t) for t in model._leaves(tree)]
 
 
-@pytest.mark.parametrize("shape", MESHES)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,shape", CASES)
 def test_fsdp_step_matches_one_process(group, one_process, arch, shape):
     ranks, _ = group
     losses, norms, params = one_process[arch]
@@ -294,7 +319,7 @@ def test_fsdp_bf16_step_matches_one_process(group, arch, shape):
     ranks, job = group
     cfg = get_smoke_config(arch)
     losses, norms, _ = one_process_steps(cfg, job["weights"][arch],
-                                         job["batches"])
+                                         job["batches"][arch])
     for r in ranks:
         run = r["bf16"][arch, shape]
         assert run["losses"] == ranks[0]["bf16"][arch, shape]["losses"]
@@ -303,14 +328,13 @@ def test_fsdp_bf16_step_matches_one_process(group, arch, shape):
     params = convert.params_from_numpy(cfg, job["weights"][arch], "cpu")
     _, _, grads = steps.value_and_grad(
         cfg, params, {k: torch.from_numpy(v)
-                      for k, v in job["batches"][0].items()})
+                      for k, v in job["batches"][arch][0].items()})
     got = ranks[0]["bf16"][arch, shape]["grads"]
     for a, b in zip(_numpy(got), [t.numpy() for t in model._leaves(grads)]):
         assert np.abs(a - b).max() <= BF16_GRAD_TOL * np.abs(b).max()
 
 
-@pytest.mark.parametrize("shape", MESHES)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,shape", CASES)
 def test_each_rank_stores_its_blocks(group, arch, shape):
     """Params, m and v: each rank's numel is its blocks' under the
     specs, and the ranks' coordinates cover the mesh once."""
@@ -338,19 +362,19 @@ def test_blocks_are_dtensor_placements_and_init_keeps_them(group):
     same blocks as ``model.init_params``' whole tree."""
     ranks, _ = group
     for r in ranks:
-        run = r["runs"][ARCHS[0], MESHES[0]]
+        run = r["runs"][tuple(CASES[0].values)]
         assert run["dtensor_equal"] and run["init_equal"]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_first_fsdp_loss_matches_jax(group, arch):
     ranks, job = group
     jcfg, _ = configs(arch)
     jp = jax.tree.map(jnp.asarray, job["weights"][arch])
     jstep = jax.jit(jax_steps.make_train_step(jcfg, **KW))
     _, _, m = jstep(jp, jax_adamw_init(jp),
-                    jax.tree.map(jnp.asarray, job["batches"][0]))
-    for shape in MESHES:
+                    jax.tree.map(jnp.asarray, job["batches"][arch][0]))
+    for shape in {s for a, s in ranks[0]["runs"] if a == arch}:
         np.testing.assert_allclose(ranks[0]["runs"][arch, shape]["losses"][0],
                                    float(m["loss"]), rtol=RTOL)
 

@@ -268,16 +268,22 @@ def test_slice_matches_jax_pallas_flash_kernel():
 # serve_batch
 # ---------------------------------------------------------------------------
 
-def test_serve_batch_tokens_match_jax_f32(monkeypatch):
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_serve_batch_tokens_match_jax_f32(monkeypatch, arch):
+    """``serve_batch`` against the JAX package's on its own weights, the
+    generated tokens equal. Prompts of 8 to 16 tokens and 6 more
+    generated: past the smoke window of 8, so gemma's local layers cut
+    keys in prefill and in every decode step."""
     from repro.launch import serve as jax_serve
-    jcfg, pcfg = configs("qwen3-1.7b", compute_dtype="float32")
-    monkeypatch.setattr(jax_serve, "get_smoke_config", lambda arch: jcfg)
-    want = jax_serve.serve_batch("qwen3-1.7b", num_requests=3,
+    jcfg, pcfg = configs(arch, compute_dtype="float32")
+    assert pcfg.window in (0, 8)
+    monkeypatch.setattr(jax_serve, "get_smoke_config", lambda a: jcfg)
+    want = jax_serve.serve_batch(arch, num_requests=3,
                                  prompt_len=16, gen_len=6, seed=7)
     jp = jax_model.init_params(jcfg, jax.random.key(7))
     pp = convert.params_from_numpy(pcfg, jax.tree.map(np.asarray, jp),
                                    device="cpu")
-    got = serve.serve_batch("qwen3-1.7b", num_requests=3, prompt_len=16,
+    got = serve.serve_batch(arch, num_requests=3, prompt_len=16,
                             gen_len=6, seed=7, device="cpu", params=pp,
                             overrides={"compute_dtype": "float32"})
     np.testing.assert_array_equal(got["generated"], want["generated"])
@@ -285,6 +291,26 @@ def test_serve_batch_tokens_match_jax_f32(monkeypatch):
     assert got["step_logits"].shape == (3, 6, 128)
     assert torch.equal(got["step_logits"].argmax(-1),
                        torch.from_numpy(got["generated"]).long())
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "gemma2-9b", "gemma3-12b"])
+def test_init_compute_params_is_compute_params_of_init(arch):
+    """The per-layer cast at init (``model.init_compute_params``, which
+    the full-width serves use) gives ``compute_params(init_params(...))``
+    bit for bit: the same leaves, dtypes and values, ``final_norm``
+    float32."""
+    cfg = get_smoke_config(arch)
+    want = model.compute_params(cfg, model.init_params(cfg, 5, "cpu"))
+    got = model.init_compute_params(cfg, 5, "cpu")
+    assert got.keys() == want.keys()
+    assert len(got["layers"]) == len(want["layers"]) == cfg.num_layers
+    assert got["final_norm"]["scale"].dtype == torch.float32
+    assert got["embed"].dtype == cfg.cdtype == torch.bfloat16
+    for key in want:
+        ga, wa = list(model._leaves(got[key])), list(model._leaves(want[key]))
+        assert len(ga) == len(wa)
+        for a, b in zip(ga, wa):
+            assert a.dtype == b.dtype and torch.equal(a, b), key
 
 
 def test_serve_batch_teacher_forcing_and_plain_route():

@@ -189,6 +189,61 @@ def test_chip_smoke_lm_path_rehearsal_on_cpu():
     assert out["cold_warm_tokens_equal"]
 
 
+def test_chip_smoke_dense_path_rehearsal_on_cpu():
+    """chip_smoke.py's phase 15 at the smoke sizes of llama3-8b,
+    gemma2-9b and gemma3-12b on the CPU: the weights drawn in the
+    compute dtype, the serve cold and warm on the kernel route (the
+    plain versions stand in for the kernels), the plain route in bf16
+    and the float32 gate at one pattern period; ``LastCall`` keeps the
+    last windowed and the last global call of each kernel for gemma
+    (whose windows of 8 cut the 16-token prompts) and one of each for
+    llama3; the library column: ``flex_attention`` (eager here) where
+    a window or a softcap is on, else ``scaled_dot_product_attention``,
+    each giving the plain attention's output."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention
+    dev = torch.device("cpu")
+    for arch in chip_smoke.DENSE_ARCHS:
+        cfg = get_smoke_config(arch)
+        last = chip_smoke.LastCall(ops)
+        out = chip_smoke.dense_path(dev, arch, smoke=True, requests=2,
+                                    prompt_len=16, gen_len=3,
+                                    f32_layers=cfg.period, capture=last)
+        assert out["params"] == cfg.num_params()
+        f32 = out["float32"]
+        assert max(f32["logit_max_abs_err"].values()) \
+            <= chip_smoke.DENSE_F32_LOGIT_ATOL[arch]
+        assert f32["plain_argmax_agrees"] == 1.0
+        assert 0.0 <= out["bfloat16"]["plain_argmax_agrees"] <= 1.0
+        calls = chip_smoke.dense_calls(arch, cfg, last)
+        assert [f[1]["window"] for _, f, _ in calls] == \
+            ([8, None] if cfg.window else [None])
+        for where, fcall, dcall in calls:
+            (q, k, v), fkw = fcall
+            (dq, kc, vc, kv_len), dkw = dcall
+            assert fkw["window"] == dkw["window"]
+            assert fkw["logit_softcap"] == dkw["logit_softcap"] == (
+                cfg.attn_logit_softcap or None)
+            flib, fname = chip_smoke.flash_library(fcall)
+            dlib, dname = chip_smoke.decode_library(dcall)
+            masked = fkw["window"] or fkw["logit_softcap"]
+            assert fname == dname == ("flex_attention" if masked else
+                                      "scaled_dot_product_attention")
+            want = attention.dense_attention(
+                q, k, v, window=fkw["window"],
+                logit_softcap=fkw["logit_softcap"])
+            torch.testing.assert_close(flib().transpose(1, 2), want,
+                                       atol=2e-2, rtol=2e-2)
+            want = attention.decode_attention(
+                dq, kc, vc, kv_len=kv_len, window=dkw["window"],
+                logit_softcap=dkw["logit_softcap"])
+            torch.testing.assert_close(dlib().transpose(1, 2), want,
+                                       atol=2e-2, rtol=2e-2)
+
+
 TINY_SPEC = dict(num_stations=12, years=(1976, 1999, 2000, 2001, 2003),
                  days_per_year=3)
 
