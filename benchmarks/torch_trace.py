@@ -7,6 +7,7 @@
     python3 benchmarks/torch_trace.py --train # the LM training path
     python3 benchmarks/torch_trace.py --lm --arch mamba2-370m  # another model
     python3 benchmarks/torch_trace.py --train --arch hubert-xlarge
+    python3 benchmarks/torch_trace.py --lm --arch jamba-v0.1-52b
 
 Builds the data of ``chip_smoke.py`` (same spec, P = 4), runs each of
 Q1–Q12 once on the kernel route with statistics-presized caps, then
@@ -25,7 +26,11 @@ one cold step, then one traced warm step, one JSON line with its ten
 kernels of most device time, with the config's microbatches. ``--arch``
 names another config for ``--lm`` or ``--train`` (phase 10's
 granite-moe-1b-a400m, phase 11's mamba2-370m, phase 12's qwen2-vl-2b and
-hubert-xlarge), at full size the same way. ``serve_batch`` takes token
+hubert-xlarge), at full size the same way; phase 16's llama4-scout-17b-a16e
+and jamba-v0.1-52b, whose whole depths do not fit one card, at the depths
+of ``chip_smoke.MOE_WIDE_LAYERS`` (12 and 16 layers). The serve's weights are
+drawn in the compute dtype layer by layer (``model.init_compute_params``).
+``serve_batch`` takes token
 prompts only, so with ``--lm`` qwen2-vl-2b's batch is batch 0 of
 ``data.pipeline`` (8 x 2048 positions, 512 of them patches), warmed up
 by one prefill, then traced through ``steps`` as above; hubert-xlarge,
@@ -98,6 +103,8 @@ def traced(fn, top: int = 5) -> dict:
 
 
 def trace_lm(arch: str | None) -> None:
+    import dataclasses
+
     import torch
 
     import chip_smoke
@@ -106,11 +113,12 @@ def trace_lm(arch: str | None) -> None:
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models import model, steps
     arch = arch or chip_smoke.LM_ARCH
-    cfg = get_config(arch)
+    overrides = ({"num_layers": chip_smoke.MOE_WIDE_LAYERS[arch]}
+                 if arch in chip_smoke.MOE_WIDE_LAYERS else {})
+    cfg = dataclasses.replace(get_config(arch), **overrides)
     dev = torch.device("cuda")
     b, s = chip_smoke.LM_REQUESTS, chip_smoke.LM_PROMPT
-    params = model.init_params(cfg, chip_smoke.SEED, dev)
-    cparams = model.compute_params(cfg, params)
+    cparams = model.init_compute_params(cfg, chip_smoke.SEED, dev)
     if cfg.frontend == "frames":
         frames = batch_at(cfg, 0, batch=b, seq=s, seed=chip_smoke.SEED,
                           device=dev)["frames"]
@@ -132,7 +140,7 @@ def trace_lm(arch: str | None) -> None:
     else:
         serve_batch(arch, smoke=False, num_requests=b,
                     prompt_len=s, gen_len=chip_smoke.LM_GEN, device=dev,
-                    params=params)              # warm-up: the cold serve
+                    params=cparams, overrides=overrides)  # the cold serve
         gen = torch.Generator(device=dev)
         gen.manual_seed(chip_smoke.SEED)
         batch = {"tokens": torch.randint(1, cfg.vocab_size, (b, s),
@@ -144,7 +152,8 @@ def trace_lm(arch: str | None) -> None:
         out["logits"], out["caches"] = prefill(cparams, batch)
 
     print(json.dumps({"lm": "prefill", "arch": arch, "tokens": b * s,
-                      **traced(run_prefill)}), flush=True)
+                      "layers": cfg.num_layers, **traced(run_prefill, 8)}),
+          flush=True)
     caches = model.init_cache(cfg, b, s + 8, dev)
     for dst, src in zip(caches, out.pop("caches")):
         if "k" in src:

@@ -17,7 +17,7 @@ Phases, each printed as it runs:
    segment ids outside [0, S), masked NaNs, C = 0, S >= 4096,
    cap == N, tie-heavy keys, N over several sorted chunks (the top-k
    merge), all rows invalid; attention causal and not, windows 4096,
-   100, 16 and 8, softcap 50 and 30, GQA g in {1, 2, 4, 6, 8}, ragged
+   100, 16 and 8, softcap 50 and 30, GQA g in {1, 2, 4, 5, 6, 8}, ragged
    Sq/Sk and Sq < Sk,
    head_dim 64/80/128/256 at several tiles, bf16 and float32, the same bits
    from launch to launch; decode in bf16 and float32 with kv_len in
@@ -183,6 +183,23 @@ Phases, each printed as it runs:
    ``flex_attention`` (compiled; the window as its block mask, the
    softcap as its score_mod) where a window or a softcap is on, else
    ``scaled_dot_product_attention``, each held to the plain version.
+16. the MoE archs no other phase serves, at their published width with
+   the depth cut to fit one card, one at a time, weights drawn as phase
+   15's: llama4-scout-17b-a16e (12 of 48 layers; d_model 5120, 40/8
+   heads of 128: GQA g = 5, 16 experts of 8192 top-1 and a shared one,
+   vocab 202048) and jamba-v0.1-52b (16 of 32 layers, two periods of
+   seven Mamba-2 layers (128 heads of 64, state 16) and one attention
+   layer without RoPE (32/8 heads of 128), 16 experts of 14336 top-2 at
+   the odd positions; vocab 65536), with phase 5's traffic; each through
+   ``serve_batch`` cold and warm on the kernel route (12 and 2 flash
+   launches, 12 x 32 and 2 x 32 decode launches a serve; the expert ids
+   of both serves equal), the plain route teacher-forced in bf16
+   (printed, with the share of routing decisions that differ), the gate
+   in float32 at 4 and 8 layers with the plain route routed as the
+   kernel route (MOE_WIDE_F32_LOGIT_ATOL), one MoE layer of that model
+   in float64 on the card against the CPU, and the attention kernels on
+   the inputs of each serve, beside ``scaled_dot_product_attention``.
+   Phases 5, 15 and 16 run through one driver, ``serve_phase``.
 
 Phase 3's ``query`` lines also give each query's peak device memory and
 the join kernel's hash-table scratch (``join_table_mib``); phase 6's
@@ -196,9 +213,10 @@ the routes' agreement and the resume; phases 10 and 11 the ``moe`` and
 14 the ``fsdp`` lines and the pod-mesh dry-run (``OK ... x 16x16``)
 lines, phase 15 the ``dense`` lines (params, seconds to initialise,
 prefill ms, decode ms/token, tok/s, peak MiB and launches a serve; the
-routes' differences). Phases run in the order 1–4, 6, 7, 8, 5, 9, 10,
-11, 12, 13, 14, 15: one database's tables, or one model, on the card at
-a time.
+routes' differences), phase 16 the ``moe-wide`` lines (the same, the
+peak after init, and the ``moe float64`` lines). Phases run in the order
+1–4, 6, 7, 8, 5, 9, 10, 11, 12, 13, 14, 15, 16: one database's tables,
+or one model, on the card at a time.
 
 Which templates the flash backward (and the forward with L) ran at each
 training shape is read last, by ``torch.profiler`` in a process of its
@@ -366,6 +384,38 @@ DENSE_F32_LAYERS = {"llama3-8b": 8, "gemma2-9b": 8, "gemma3-12b": 12}
 # or more
 DENSE_F32_LOGIT_ATOL = {"llama3-8b": 1e-4, "gemma2-9b": 1e-4,
                         "gemma3-12b": 1e-4}
+# phase 16: the MoE archs no other phase serves, at their published
+# width with the depth cut so that the bf16 weights, one layer drawn in
+# float32 beside them (``model.init_compute_params``) and the serve fit
+# one card: llama4-scout 12 of 48 layers, 28,494,197,760 params, 53.07 GiB
+# in bf16 (a layer drawn in float32 adds ~8.2 GiB, and the stack of its 16
+# experts in ``moe.moe_init`` up to 2.7 GiB more for a moment); jamba 16 of
+# 32 layers, two whole 8-layer periods (attention at 4 and 12, MoE at the
+# odd positions), 25,730,002,368 params, 47.93 GiB (its MoE layer in
+# float32 ~10.5 GiB, the stack up to 3.5 GiB). The phase does not shrink
+# itself: a cut that does not fit fails it.
+MOE_WIDE_ARCHS = ("llama4-scout-17b-a16e", "jamba-v0.1-52b")
+MOE_WIDE_LAYERS = {"llama4-scout-17b-a16e": 12, "jamba-v0.1-52b": 16}
+# the float32 gate's depth, float32 weights, caches and the plain route's
+# dense scores together on the card: llama4-scout 4 layers
+# (10,877,383,680 params, 40.52 GiB), jamba one period (12,999,220,960,
+# 48.43 GiB)
+MOE_WIDE_F32_LAYERS = {"llama4-scout-17b-a16e": 4, "jamba-v0.1-52b": 8}
+# float32 compute, kernel route vs plain route teacher-forced, the plain
+# route's routing replayed from the kernel route's expert ids
+# (``RouteReplay``: at top-1 one flipped decision swaps a token's whole
+# routed output): the largest |logit| difference at MOE_WIDE_F32_LAYERS.
+# Measured on the H100 (NVIDIA H100 80GB HBM3, 700.00 W): llama4-scout
+# 2.37e-5, jamba 1.79e-5, the routes' own routers agreeing on every
+# decision; the limits leave 4.2x or more
+MOE_WIDE_F32_LOGIT_ATOL = {"llama4-scout-17b-a16e": 1e-4,
+                           "jamba-v0.1-52b": 1e-4}
+# moe_f64_check at these widths, cut from phase 10's 4096 tokens: the
+# layer's experts (16 of 5120 x 8192 or 4096 x 14336) copied to the host
+# and run there in float64 take 12.9 and 16.5 s at 512 tokens (H100
+# machine, 700.00 W), capacities of 40 (top-1) and 80 (top-2) rows an
+# expert
+MOE_WIDE_F64_TOKENS = 512
 # result positions (DistributeResult order) that are sums, averages or
 # divisions: compared to SUM_RTOL between routes, all else exactly
 TOLERANT = {"Q3": {0}, "Q4": {0}, "Q7": {0}, "Q8": {0}, "Q9": {2},
@@ -675,6 +725,10 @@ FLASH_EDGES = [
     (True, None, None, 6, 1000, 1000, 128, "bfloat16"),
     (True, None, None, 6, 333, 333, 128, "float32"),
     (True, None, None, 6, 200, 700, 128, "bfloat16"),
+    # llama4-scout's group (40 query heads over 8): g = 5, more than one
+    # 128-row tile of the tensor-core tiling, and the FP32-core kernel
+    (True, None, None, 5, 300, 300, 128, "bfloat16"),
+    (True, None, None, 5, 200, 200, 128, "float32"),
 ]
 DECODE_EDGES = [
     # heads, g, smax, d, window, softcap; each in bf16 and float32. Six
@@ -691,7 +745,9 @@ DECODE_EDGES = [
     (6, 2, 100, 16, None, None),     # bf16 off the tensor-core kernel
     (6, 4, 257, 32, 50, None),
     (16, 6, 2080, 128, None, None),  # qwen2-vl-2b: g = 6, two pad rows a
-]                                    # block of 8
+                                     # block of 8
+    (16, 5, 2080, 128, None, None),  # llama4-scout: g = 5, three pad rows
+]
 AGG_EDGES = [
     # P, N, S, C, kind: uniform ids (some outside [0, S)); station-major
     # runs with N no multiple of 16 (the flag vectors) and runs across
@@ -1738,19 +1794,17 @@ def main_shape_timings(best: dict, agg_calls: list, launches: dict,
 # ---------------------------------------------------------------------------
 
 class LastCall:
-    """Wraps the attention entry points of ``kernels.ops`` and keeps the
-    arguments of each one's last call: the inputs of the last layer of
-    the prefill and of the last (longest) decode step. ``by_window``
-    keeps each one's last call with each ``window`` too, keyed (name,
-    window): a model whose last layer is global (gemma2, gemma3) keeps
-    its last windowed layer's inputs as well."""
+    """Wraps the attention entry points of ``kernels.ops`` and keeps, in
+    ``by_window`` keyed (name, window), the arguments of each one's last
+    call with each ``window``: the inputs of the last layer of the
+    prefill and of the last (longest) decode step, and where a model's
+    last layer is global (gemma2, gemma3) its last windowed layer's too."""
 
     NAMES = ("flash_attention", "decode_attention")
 
     def __init__(self, ops):
         self.ops = ops
         self.saved = {}
-        self.calls: dict[str, tuple] = {}
         self.by_window: dict[tuple, tuple] = {}
 
     def __enter__(self):
@@ -1759,7 +1813,6 @@ class LastCall:
             self.saved[name] = fn
 
             def wrapped(*args, _fn=fn, _name=name, **kw):
-                self.calls[_name] = (args, kw)
                 self.by_window[_name, kw.get("window")] = (args, kw)
                 return _fn(*args, **kw)
 
@@ -1775,13 +1828,17 @@ def serve_kernel_runs(arch: str, cfg, dev, kw: dict, counters: dict | None,
                       capture, tag: str = "lm", info: dict | None = None
                       ) -> dict:
     """``serve_batch`` of ``arch`` cold and warm on the kernel route:
-    {"cold"/"warm": (record, output)}. ``counters``: the kernel wrappers
+    {"cold"/"warm": (record, output, launches by window), "routes": the
+    warm serve's ``RouteLog`` ids of a MoE model, else None}; the tokens
+    of both serves, and a MoE model's expert ids, must be equal.
+    ``counters``: the kernel wrappers
     by name; the flash and decode ones are set to 0 before each serve and
     read after it (flash once
     per attention layer, decode once per attention layer per generated
     token; none on a model without attention); ``capture``: a context
     that sees the cold serve's kernel calls; ``info``: fields put first
     in each serve's record."""
+    import torch
     from repro_torch.launch.serve import serve_batch
     n_attn = sum(cfg.layer_spec(i).mixer.startswith("attn")
                  for i in range(cfg.num_layers))
@@ -1790,12 +1847,14 @@ def serve_kernel_runs(arch: str, cfg, dev, kw: dict, counters: dict | None,
         counters = {k: counters[k] for k in ("flash_attention",
                                              "decode_attention")}
     runs = {}
+    moe = cfg.num_experts > 0
+    routes = RouteLog() if moe else contextlib.nullcontext()
     for label in ("cold", "warm"):
         for w in (counters or {}).values():
             w.launches = 0
             w.by_window.clear()
         reset_peak(dev)
-        with capture if capture is not None and label == "cold" \
+        with routes, capture if capture is not None and label == "cold" \
                 else contextlib.nullcontext():
             out = serve_batch(arch, **kw)
         rec = {"arch": arch, **(info or {}), "route": "kernel", "run": label,
@@ -1818,6 +1877,16 @@ def serve_kernel_runs(arch: str, cfg, dev, kw: dict, counters: dict | None,
         else:
             runs[label] = (rec, out, None)
         log(f"{tag} serve " + json.dumps(rec))
+    require(bool((runs["cold"][1]["generated"]
+                  == runs["warm"][1]["generated"]).all()),
+            f"{tag}: the cold and warm serves generated otherwise")
+    runs["routes"] = None
+    if moe:
+        half = len(routes.ids) // 2
+        require(half > 0 and all(torch.equal(a, b) for a, b in zip(
+            routes.ids[:half], routes.ids[half:])),
+            f"{tag}: the cold and warm serves routed differently")
+        runs["routes"] = routes.ids[half:]
     return runs
 
 
@@ -1871,22 +1940,95 @@ def route_share(a: list, b: list) -> float:
     return diff / max(sum(x.shape[0] for x in a), 1)
 
 
+class _TorchWith:
+    """The ``torch`` module with some of its names replaced
+    (``RouteReplay``)."""
+
+    def __init__(self, **names):
+        self.names = names
+
+    def __getattr__(self, name):
+        import torch
+        return self.names[name] if name in self.names else getattr(torch,
+                                                                   name)
+
+
+class RouteReplay:
+    """Stands in for ``models.moe.route`` on the plain route of a float32
+    gate: its n-th call routes to the expert ids of the n-th call that a
+    ``RouteLog`` of the kernel route recorded, with its own router
+    probabilities at those ids as the gates; the capacity, each
+    assignment's rank within its expert, the dispatch and the aux loss
+    stay the package's. ``moe.route`` reads its top k from a descending
+    sort of the probabilities: for the call, the module's ``torch.sort``
+    is one that puts the given ids first, in their order, and the other
+    experts after them by probability. ``own``: the ids the call's own
+    router chose, for the share of decisions that differ."""
+
+    def __init__(self, ids: list):
+        from repro_torch.models import moe
+        self.mod, self.ids, self.own = moe, ids, []
+
+    def __enter__(self):
+        import torch
+        self.saved = self.mod.route
+
+        def replayed(*a, **k):
+            require(len(self.own) < len(self.ids), "the plain route called "
+                    "the router more often than the kernel route")
+            top = self.ids[len(self.own)]
+
+            def sort(probs, dim=-1, descending=False, stable=False):
+                require(dim == -1 and descending
+                        and probs.shape[0] == top.shape[0],
+                        f"route replay: sort of {tuple(probs.shape)} "
+                        f"along {dim}, want {top.shape[0]} rows descending")
+                k = top.shape[1]
+                own = torch.sort(probs, dim=-1, descending=True, stable=True)
+                self.own.append(own.indices[:, :k])
+                # keys above every probability (<= 1) at the given ids,
+                # falling in their order
+                key = probs.scatter(-1, top, torch.arange(
+                    k + 1, 1, -1, dtype=probs.dtype,
+                    device=probs.device).expand(top.shape))
+                idx = torch.sort(key, dim=-1, descending=True,
+                                 stable=True).indices
+                return torch.return_types.sort((probs.gather(-1, idx), idx))
+
+            self.mod.torch = _TorchWith(sort=sort)
+            try:
+                return self.saved(*a, **k)
+            finally:
+                self.mod.torch = torch
+
+        self.mod.route = replayed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.saved
+
+
 def plain_route_check(arch: str, cfg, dev, kw: dict, kernel: dict,
                       logit_atol: float | None, tag: str = "lm",
-                      routes: list | None = None) -> dict:
+                      routes: list | None = None,
+                      replay: bool = False) -> dict:
     """``serve_batch`` on the plain route (dense attention), teacher-
     forced with the kernel route's tokens: each prefill and decode-step
     logit against the kernel route's ``kernel`` output, within
     ``logit_atol`` (printed only where it is None). ``routes``: the
     kernel run's ``RouteLog`` ids; the plain run's are logged too and
-    the share of routing decisions that differ is reported."""
+    the share of routing decisions that differ is reported. ``replay``:
+    the plain run routes as the kernel run did (``RouteReplay``), and
+    the share is of the decisions its own router would have made
+    otherwise."""
     import torch
     from repro_torch.launch.serve import serve_batch
     requests, gen_len = kw["num_requests"], kw["gen_len"]
     reset_peak(dev)
     overrides = {**(kw.get("overrides") or {}), "attn_impl": "dense"}
-    with RouteLog() if routes is not None else contextlib.nullcontext() \
-            as plain_routes:
+    ctx = contextlib.nullcontext() if routes is None else \
+        RouteReplay(routes) if replay else RouteLog()
+    with ctx as plain_routes:
         plain = serve_batch(arch, **{**kw, "overrides": overrides},
                             force_tokens=kernel["generated"])
     prec = {"arch": arch, "route": "plain", "run": "teacher-forced",
@@ -1905,34 +2047,135 @@ def plain_route_check(arch: str, cfg, dev, kw: dict, kernel: dict,
                   == torch.from_numpy(kernel["generated"])).float().mean())
     rec = {"logit_max_abs_err": errs, "logit_atol": logit_atol,
            "plain_argmax_agrees": same, "plain": prec}
+    if replay:
+        require(len(plain_routes.own) == len(routes), f"{tag}: the plain "
+                f"route called the router {len(plain_routes.own)} times, "
+                f"the kernel route {len(routes)}")
+        rec["routes_replayed"] = True
     if routes is not None:
-        rec["routing_decisions_differ"] = route_share(routes,
-                                                      plain_routes.ids)
+        rec["routing_decisions_differ"] = route_share(
+            routes, plain_routes.own if replay else plain_routes.ids)
     return rec
+
+
+@dataclasses.dataclass(frozen=True)
+class Gate:
+    """How a serve phase holds its kernel route to its plain route,
+    teacher-forced: in bf16 at the serve's depth within ``atol``
+    (``f32_layers`` None: phase 5), or in bf16 printed and in float32 at
+    ``f32_layers`` layers of the same width within ``atol`` (phases 15
+    and 16)."""
+    atol: float
+    f32_layers: int | None = None
+
+
+def serve_phase(dev, arch: str, traffic: tuple, gate: Gate, *, tag: str,
+                smoke: bool = False, overrides: dict | None = None,
+                f64_tokens: int = MOE_WIDE_F64_TOKENS,
+                counters: dict | None = None, capture=None) -> dict:
+    """Phases 5, 15 and 16: ``arch`` (its config with ``overrides``, the
+    depth among them) served with ``traffic`` (requests, prompt_len,
+    gen_len): seeded weights drawn in the compute dtype layer by layer
+    (``model.init_compute_params``: the float32 model is never whole on
+    the card), the peak after init printed; ``serve_batch`` cold and
+    warm on the kernel route (``serve_kernel_runs``: ``counters`` the
+    flash and decode wrappers, counted by window; ``capture`` sees the
+    cold serve), the tokens of both equal, and of a MoE model the expert
+    ids of every routing decision (``RouteLog``); the plain route (dense
+    attention) teacher-forced in bf16, gated by ``gate`` or printed with
+    the share of argmax tokens and of routing decisions it agrees on;
+    then, where ``gate`` asks, the gate in float32 at its depth, the
+    plain route of a MoE model routed as the kernel route
+    (``RouteReplay``); and of a MoE model one MoE layer of that float32
+    model in float64 on the card against the CPU (``moe_f64_check``,
+    ``f64_tokens`` rows)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import model
+    requests, prompt_len, gen_len = traffic
+    over = {**(overrides or {}), "attn_impl": kernel_impl(dev)}
+    cfg = dataclasses.replace(
+        get_smoke_config(arch) if smoke else get_config(arch), **over)
+    moe = cfg.num_experts > 0
+    for n in (cfg.num_layers, gate.f32_layers or cfg.period):
+        require(n % cfg.period == 0, f"{arch}: {n} layers are no whole "
+                f"periods of {cfg.period}")
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    params = model.init_compute_params(cfg, SEED, dev)
+    device_sync(dev)
+    init_s = time.perf_counter() - t0
+    log_model(tag, arch, cfg, params, dev, t0)
+    info = {"params": sum(t.numel() for t in model._leaves(params)),
+            "layers": cfg.num_layers, "init_s": init_s,
+            "init_peak_mib": peak_mib(dev), "requests": requests,
+            "prompt_len": prompt_len}
+    kw = dict(smoke=smoke, num_requests=requests, prompt_len=prompt_len,
+              gen_len=gen_len, seed=SEED, device=dev, params=params,
+              overrides=over)
+    runs = serve_kernel_runs(arch, cfg, dev, kw, counters, capture,
+                             tag=tag, info=info)
+    kernel = runs["warm"][1]
+    bf16 = plain_route_check(arch, cfg, dev, kw, kernel,
+                             None if gate.f32_layers else gate.atol,
+                             tag=f"{tag} bf16" if gate.f32_layers else tag,
+                             routes=runs["routes"])
+    out = {"arch": arch, "cfg": cfg, **info, "warm": runs["warm"][0],
+           "cold": runs["cold"][0], "by_window": runs["warm"][2],
+           "cold_warm_tokens_equal": True,
+           "generated_shape": list(kernel["generated"].shape),
+           "bfloat16": bf16, "float32": None, "float64": None}
+    del params, kw, runs, kernel
+    release(dev)
+    keys = ("logit_max_abs_err", "logit_atol", "plain_argmax_agrees",
+            "routing_decisions_differ")
+    check = {k: out[k] for k in ("cold_warm_tokens_equal",
+                                 "generated_shape")}
+    check["bfloat16"] = {k: bf16[k] for k in keys if k in bf16}
+    if gate.f32_layers:
+        o32 = {**over, "num_layers": gate.f32_layers,
+               "compute_dtype": "float32"}
+        c32 = dataclasses.replace(cfg, **o32)
+        kw32 = dict(smoke=smoke, num_requests=requests,
+                    prompt_len=prompt_len, gen_len=gen_len, seed=SEED,
+                    device=dev,
+                    params=model.init_compute_params(c32, SEED, dev),
+                    overrides=o32)
+        reset_peak(dev)
+        with RouteLog() if moe else contextlib.nullcontext() as r32:
+            k32 = serve_batch(arch, **kw32)
+        f32 = plain_route_check(arch, c32, dev, kw32, k32, gate.atol,
+                                tag=f"{tag} f32",
+                                routes=r32.ids if moe else None,
+                                replay=moe)
+        out["float32"] = f32
+        check["float32"] = {"layers": gate.f32_layers,
+                            **{k: f32[k] for k in keys if k in f32}}
+        if moe:
+            # one MoE layer's float32 weights kept, the rest freed first
+            first = next(i for i in range(c32.num_layers)
+                         if c32.layer_spec(i).mlp == "moe")
+            layer = kw32["params"]["layers"][first]["moe"]
+        del kw32, k32, r32
+        release(dev)
+        if moe:
+            out["float64"] = moe_f64_check(c32, layer, dev, f64_tokens,
+                                           layer=first)
+            del layer
+            release(dev)
+    log(f"{tag} check " + json.dumps(check))
+    return out
 
 
 def lm_path(dev, *, smoke: bool = False, requests: int = LM_REQUESTS,
             prompt_len: int = LM_PROMPT, gen_len: int = LM_GEN,
             counters: dict | None = None, capture=None) -> dict:
-    """Phase 5: ``serve_batch`` of LM_ARCH twice on the kernel route
-    (cold, warm; ``serve_kernel_runs``) and once on the plain route,
-    teacher-forced with the kernel route's tokens; prefill and per-step
-    logits must agree within LOGIT_ATOL (``plain_route_check``)."""
-    cfg, params = init_model("lm", LM_ARCH, dev, smoke)
-    kw = dict(smoke=smoke, num_requests=requests, prompt_len=prompt_len,
-              gen_len=gen_len, seed=SEED, device=dev, params=params)
-    runs = serve_kernel_runs(LM_ARCH, cfg, dev, kw, counters, capture)
-    kernel = runs["warm"][1]
-    check = plain_route_check(LM_ARCH, cfg, dev, kw, kernel, LOGIT_ATOL)
-    cold_same = bool((runs["cold"][1]["generated"]
-                      == kernel["generated"]).all())
-    summary = {**check, "cold_warm_tokens_equal": cold_same,
-               "generated_shape": list(kernel["generated"].shape),
-               "warm": runs["warm"][0], "cold": runs["cold"][0]}
-    log("lm check " + json.dumps({k: summary[k] for k in (
-        "logit_max_abs_err", "logit_atol", "plain_argmax_agrees",
-        "cold_warm_tokens_equal", "generated_shape")}))
-    return summary
+    """Phase 5: LM_ARCH through ``serve_phase``, the gate in bf16 at full
+    depth within LOGIT_ATOL; the bf16 check's keys also at the top."""
+    out = serve_phase(dev, LM_ARCH, (requests, prompt_len, gen_len),
+                      Gate(LOGIT_ATOL), tag="lm", smoke=smoke,
+                      counters=counters, capture=capture)
+    return {**out["bfloat16"], **out}
 
 
 def log_model(tag: str, arch: str, cfg, params, dev, t0: float) -> None:
@@ -2016,16 +2259,19 @@ def live_pairs(sq: int, sk: int, causal: bool, window) -> int:
     return int(live_mask(sq, sk, causal, window).sum())
 
 
-def lm_kernel_timings(calls: dict, launches: dict, edge_errs: dict,
+def lm_kernel_timings(last: LastCall, launches: dict, edge_errs: dict,
                       where: str = "main-path shape") -> list:
-    """The attention kernels on the inputs the serve gave them (the last
-    prefill layer's q/k/v; the last decode step's q and caches)."""
-    require("flash_attention" in calls and "decode_attention" in calls,
-            f"the LM path never reached the attention kernels: {set(calls)}")
-    return [flash_serve_record(calls["flash_attention"], launches,
+    """The attention kernels on the inputs a serve with no window gave
+    them (``last.by_window``: the last prefill layer's q/k/v; the last
+    decode step's q and caches)."""
+    names = LastCall.NAMES
+    require(set(last.by_window) == {(n, None) for n in names},
+            f"the LM path called the attention kernels as "
+            f"{sorted(last.by_window, key=str)}")
+    return [flash_serve_record(last.by_window[names[0], None], launches,
                                edge_errs, where),
-            decode_record(calls["decode_attention"], launches, edge_errs,
-                          where)]
+            decode_record(last.by_window[names[1], None], launches,
+                          edge_errs, where)]
 
 
 _FLEX: list = []
@@ -2735,36 +2981,42 @@ def template_probe(path: Path) -> int:
 # phases 10 and 11: the MoE and Mamba-2 models, served and trained
 # ---------------------------------------------------------------------------
 
-def moe_f64_check(cfg, params, dev, tokens: int = MOE_F64_TOKENS) -> dict:
-    """One MoE layer (layer 0's weights) at full width on ``tokens``
-    seeded rows in float64, on ``dev`` and through the port on the CPU:
-    the expert ids, the sorted order, the ranks and the rows kept must be
-    equal, the output and the aux loss within MOE_F64_RTOL of the CPU's
-    (over the largest |value|). On the card this holds CUDA's sort,
-    ``bincount`` and ``index_put`` to the reference's dispatch."""
+def moe_f64_check(cfg, moe_params, dev, tokens: int = MOE_F64_TOKENS,
+                  layer: int = 0) -> dict:
+    """One MoE layer (``moe_params``, layer ``layer``'s weights) at full
+    width on ``tokens`` seeded rows in float64, on ``dev`` and through
+    the port on the CPU: the expert ids, the sorted order, the ranks and
+    the rows kept must be equal, the output and the aux loss within
+    MOE_F64_RTOL of the CPU's (over the largest |value|). On the card
+    this holds CUDA's sort, ``bincount`` and ``index_put`` to the
+    reference's dispatch. Each side casts its own copy of the weights
+    (the CPU's is copied over in their own dtype)."""
     import torch
     from repro_torch.models import model, moe
-    p64 = model.tree_map(lambda t: t.detach().to(torch.float64),
-                         params["layers"][0]["moe"])
     x = normal((tokens, cfg.d_model), SEED + 150, dev, torch.float64)
     kw = dict(top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
     got = {}
+    t0 = time.perf_counter()
     for where, d in (("device", dev), ("cpu", torch.device("cpu"))):
-        pd = model.tree_map(lambda t, d=d: t.to(d), p64)
+        pd = model.tree_map(lambda t, d=d: t.detach().to(d).to(
+            torch.float64), moe_params)
         xd = x.to(d)
         r = moe.route(pd, xd, **kw)
         y, aux = moe.moe_apply(pd, xd, act=cfg.act, **kw)
         got[where] = ({k: r[k].cpu() for k in ("expert_ids", "order", "pos",
                                               "dest")}, y.cpu(), aux.cpu())
+        del pd, xd, r, y, aux
+    seconds = time.perf_counter() - t0
     (rd, yd, ad), (rc, yc, ac) = got["device"], got["cpu"]
     same = {k: bool(torch.equal(rd[k], rc[k])) for k in rd}
     # rows on which every expert ties: the router must pick the lower
     # experts first, as lax.top_k does (torch.topk's order is printed)
+    router = {"router": moe_params["router"].detach().to(dev).to(
+        torch.float64)}
     ties = torch.zeros((4, cfg.d_model), dtype=torch.float64, device=dev)
     first = torch.arange(cfg.top_k).expand(4, -1)
     same["ties_lower_expert_first"] = bool(torch.equal(
-        moe.route(model.tree_map(lambda t: t.to(dev), p64), ties,
-                  **kw)["expert_ids"].cpu(), first))
+        moe.route(router, ties, **kw)["expert_ids"].cpu(), first))
     topk_ties = bool(torch.equal(torch.topk(
         torch.full((4, cfg.num_experts), 1.0, device=dev),
         cfg.top_k).indices.cpu(), first))
@@ -2776,7 +3028,10 @@ def moe_f64_check(cfg, params, dev, tokens: int = MOE_F64_TOKENS) -> dict:
            "assignments": tokens * cfg.top_k, "equal": same,
            "out_rel_err": float((yd - yc).abs().max() / yc.abs().max()),
            "aux_rel_err": float((ad - ac).abs() / ac.abs()),
-           "rtol": MOE_F64_RTOL, "torch_topk_ties_lower_first": topk_ties}
+           "rtol": MOE_F64_RTOL, "torch_topk_ties_lower_first": topk_ties,
+           "layer": layer, "d_model": cfg.d_model,
+           "d_ff_expert": cfg.d_ff_expert, "experts": cfg.num_experts,
+           "top_k": cfg.top_k, "seconds": seconds}
     log("moe float64 " + json.dumps(rec))
     require(all(same.values()), f"moe float64: the device routes otherwise "
             f"than the CPU: {same}")
@@ -2805,21 +3060,14 @@ def moe_path(dev, *, smoke: bool = False, requests: int = LM_REQUESTS,
     within MOE_TRAIN_TOL and ``launch.train.train`` (``train_path``,
     ``counters`` holding the flash pair too; ``train_capture`` around
     the run)."""
-    import torch
     from repro_torch.launch.serve import serve_batch
     cfg, params = init_model("moe", MOE_ARCH, dev, smoke)
     kw = dict(smoke=smoke, num_requests=requests, prompt_len=prompt_len,
               gen_len=gen_len, seed=SEED, device=dev, params=params)
-    with RouteLog() as routes:
-        runs = serve_kernel_runs(MOE_ARCH, cfg, dev, kw, counters, capture,
-                                 tag="moe")
-    half = len(routes.ids) // 2
-    require(all(torch.equal(a, b) for a, b in zip(routes.ids[:half],
-                                                  routes.ids[half:])),
-            "moe: the cold and warm serves routed differently")
+    runs = serve_kernel_runs(MOE_ARCH, cfg, dev, kw, counters, capture,
+                             tag="moe")
     bf16 = plain_route_check(MOE_ARCH, cfg, dev, kw, runs["warm"][1], None,
-                             tag="moe bf16", routes=routes.ids[half:])
-    del routes
+                             tag="moe bf16", routes=runs["routes"])
     kw32 = {**kw, "overrides": {"compute_dtype": "float32"}}
     with RouteLog() as routes32:
         k32 = serve_batch(MOE_ARCH, **kw32)
@@ -2832,7 +3080,7 @@ def moe_path(dev, *, smoke: bool = False, requests: int = LM_REQUESTS,
         "routing_decisions_differ")}, "float32": {k: f32[k] for k in (
             "logit_max_abs_err", "logit_atol", "plain_argmax_agrees",
             "routing_decisions_differ")}}))
-    f64 = moe_f64_check(cfg, params, dev, f64_tokens)
+    f64 = moe_f64_check(cfg, params["layers"][0]["moe"], dev, f64_tokens)
     del params
     release(dev)
     trained = train_path(dev, arch=MOE_ARCH, smoke=smoke, steps=steps,
@@ -2904,9 +3152,6 @@ def ssm_path(dev, *, smoke: bool = False, requests: int = LM_REQUESTS,
               gen_len=gen_len, seed=SEED, device=dev, params=params)
     runs = serve_kernel_runs(SSM_ARCH, cfg, dev, kw, counters, None,
                              tag="ssm")
-    cold_same = bool((runs["cold"][1]["generated"]
-                      == runs["warm"][1]["generated"]).all())
-    require(cold_same, "ssm: the cold and warm serves generated otherwise")
     gates = {}
     for dt in ("float32", "bfloat16"):
         gates[dt] = ssm_chain_gate(cfg, params, dev, dt, requests,
@@ -3561,74 +3806,45 @@ def dense_path(dev, arch: str, *, smoke: bool = False,
                requests: int | None = None, prompt_len: int | None = None,
                gen_len: int = LM_GEN, f32_layers: int | None = None,
                counters: dict | None = None, capture=None) -> dict:
-    """Phase 15, one of DENSE_ARCHS at its published width and depth:
-    seeded weights drawn in the compute dtype layer by layer
-    (``model.init_compute_params``: the float32 model is never whole on
-    the card); ``serve_batch`` with DENSE_TRAFFIC's requests cold and
-    warm on the kernel route (``serve_kernel_runs``: ``counters`` the
-    flash and decode wrappers, once per layer and once per layer per
-    token; ``capture`` sees the cold serve), the tokens of both equal;
-    the plain route (dense attention) teacher-forced in bf16, printed
-    with the share of argmax tokens it agrees on (bf16 noise through
-    32-48 layers is bounded by nothing that would show a fault); then
-    the gate in float32 at full width and DENSE_F32_LAYERS layers:
-    kernel route against plain route within DENSE_F32_LOGIT_ATOL."""
-    from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.launch.serve import serve_batch
-    from repro_torch.models import model
-    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    """Phase 15, one of DENSE_ARCHS at its published width and depth
+    through ``serve_phase`` with DENSE_TRAFFIC's requests: the bf16
+    plain route printed (bf16 noise through 32-48 layers is bounded by
+    nothing that would show a fault), the gate in float32 at
+    DENSE_F32_LAYERS within DENSE_F32_LOGIT_ATOL."""
     req, plen = DENSE_TRAFFIC[arch]
-    requests, prompt_len = requests or req, prompt_len or plen
-    f32_layers = f32_layers or DENSE_F32_LAYERS[arch]
-    require(f32_layers % cfg.period == 0,
-            f"{arch}: {f32_layers} float32 layers are no whole periods "
-            f"of {cfg.period}")
-    reset_peak(dev)
-    t0 = time.perf_counter()
-    params = model.init_compute_params(cfg, SEED, dev)
-    device_sync(dev)
-    init_s = time.perf_counter() - t0
-    log_model("dense", arch, cfg, params, dev, t0)
-    n_params = sum(t.numel() for t in model._leaves(params))
-    kw = dict(smoke=smoke, num_requests=requests, prompt_len=prompt_len,
-              gen_len=gen_len, seed=SEED, device=dev, params=params,
-              overrides={"attn_impl": kernel_impl(dev)})
-    runs = serve_kernel_runs(arch, cfg, dev, kw, counters, capture,
-                             tag=f"dense {arch}",
-                             info={"params": n_params, "init_s": init_s,
-                                   "requests": requests,
-                                   "prompt_len": prompt_len})
-    kernel = runs["warm"][1]
-    require(bool((runs["cold"][1]["generated"] == kernel["generated"])
-                 .all()), f"{arch}: the cold and warm serves generated "
-            "otherwise")
-    bf16 = plain_route_check(arch, cfg, dev, kw, kernel, None,
-                             tag=f"dense {arch} bf16")
-    warm, by_window = runs["warm"][0], runs["warm"][2]
-    del params, kw, runs, kernel
-    release(dev)
-    over = {"num_layers": f32_layers, "compute_dtype": "float32",
-            "attn_impl": kernel_impl(dev)}
-    c32 = dataclasses.replace(cfg, **over)
-    kw32 = dict(smoke=smoke, num_requests=requests, prompt_len=prompt_len,
-                gen_len=gen_len, seed=SEED, device=dev,
-                params=model.init_compute_params(c32, SEED, dev),
-                overrides=over)
-    reset_peak(dev)
-    k32 = serve_batch(arch, **kw32)
-    f32 = plain_route_check(arch, c32, dev, kw32, k32,
-                            DENSE_F32_LOGIT_ATOL[arch],
-                            tag=f"dense {arch} f32")
-    del kw32, k32
-    release(dev)
-    log(f"dense {arch} check " + json.dumps(
-        {"bfloat16": {k: bf16[k] for k in ("logit_max_abs_err",
-                                            "plain_argmax_agrees")},
-         "float32": {"layers": f32_layers, **{k: f32[k] for k in (
-             "logit_max_abs_err", "logit_atol", "plain_argmax_agrees")}}}))
-    return {"arch": arch, "params": n_params, "init_s": init_s,
-            "warm": warm, "by_window": by_window, "bfloat16": bf16,
-            "float32": f32}
+    return serve_phase(
+        dev, arch, (requests or req, prompt_len or plen, gen_len),
+        Gate(DENSE_F32_LOGIT_ATOL[arch],
+             f32_layers or DENSE_F32_LAYERS[arch]),
+        tag=f"dense {arch}", smoke=smoke, counters=counters, capture=capture)
+
+
+# ---------------------------------------------------------------------------
+# phase 16: llama4-scout and jamba served at full width, cut depth
+# ---------------------------------------------------------------------------
+
+def moe_wide_path(dev, arch: str, *, smoke: bool = False,
+                  requests: int = LM_REQUESTS, prompt_len: int = LM_PROMPT,
+                  gen_len: int = LM_GEN, overrides: dict | None = None,
+                  f32_layers: int | None = None,
+                  f64_tokens: int = MOE_WIDE_F64_TOKENS,
+                  counters: dict | None = None, capture=None) -> dict:
+    """Phase 16, one of MOE_WIDE_ARCHS at its published width and
+    MOE_WIDE_LAYERS layers (the smoke config's own depth with ``smoke``;
+    ``overrides``: more config fields) through ``serve_phase`` with
+    phase 5's traffic: cold and warm tokens and expert ids equal, the
+    bf16 plain route printed with its share of differing routing
+    decisions, the gate in float32 at MOE_WIDE_F32_LAYERS with the plain
+    route routed as the kernel route (MOE_WIDE_F32_LOGIT_ATOL), and
+    ``moe_f64_check`` on the first MoE layer of that float32 model."""
+    over = {} if smoke else {"num_layers": MOE_WIDE_LAYERS[arch]}
+    return serve_phase(
+        dev, arch, (requests, prompt_len, gen_len),
+        Gate(MOE_WIDE_F32_LOGIT_ATOL[arch],
+             f32_layers or MOE_WIDE_F32_LAYERS[arch]),
+        tag=f"moe-wide {arch}", smoke=smoke,
+        overrides={**over, **(overrides or {})}, f64_tokens=f64_tokens,
+        counters=counters, capture=capture)
 
 
 def dense_calls(arch: str, cfg, last: LastCall) -> list:
@@ -3671,6 +3887,32 @@ def dense_kernel_timings(arch: str, cfg, last: LastCall, by_window: dict,
     return rows
 
 
+def serve_rows(dev, phases, attn: dict, edge_errs: dict) -> list:
+    """Phases 15 and 16, each (tag, archs, run) one arch on the card at a
+    time: ``run(dev, arch, counters=attn, capture=LastCall)`` with the
+    flash backward never launched, then the attention kernels' rows on
+    the inputs of each arch's serve (``dense_kernel_timings`` at the
+    config it served)."""
+    from repro_torch.kernels import ops
+    rows = []
+    for tag, archs, run in phases:
+        t0 = time.perf_counter()
+        for arch in archs:
+            ta = time.perf_counter()
+            last = LastCall(ops)
+            attn["flash_attention_bwd"].launches = 0
+            out = run(dev, arch, counters=attn, capture=last)
+            require(attn["flash_attention_bwd"].launches == 0,
+                    f"the {arch} serve launched the flash backward kernel")
+            rows += dense_kernel_timings(arch, out["cfg"], last,
+                                         out["by_window"], edge_errs)
+            del last, out
+            release(dev)
+            log(f"{tag} {arch} ok ({time.perf_counter() - ta:.1f} s)")
+        log(f"{tag} path ok ({time.perf_counter() - t0:.1f} s)")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3684,7 +3926,6 @@ def main() -> int:
     if sys.argv[1:2] == ["--templates"]:
         return template_probe(Path(sys.argv[2]))
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import get_config
     from repro_torch.core import Executor
     from repro_torch.core.queries import GROUPED
     from repro_torch.data.weather import WeatherSpec, build_database
@@ -3715,6 +3956,20 @@ def main() -> int:
     require("flash_fwd_tc<256,256>" in ptx,
             f"no bf16 head_dim 256 forward in the ptxas report: {list(ptx)}")
 
+    wrappers = {"block_join_probe": hash_join.block_join_probe,
+                "segmented_aggregate": seg_aggregate.segmented_aggregate,
+                "segment_topk": seg_topk.segment_topk,
+                "segmented_sum_count": seg_aggregate.segmented_sum_count,
+                "flash_attention": flash_attention.flash_attention_bhsd,
+                "flash_attention_bwd":
+                    flash_attention.flash_attention_bwd_bhsd,
+                "decode_attention": decode_attention.decode_attention_bhgd}
+    query_kernels = ("block_join_probe", "segmented_aggregate",
+                     "segment_topk")
+    lm_kernels = ("flash_attention", "decode_attention")
+    attn_kernels = lm_kernels + ("flash_attention_bwd",)
+    attn = {k: wrappers[k] for k in attn_kernels}
+
     t0 = time.perf_counter()
     edge_errs = edge_checks(dev)
     log(f"kernels edge-shape parity ok {json.dumps(edge_errs)} "
@@ -3734,18 +3989,6 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB on the card")
 
-    wrappers = {"block_join_probe": hash_join.block_join_probe,
-                "segmented_aggregate": seg_aggregate.segmented_aggregate,
-                "segment_topk": seg_topk.segment_topk,
-                "segmented_sum_count": seg_aggregate.segmented_sum_count,
-                "flash_attention": flash_attention.flash_attention_bhsd,
-                "flash_attention_bwd":
-                    flash_attention.flash_attention_bwd_bhsd,
-                "decode_attention": decode_attention.decode_attention_bhgd}
-    query_kernels = ("block_join_probe", "segmented_aggregate",
-                     "segment_topk")
-    lm_kernels = ("flash_attention", "decode_attention")
-    attn_kernels = lm_kernels + ("flash_attention_bwd",)
     for w in wrappers.values():
         w.launches = 0
     capture = Capture(ops)
@@ -3817,7 +4060,7 @@ def main() -> int:
     require(wrappers["flash_attention_bwd"].launches == 0,
             "the serve path launched the flash backward kernel")
     log(f"lm path ok ({time.perf_counter() - t0:.1f} s)")
-    for r in lm_kernel_timings(last.calls, launches, edge_errs):
+    for r in lm_kernel_timings(last, launches, edge_errs):
         records[r["name"]] = r
     del last
     release(dev)
@@ -3842,12 +4085,11 @@ def main() -> int:
     log(f"train resume ok ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
-    attn = {k: wrappers[k] for k in attn_kernels}
     last, last_flash = LastCall(ops), LastFlash()
     moe = moe_path(dev, counters=attn, capture=last,
                    train_capture=last_flash)
     log(f"moe path ok ({time.perf_counter() - t0:.1f} s)")
-    extra_records += lm_kernel_timings(last.calls, moe["warm"]["launches"],
+    extra_records += lm_kernel_timings(last, moe["warm"]["launches"],
                                        edge_errs, where=f"{MOE_ARCH} serve")
     bwd, fwd_train = train_kernel_timing(
         last_flash.call, moe["train"]["launches"], edge_errs, templates,
@@ -3867,7 +4109,7 @@ def main() -> int:
     vlm = vlm_path(dev, counters=attn, capture=last,
                    train_capture=last_flash)
     log(f"vlm path ok ({time.perf_counter() - t0:.1f} s)")
-    extra_records += lm_kernel_timings(last.calls, vlm["warm"]["launches"],
+    extra_records += lm_kernel_timings(last, vlm["warm"]["launches"],
                                        edge_errs, where=f"{VLM_ARCH} serve")
     extra_records += train_kernel_timing(
         last_flash.call, vlm["train"]["launches"], edge_errs, templates,
@@ -3879,11 +4121,11 @@ def main() -> int:
     audio = audio_path(dev, counters=attn, capture=last,
                        train_capture=last_flash)
     log(f"audio path ok ({time.perf_counter() - t0:.1f} s)")
-    require(set(last.calls) == {"flash_attention"},
-            f"the audio forward called {set(last.calls)}")
+    require(set(last.by_window) == {("flash_attention", None)},
+            f"the audio forward called {set(last.by_window)}")
     extra_records.append(flash_serve_record(
-        last.calls["flash_attention"], audio["warm"]["launches"], edge_errs,
-        where=f"{AUDIO_ARCH} forward"))
+        last.by_window["flash_attention", None], audio["warm"]["launches"],
+        edge_errs, where=f"{AUDIO_ARCH} forward"))
     extra_records += train_kernel_timing(
         last_flash.call, audio["train"]["launches"], edge_errs, templates,
         where=f"{AUDIO_ARCH} training")[::-1]
@@ -3901,20 +4143,9 @@ def main() -> int:
     log(f"fsdp path ok ({time.perf_counter() - t0:.1f} s)")
     release(dev)
 
-    t0 = time.perf_counter()
-    for arch in DENSE_ARCHS:
-        ta = time.perf_counter()
-        last = LastCall(ops)
-        wrappers["flash_attention_bwd"].launches = 0
-        dense = dense_path(dev, arch, counters=attn, capture=last)
-        require(wrappers["flash_attention_bwd"].launches == 0,
-                f"the {arch} serve launched the flash backward kernel")
-        extra_records += dense_kernel_timings(
-            arch, get_config(arch), last, dense["by_window"], edge_errs)
-        del last, dense
-        release(dev)
-        log(f"dense {arch} ok ({time.perf_counter() - ta:.1f} s)")
-    log(f"dense path ok ({time.perf_counter() - t0:.1f} s)")
+    extra_records += serve_rows(
+        dev, [("dense", DENSE_ARCHS, dense_path),
+              ("moe-wide", MOE_WIDE_ARCHS, moe_wide_path)], attn, edge_errs)
 
     t0 = time.perf_counter()
     templates.run()

@@ -32,6 +32,8 @@ DENSE_ARCHS = ["qwen3-1.7b", "gemma2-9b", "gemma3-12b", "llama3-8b"]
 # the MoE and Mamba-2 blocks (tests/test_torch_moe.py, test_torch_ssm.py)
 NEW_ARCHS = ["granite-moe-1b-a400m", "llama4-scout-17b-a16e", "mamba2-370m",
              "jamba-v0.1-52b"]
+# the MoE archs chip_smoke.py serves at full width and cut depth (phase 16)
+MOE_WIDE_ARCHS = ["llama4-scout-17b-a16e", "jamba-v0.1-52b"]
 # M-RoPE and the patches / frames front ends (tests/test_torch_frontends.py)
 FRONTEND_ARCHS = ["qwen2-vl-2b", "hubert-xlarge"]
 
@@ -268,12 +270,14 @@ def test_slice_matches_jax_pallas_flash_kernel():
 # serve_batch
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_WIDE_ARCHS)
 def test_serve_batch_tokens_match_jax_f32(monkeypatch, arch):
     """``serve_batch`` against the JAX package's on its own weights, the
     generated tokens equal. Prompts of 8 to 16 tokens and 6 more
     generated: past the smoke window of 8, so gemma's local layers cut
-    keys in prefill and in every decode step."""
+    keys in prefill and in every decode step; llama4-scout's top-1 with
+    a shared expert and jamba's Mamba-2 / attention without RoPE / top-2
+    period as chip_smoke.py's phase 16 serves them."""
     from repro.launch import serve as jax_serve
     jcfg, pcfg = configs(arch, compute_dtype="float32")
     assert pcfg.window in (0, 8)
@@ -293,12 +297,14 @@ def test_serve_batch_tokens_match_jax_f32(monkeypatch, arch):
                        torch.from_numpy(got["generated"]).long())
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "gemma2-9b", "gemma3-12b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "gemma2-9b", "gemma3-12b"]
+                         + MOE_WIDE_ARCHS)
 def test_init_compute_params_is_compute_params_of_init(arch):
     """The per-layer cast at init (``model.init_compute_params``, which
     the full-width serves use) gives ``compute_params(init_params(...))``
-    bit for bit: the same leaves, dtypes and values, ``final_norm``
-    float32."""
+    bit for bit: the same leaves, dtypes and values (the MoE router,
+    the stacked experts and the Mamba-2 leaves ``a_log``, ``D``,
+    ``dt_bias`` included), ``final_norm`` float32."""
     cfg = get_smoke_config(arch)
     want = model.compute_params(cfg, model.init_params(cfg, 5, "cpu"))
     got = model.init_compute_params(cfg, 5, "cpu")

@@ -2,6 +2,7 @@
 package, the port's own ingest, the device default, and the rule that
 the port imports nothing of JAX or of the JAX package."""
 import ast
+import dataclasses
 import math
 import subprocess
 import sys
@@ -242,6 +243,142 @@ def test_chip_smoke_dense_path_rehearsal_on_cpu():
                 logit_softcap=dkw["logit_softcap"])
             torch.testing.assert_close(dlib().transpose(1, 2), want,
                                        atol=2e-2, rtol=2e-2)
+
+
+class _CountCalls:
+    """Counts the calls of one ``kernels.ops`` attention entry point, in
+    all and by ``window``, as its kernel's wrapper counts its launches on
+    the card (``launches``, ``by_window``): on the CPU the wrappers run
+    the plain versions and count nothing."""
+
+    def __init__(self, monkeypatch, ops, name):
+        self.launches, self.by_window = 0, {}
+        fn = getattr(ops, name)
+
+        def counted(*args, **kw):
+            self.launches += 1
+            w = kw.get("window")
+            self.by_window[w] = self.by_window.get(w, 0) + 1
+            return fn(*args, **kw)
+
+        monkeypatch.setattr(ops, name, counted)
+
+
+def test_chip_smoke_moe_serve_path_rehearsal_on_cpu(monkeypatch):
+    """chip_smoke.py's phase 16 at the smoke sizes of llama4-scout (its
+    group of 5 query heads a kv head: 10/2 heads) and jamba on the CPU:
+    the serve cold and warm with the calls the kernels would launch
+    counted by window, the tokens and expert ids of both equal; the plain
+    route in bf16 with its share of differing routing decisions; the
+    float32 gate with the plain route routed as the kernel route
+    (``RouteReplay``); ``moe_f64_check`` on the first MoE layer (jamba's
+    layer 1); and the library column (SDPA with ``enable_gqa``) against
+    the plain attention on the calls the serve made. At the published
+    configs and phase 16's depths the serve launches the flash kernel 12
+    and 2 times, and the decode kernel 384 and 64 times."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention
+    dev = torch.device("cpu")
+    full = {"llama4-scout-17b-a16e": (12, 384), "jamba-v0.1-52b": (2, 64)}
+    heads = {"llama4-scout-17b-a16e": {"num_heads": 10, "num_kv_heads": 2},
+             "jamba-v0.1-52b": {}}
+    for arch in chip_smoke.MOE_WIDE_ARCHS:
+        cut = dataclasses.replace(
+            get_config(arch), num_layers=chip_smoke.MOE_WIDE_LAYERS[arch])
+        assert chip_smoke.window_launches(cut, chip_smoke.LM_GEN) == {
+            "flash_attention": {None: full[arch][0]},
+            "decode_attention": {None: full[arch][1]}}
+        counters = {n: _CountCalls(monkeypatch, ops, n)
+                    for n in chip_smoke.LastCall.NAMES}
+        cfg = dataclasses.replace(get_smoke_config(arch), **heads[arch])
+        last = chip_smoke.LastCall(ops)
+        out = chip_smoke.moe_wide_path(
+            dev, arch, smoke=True, requests=2, prompt_len=16, gen_len=3,
+            overrides=heads[arch], f32_layers=cfg.period, f64_tokens=64,
+            counters=counters, capture=last)
+        assert out["params"] == cfg.num_params()
+        assert out["layers"] == out["cfg"].num_layers == cfg.num_layers
+        assert out["by_window"] == chip_smoke.window_launches(cfg, 3)
+        n_attn = sum(cfg.layer_spec(i).mixer == "attn"
+                     for i in range(cfg.num_layers))
+        assert out["warm"]["launches"] == {"flash_attention": n_attn,
+                                           "decode_attention": 3 * n_attn}
+        assert out["cold_warm_tokens_equal"]
+        assert 0.0 <= out["bfloat16"]["routing_decisions_differ"] <= 1.0
+        f32 = out["float32"]
+        assert f32["routes_replayed"]
+        assert f32["routing_decisions_differ"] == 0.0
+        assert max(f32["logit_max_abs_err"].values()) \
+            <= chip_smoke.MOE_WIDE_F32_LOGIT_ATOL[arch]
+        assert f32["plain_argmax_agrees"] == 1.0
+        f64 = out["float64"]
+        assert all(f64["equal"].values())
+        assert f64["layer"] == (1 if arch == "jamba-v0.1-52b" else 0)
+        assert f64["top_k"] == cfg.top_k
+        rows = chip_smoke.dense_calls(arch, out["cfg"], last)
+        assert len(rows) == 1
+        _, fcall, dcall = rows[0]
+        (q, k, v), fkw = fcall
+        (dq, kc, vc, kv_len), dkw = dcall
+        assert q.shape[2] // k.shape[2] == cfg.num_heads // cfg.num_kv_heads
+        flib, fname = chip_smoke.flash_library(fcall)
+        dlib, dname = chip_smoke.decode_library(dcall)
+        assert fname == dname == "scaled_dot_product_attention"
+        torch.testing.assert_close(flib().transpose(1, 2),
+                                   attention.dense_attention(q, k, v),
+                                   atol=2e-2, rtol=2e-2)
+        torch.testing.assert_close(
+            dlib().transpose(1, 2),
+            attention.decode_attention(dq, kc, vc, kv_len=kv_len),
+            atol=2e-2, rtol=2e-2)
+        monkeypatch.undo()
+
+
+def test_chip_smoke_route_replay_on_cpu():
+    """``RouteReplay`` routes a MoE layer to the expert ids a
+    ``RouteLog`` recorded: the ids it was given, with the call's own
+    probabilities at them as gates, the package's ranks and dispatch; the
+    layer's own ids give its output and aux bit for bit, and ``own``
+    holds the ids its own router chose."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model, moe
+    for arch in chip_smoke.MOE_WIDE_ARCHS:
+        cfg = get_smoke_config(arch)
+        first = next(i for i in range(cfg.num_layers)
+                     if cfg.layer_spec(i).mlp == "moe")
+        p = model.init_params(cfg, 3, "cpu")["layers"][first]["moe"]
+        x = torch.from_numpy(np.random.default_rng(4).normal(
+            size=(40, cfg.d_model)).astype(np.float32))
+        kw = dict(top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                  act=cfg.act)
+        with chip_smoke.RouteLog() as log:
+            want = moe.moe_apply(p, x, **kw)
+        with chip_smoke.RouteReplay(log.ids) as rep:
+            got = moe.moe_apply(p, x, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(rep.own[0], log.ids[0])
+        # other experts: the given ids, each token's first one moved on
+        other = log.ids[0].clone()
+        other[:, 0] = (other[:, 0] + 1) % cfg.num_experts
+        if cfg.top_k > 1:
+            clash = other[:, 0] == other[:, 1]
+            other[clash, 1] = (other[clash, 1] + 1) % cfg.num_experts
+        with chip_smoke.RouteReplay([other]) as rep:
+            r = moe.route(p, x, top_k=cfg.top_k,
+                          capacity_factor=cfg.capacity_factor)
+        assert moe.route is rep.saved and moe.torch is torch
+        assert torch.equal(r["expert_ids"], other)
+        probs = torch.softmax(x @ p["router"], -1).gather(-1, other)
+        torch.testing.assert_close(r["gate"], probs / probs.sum(-1, True))
+        assert torch.equal(rep.own[0], log.ids[0])
+        assert chip_smoke.route_share(rep.own, [other]) == 1.0
+        want = moe.route(p, x, top_k=cfg.top_k)
+        assert torch.equal(want["expert_ids"], log.ids[0])
 
 
 TINY_SPEC = dict(num_stations=12, years=(1976, 1999, 2000, 2001, 2003),
