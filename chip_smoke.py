@@ -200,6 +200,20 @@ Phases, each printed as it runs:
    in float64 on the card against the CPU, and the attention kernels on
    the inputs of each serve, beside ``scaled_dot_product_attention``.
    Phases 5, 15 and 16 run through one driver, ``serve_phase``.
+17. the tensor-parallel split of one layer over 4 ``model`` ranks
+   (``launch/fsdp.py``), each rank's share computed in turn on the one
+   card with its partials summed in float32 where NCCL's all-reduce
+   would sum them (``fsdp.split_in_turn``; the collectives themselves
+   need four cards): llama3-8b's first layer (d_model 4096, 32/8 heads
+   of 128, d_ff 14336: 8/2 heads and 3584 columns a rank) and
+   gemma3-12b's first, local one (d_model 3840, 16/8 heads of 256,
+   window 1024, qk-norm, post-norms, d_ff 15360: 4/2 heads and 3840
+   columns a rank), seeded weights and 8 x 2048 tokens, in float32 and
+   bf16: the output, the input gradient and every weight gradient
+   against the unsplit layer (TP_TOL); the flash forward and backward
+   launched once a rank on its heads, counted; one rank's share,
+   forward and backward, timed beside the whole layer; then the flash
+   kernels at that per-rank shape beside their plain versions.
 
 Phase 3's ``query`` lines also give each query's peak device memory and
 the join kernel's hash-table scratch (``join_table_mib``); phase 6's
@@ -214,9 +228,11 @@ the routes' agreement and the resume; phases 10 and 11 the ``moe`` and
 lines, phase 15 the ``dense`` lines (params, seconds to initialise,
 prefill ms, decode ms/token, tok/s, peak MiB and launches a serve; the
 routes' differences), phase 16 the ``moe-wide`` lines (the same, the
-peak after init, and the ``moe float64`` lines). Phases run in the order
-1–4, 6, 7, 8, 5, 9, 10, 11, 12, 13, 14, 15, 16: one database's tables,
-or one model, on the card at a time.
+peak after init, and the ``moe float64`` lines), phase 17 the ``tp
+layer`` lines (each tensor's largest difference over its largest
+|value|, the launches, ms). Phases run in the order 1–4, 6, 7, 8, 5, 9,
+10, 11, 12, 13, 14, 15, 16, 17: one database's tables, or one model,
+on the card at a time.
 
 Which templates the flash backward (and the forward with L) ran at each
 training shape is read last, by ``torch.profiler`` in a process of its
@@ -416,6 +432,20 @@ MOE_WIDE_F32_LOGIT_ATOL = {"llama4-scout-17b-a16e": 1e-4,
 # machine, 700.00 W), capacities of 40 (top-1) and 80 (top-2) rows an
 # expert
 MOE_WIDE_F64_TOKENS = 512
+# phase 17: the tensor-parallel split of one layer at full width, every
+# one of TP_RANKS ``model`` ranks' share computed in turn on the card
+# (``fsdp.split_in_turn``), held against the unsplit layer on TP_TOKENS
+# tokens: llama3-8b's layer and gemma3-12b's local layer (window 1024,
+# qk-norm, post-norms)
+TP_ARCHS = ("llama3-8b", "gemma3-12b")
+TP_RANKS = 4
+TP_TOKENS = (8, 2048)
+# the split's output, input gradient and every weight gradient against
+# the unsplit layer's, each difference over the tensor's largest |value|:
+# float32 re-associates the split products' sums (float32 roundings);
+# bfloat16 also lets such a sum round to the other side of a bf16
+# boundary now and then, and what follows rounds its own way
+TP_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # result positions (DistributeResult order) that are sums, averages or
 # divisions: compared to SUM_RTOL between routes, all else exactly
 TOLERANT = {"Q3": {0}, "Q4": {0}, "Q7": {0}, "Q8": {0}, "Q9": {2},
@@ -2307,29 +2337,32 @@ def flex_call(q, k, v, mask_mod, batch, softcap, scale):
     return lib
 
 
-def flash_library(call) -> tuple:
+def attention_library(q, k, v, causal: bool, window, softcap,
+                      scale) -> tuple:
     """(one PyTorch call that computes what the flash kernel computes on
-    one ``ops.flash_attention`` call's (B, S, H, D) q, k, v; its name):
-    ``scaled_dot_product_attention`` on the (B, H, S, D) views where
-    neither a window nor a softcap is on, else ``flex_call`` with the
-    causal window as its block mask."""
+    (B, H, S, D) q, k, v; its name): ``scaled_dot_product_attention``
+    where neither a window nor a softcap is on, else ``flex_call`` with
+    the causal window as its block mask."""
     import torch.nn.functional as F
-    (q, k, v), kw = call
-    causal, window = kw.get("causal", True), kw.get("window")
-    softcap = kw.get("logit_softcap")
-    qv, kv, vv = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if window is None and softcap is None:
         def lib():
             return F.scaled_dot_product_attention(
-                qv, kv, vv, is_causal=causal, enable_gqa=True,
-                scale=kw.get("scale"))
+                q, k, v, is_causal=causal, enable_gqa=True, scale=scale)
         return lib, "scaled_dot_product_attention"
 
     def live(b, h, qi, ki):
         ok = qi >= ki if causal else qi >= 0
         return ok & (ki > qi - window) if window is not None else ok
-    return (flex_call(qv, kv, vv, live, None, softcap, kw.get("scale")),
-            "flex_attention")
+    return flex_call(q, k, v, live, None, softcap, scale), "flex_attention"
+
+
+def flash_library(call) -> tuple:
+    """``attention_library`` on one ``ops.flash_attention`` call's
+    (B, S, H, D) q, k, v, as (B, H, S, D) views."""
+    (q, k, v), kw = call
+    return attention_library(
+        *(x.transpose(1, 2) for x in (q, k, v)), kw.get("causal", True),
+        kw.get("window"), kw.get("logit_softcap"), kw.get("scale"))
 
 
 def decode_library(call) -> tuple:
@@ -2825,7 +2858,6 @@ def train_kernel_timing(call, launches: dict, edge_errs: dict,
     ``scaled_dot_product_attention``. Returns the (backward, forward)
     records."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention, ref
     require(call is not None, "the training path never reached the "
             "flash forward kernel with L")
@@ -2854,16 +2886,14 @@ def train_kernel_timing(call, launches: dict, edge_errs: dict,
                q, k, v, return_lse=True, **kw))}
     log(f"kernel flash_attention at {where}, L off (serve) and on "
         "(training): " + json.dumps(fwd))
-    lib = None
-    if kw["window"] is None and kw["softcap"] is None:
-        qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
-        out = F.scaled_dot_product_attention(
-            qq, kk, vv, is_causal=kw["causal"], enable_gqa=True,
-            scale=kw["scale"])
+    qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+    fwd_lib, lib_name = attention_library(qq, kk, vv, kw["causal"],
+                                          kw["window"], kw["softcap"],
+                                          kw["scale"])
+    out = fwd_lib()
 
-        def lib():
-            return torch.autograd.grad(out, (qq, kk, vv), do,
-                                       retain_graph=True)
+    def lib():
+        return torch.autograd.grad(out, (qq, kk, vv), do, retain_graph=True)
     pairs = live_pairs(sq, sk, kw["causal"], kw["window"])
     # five products (S, dP, dV, dQ, dK) of 2 D FLOP a live pair
     flops = 10.0 * d * b * hq * pairs
@@ -2878,17 +2908,15 @@ def train_kernel_timing(call, launches: dict, edge_errs: dict,
                                                          **kw),
         lambda: ref.flash_attention_bwd(*flat, **kw),
         lib, nbytes, flops, dt,
-        {**shape, "lse_max_abs_err": lse_err, **sizes}, where=where)
+        {**shape, "lse_max_abs_err": lse_err, **sizes}, where=where,
+        library=f"autograd of {lib_name}")
+    del out, qq, kk, vv
     # the forward with L stored, as training runs it
     fwd_err = attn_err(o.reshape(flat[0].shape),
                        ref.flash_attention(*flat[:3], **kw), dt,
                        f"flash_attention ({where})")
-    lib = None
-    if kw["window"] is None and kw["softcap"] is None:
-        def lib():
-            return F.scaled_dot_product_attention(
-                q, k, v, is_causal=kw["causal"], enable_gqa=True,
-                scale=kw["scale"])
+    lib, _ = attention_library(q, k, v, kw["causal"], kw["window"],
+                               kw["softcap"], kw["scale"])
     fwd_rec = kernel_record(
         "flash_attention", launches,
         max(fwd_err, edge_errs["flash_attention"]),
@@ -2897,7 +2925,8 @@ def train_kernel_timing(call, launches: dict, edge_errs: dict,
         lambda: ref.flash_attention(*flat[:3], return_lse=True, **kw), lib,
         (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         + lse.numel() * 4, 4.0 * d * b * hq * pairs, dt,
-        {**shape, "lse": True}, where=where + ", L stored")
+        {**shape, "lse": True}, where=where + ", L stored",
+        library=lib_name)
     templates.add(where, bwd, fwd_rec, (q, k, v, o, lse, do), kw)
     return bwd, fwd_rec
 
@@ -3847,6 +3876,138 @@ def moe_wide_path(dev, arch: str, *, smoke: bool = False,
         counters=counters, capture=capture)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the tensor-parallel split of one layer, every rank in turn
+# ---------------------------------------------------------------------------
+
+def tp_layer_path(dev, arch: str, *, smoke: bool = False,
+                  overrides: dict | None = None, batch: int = TP_TOKENS[0],
+                  seq: int = TP_TOKENS[1], m: int = TP_RANKS,
+                  counters: dict | None = None, capture=None) -> dict:
+    """Phase 17, one of TP_ARCHS: its first layer (gemma3's is local) at
+    published width (the smoke config with ``smoke``; ``overrides``: more
+    fields), seeded weights (norm scales drawn too) and ``batch`` x
+    ``seq`` seeded inputs and output gradient, run whole
+    (``model._apply_block``) and split over ``m`` ``model`` ranks as
+    ``fsdp.Layout`` splits it on a mesh, each rank's share computed in
+    turn with the partials summed in float32 where the collectives would
+    sum them (``fsdp.split_in_turn``), in float32 and in bfloat16: the
+    output, the input gradient and each weight gradient against the
+    whole layer's (TP_TOL). The attention runs the kernel on the card
+    (the plain route on the CPU): the split launches the flash forward
+    and backward once a rank, on its H/m heads (``counters``: the
+    wrappers, their ``launches`` reset here; ``capture``: ``LastFlash``,
+    whose last call must have H/m heads). Then one rank's share of the
+    layer, forward and backward, timed beside the whole layer."""
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import model
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    cfg = dataclasses.replace(
+        cfg, attn_impl="auto" if dev.type == "cuda" else "dense",
+        **(overrides or {}))
+    spec = cfg.layer_spec(0)
+    g = _gen(SEED, dev)
+    layer32 = model._init_block(cfg, spec, g, dev)
+    for path, t in zip(model_paths(layer32), model._leaves(layer32)):
+        if path.endswith("scale"):
+            t.normal_(0.0, 0.1, generator=g)
+    shape = (batch, seq, cfg.d_model)
+    positions = torch.arange(seq, device=dev).expand(batch, seq)
+    counters = counters or {}
+    rec = {"arch": cfg.name, "ranks": m, "tokens": [batch, seq],
+           "d_model": cfg.d_model, "heads": [cfg.num_heads,
+                                             cfg.num_kv_heads],
+           "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+           "mixer": spec.mixer, "window": cfg.window or None,
+           "qk_norm": cfg.qk_norm}
+    t0 = time.perf_counter()
+    with capture if capture is not None else contextlib.nullcontext():
+        for dtype in ("float32", "bfloat16"):
+            rec[dtype] = _tp_layer_check(dev, cfg, dtype, spec, layer32,
+                                         shape, positions, m, counters,
+                                         capture, rec)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"tp layer {arch} " + json.dumps(rec))
+    return rec
+
+
+def _tp_layer_check(dev, cfg, dtype: str, spec, layer32, shape, positions,
+                    m: int, counters: dict, capture, rec: dict) -> dict:
+    """``tp_layer_path`` in one compute dtype: the record of the whole
+    and the split layer's agreement and launches; in bfloat16 on the
+    card also ``rec["ms"]``."""
+    import torch
+    from repro_torch.launch import fsdp
+    from repro_torch.models import model
+    arch, batch = cfg.name, shape[0]
+    c = dataclasses.replace(cfg, compute_dtype=dtype)
+    layer = model.tree_map(
+        lambda t: t.detach().to(c.cdtype).requires_grad_(), layer32)
+    leaves = list(model._leaves(layer))
+    x = normal(shape, SEED + 1, dev, c.cdtype).requires_grad_()
+    dy = normal(shape, SEED + 2, dev, c.cdtype)
+    tree, split = fsdp.split_in_turn(c, 0, layer, m)
+    require(split.sublayers == ("attn", "mlp"),
+            f"{arch}: the layer splits {split.sublayers} over {m}")
+
+    def run(p, sp):
+        y, _ = model._apply_block(c, spec, p, x, positions, None, sp)
+        return y, torch.autograd.grad(y, [x] + leaves, dy)
+
+    def counts():
+        return {k: w.launches for k, w in counters.items()}
+
+    for w in counters.values():
+        w.launches = 0
+    y0, g0 = run(layer, None)
+    whole = counts()
+    for w in counters.values():
+        w.launches = 0
+    y1, g1 = run(tree, split)
+    launches = counts()
+    errs = {"out": _rel(y1, y0), "x": _rel(g1[0], g0[0])}
+    errs.update({p: _rel(a, b) for p, a, b in zip(
+        model_paths(layer), g1[1:], g0[1:])})
+    finite = all(bool(torch.isfinite(t).all()) for t in (y1, *g1))
+    flash = ("flash_attention", "flash_attention_bwd")
+    want = {k: m * (k in flash and dev.type == "cuda")
+            for k in launches}
+    require(whole == {k: v // m for k, v in want.items()},
+            f"{arch} whole layer in {dtype}: the kernels launched "
+            f"{whole}")
+    heads = None
+    if capture is not None and capture.call is not None:
+        heads = tuple(capture.call[0].shape[:2])
+    out = {"max_rel_err": errs, "worst": max(errs.values()),
+           "finite": finite, "launches_split": launches,
+           "launches_whole": whole, "flash_q_batch_heads": heads}
+    del y0, y1, g0, g1
+    require(finite and out["worst"] <= TP_TOL[dtype],
+            f"{arch} split layer in {dtype} disagrees with the whole "
+            f"one: {out}")
+    require(launches == want, f"{arch} split layer in {dtype}: the "
+            f"kernels launched {launches}, want {want}")
+    require(heads is None or heads == (batch, cfg.num_heads // m),
+            f"{arch}: the flash kernel ran on (B, H) {heads}, not on "
+            f"each rank's {cfg.num_heads // m} heads")
+    if dev.type == "cuda" and dtype == "bfloat16":
+        one = {**tree, **{k: tree[k][:1] for k in split.sublayers}}
+        rec["ms"] = {"whole": cuda_ms(lambda: run(layer, None)),
+                     "one_rank": cuda_ms(lambda: run(one, split))}
+        rec["ms"]["one_rank_x_ranks_over_whole"] = (
+            rec["ms"]["one_rank"] * m / rec["ms"]["whole"])
+    del layer, leaves, tree, x, dy
+    release(dev)
+    return out
+
+
+def _rel(a, b) -> float:
+    """Largest |a - b| over the largest |b|."""
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+
+
 def dense_calls(arch: str, cfg, last: LastCall) -> list:
     """[(where, flash call, decode call)]: of each window the cold
     serve's last prefill layer's q/k/v and last decode step's q and
@@ -4146,6 +4307,19 @@ def main() -> int:
     extra_records += serve_rows(
         dev, [("dense", DENSE_ARCHS, dense_path),
               ("moe-wide", MOE_WIDE_ARCHS, moe_wide_path)], attn, edge_errs)
+
+    t0 = time.perf_counter()
+    for arch in TP_ARCHS:
+        last_flash = LastFlash()
+        tp = tp_layer_path(dev, arch, counters=attn, capture=last_flash)
+        # the flash kernels at the shape one rank gives them
+        extra_records += train_kernel_timing(
+            last_flash.call, tp["bfloat16"]["launches_split"], edge_errs,
+            templates, where=f"{arch} split layer, one of {TP_RANKS} "
+            "ranks' heads")[::-1]
+        del last_flash, tp
+        release(dev)
+    log(f"tp path ok ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
     templates.run()

@@ -19,7 +19,15 @@ runs the one-process step on its own device on the same weights and
 batches, and holds the losses and grad norms, and in float32 the
 gathered params, in bfloat16 the first batch's gathered gradients, to
 the CPU tests' bounds (``TOL``); every rank must report the same
-losses. Then llama3-8b's bf16 (2, 2) run's params and AdamW state are
+losses. The ``tensor_parallel`` runs (``TP_RUNS``) also split each
+attention and dense MLP over the ``model`` ranks (``fsdp.Layout(...,
+tensor_parallel=True)``): llama3-8b with its heads replaced to 8/4 on
+(1, 4) and as it is on (2, 2), gemma3-12b 8/4 on (1, 4); their float32
+runs are held on the losses, norms and first-batch gradients
+(``tests/test_torch_tp.py``'s bounds, ``TOL["split"]``), their bfloat16
+ones on the losses and norms within ``TOL["split bfloat16"]`` and the
+first-batch gradients within the bf16 bound; each record holds what the
+layout split. Then llama3-8b's bf16 (2, 2) run's params and AdamW state are
 saved sharded and restored onto the mesh bit for bit, and a save whose
 write fails must raise on every rank, in ``save`` and at
 ``save_async``'s ``wait``. Attention takes the plain route
@@ -60,13 +68,22 @@ RUNS = ((("llama3-8b", (2, 2), "bfloat16"), ("llama3-8b", (4, 1), "bfloat16"),
          ("llama3-8b", (2, 2), "float32"))
         + tuple((a, m, "float32") for a in MOE_ARCHS
                 for m in ((2, 2), (4, 1))))
+#: (arch, mesh, compute dtype, config fields) split over ``model``
+HEADS = {"num_heads": 8, "num_kv_heads": 4}
+TP_RUNS = (("llama3-8b", (1, 4), "float32", HEADS),
+           ("llama3-8b", (1, 4), "bfloat16", HEADS),
+           ("gemma3-12b", (1, 4), "float32", HEADS),
+           ("llama3-8b", (2, 2), "float32", {}),
+           ("llama3-8b", (2, 2), "bfloat16", {}))
 STEPS, BATCH, SEQ, SEED = 2, 8, 64, 0
 KW = dict(num_microbatches=2, peak_lr=1e-3, warmup_steps=1, total_steps=10)
 #: per compute dtype, ``tests/test_torch_fsdp.py``'s bounds: losses and
 #: grad norms (rtol); float32 params (atol); bfloat16 gradients, each
 #: leaf's largest error over its largest |value| ("grad")
 TOL = {"float32": {"rtol": 1e-5, "atol": 1e-6},
-       "bfloat16": {"rtol": 2e-5, "grad": 2e-2}}
+       "bfloat16": {"rtol": 2e-5, "grad": 2e-2},
+       "split": {"rtol": 1e-5, "grad": 1e-4},
+       "split bfloat16": {"rtol": 2e-4, "grad": 2e-2}}
 
 
 def run_steps(params, opt, step_fn, batches):
@@ -82,21 +99,23 @@ def rel_err(a: list, b: list) -> float:
     return max(abs(x - y) / abs(y) for x, y in zip(a, b))
 
 
-def train_check(dev, arch, shape, dtype):
+def train_check(dev, arch, shape, dtype, split=None):
     """(record, layout, params blocks, opt blocks) of one mesh run; the
-    record's comparison is filled on rank 0."""
+    record's comparison is filled on rank 0. ``split``: config fields of
+    a ``tensor_parallel`` run (None: the layers computed whole)."""
     cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=dtype,
-                              attn_impl="dense")
+                              attn_impl="dense", **(split or {}))
     batches = [batch_at(cfg, i, batch=BATCH, seq=SEQ, seed=SEED, device=dev)
                for i in range(STEPS)]
-    layout = fsdp.Layout(cfg, mesh_lib.make_mesh(shape, dev))
+    layout = fsdp.Layout(cfg, mesh_lib.make_mesh(shape, dev),
+                         tensor_parallel=split is not None)
     t0 = time.perf_counter()
     params = fsdp.init_params(cfg, layout, SEED, dev)
     params, opt, losses, norms = run_steps(
         params, adamw_init(params),
         steps.make_train_step(cfg, layout=layout, **KW), batches)
     whole = layout.full(params)
-    if dtype == "bfloat16":
+    if dtype == "bfloat16" or split is not None:
         # the first batch's gradients from the same initial weights
         start = fsdp.init_params(cfg, layout, SEED, dev)
         _, _, grads = steps.value_and_grad(cfg, start, batches[0],
@@ -108,7 +127,9 @@ def train_check(dev, arch, shape, dtype):
            "seq": SEQ, "mesh_s": time.perf_counter() - t0,
            "losses": losses, "grad_norms": norms,
            "stored_numel": fsdp.numel(params),
-           "whole_numel": fsdp.numel(whole)}
+           "whole_numel": fsdp.numel(whole),
+           "split": layout.split if split is not None else None,
+           "config": split}
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, losses)
     rec["ranks_agree"] = all(x == losses for x in every)
@@ -116,14 +137,15 @@ def train_check(dev, arch, shape, dtype):
         ref = model.init_params(cfg, SEED, dev)
         ref, _, ref_losses, ref_norms = run_steps(
             ref, adamw_init(ref), steps.make_train_step(cfg, **KW), batches)
-        tol = TOL[dtype]
+        tol = TOL[dtype if split is None else
+                  "split" + (" bfloat16" if dtype == "bfloat16" else "")]
         rec.update({
             "one_process": {"losses": ref_losses, "grad_norms": ref_norms},
             "loss_rel_err": rel_err(losses, ref_losses),
             "norm_rel_err": rel_err(norms, ref_norms), "tol": tol})
         close = (rec["ranks_agree"] and rec["loss_rel_err"] <= tol["rtol"]
                  and rec["norm_rel_err"] <= tol["rtol"])
-        if dtype == "bfloat16":
+        if dtype == "bfloat16" or split is not None:
             ref = model.init_params(cfg, SEED, dev)
             _, _, ref_grads = steps.value_and_grad(cfg, ref, batches[0])
             rec["grad_leaf_rel_err"] = max(
@@ -201,8 +223,8 @@ def main(argv=None) -> int:
     dist.init_process_group(mesh_lib.BACKENDS[dev.type])
     try:
         if dist.get_world_size() != 4:
-            raise SystemExit("run on 4 ranks: the meshes are (2, 2) and "
-                             "(4, 1)")
+            raise SystemExit("run on 4 ranks: the meshes are (2, 2), "
+                             "(4, 1) and (1, 4)")
         records = []
         for arch, shape, dtype in RUNS:
             rec, layout, params, opt = train_check(dev, arch, shape, dtype)
@@ -210,6 +232,8 @@ def main(argv=None) -> int:
             if arch == "llama3-8b" and shape == (2, 2) and dtype == "bfloat16":
                 records.append(save_check(dev, layout, params, opt))
             del layout, params, opt
+        for arch, shape, dtype, split in TP_RUNS:
+            records.append(train_check(dev, arch, shape, dtype, split)[0])
         ok = [all(r.get("ok", True) for r in records)]
         dist.broadcast_object_list(ok, src=0)
         if dist.get_rank() == 0:

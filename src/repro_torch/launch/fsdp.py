@@ -23,14 +23,40 @@ places each leaf by its ``NamedSharding`` and inserts the collectives.
   Replicate-to-Shard backward does, would drop the other ranks' rows.
   The sum is an all-reduce followed by the slice (gloo has no
   reduce-scatter).
-* **The ``model`` axis splits the experts' compute, and stores the
-  rest.** Where the specs put a MoE layer's E experts over ``model``
-  (E divisible by its size), ``gather_layer`` gathers them over
-  ``data`` only and each ``model`` rank computes the assignments routed
-  to its E/m experts (``models/moe.py``, expert parallelism, as the
-  reference's rules name it). Every other leaf is gathered whole, and
-  every rank along ``model`` computes the same rows with it;
-  tensor-parallel compute of the dense layers is later work.
+* **The ``model`` axis splits the experts' compute.** Where the specs
+  put a MoE layer's E experts over ``model`` (E divisible by its size),
+  ``gather_layer`` gathers them over ``data`` only and each ``model``
+  rank computes the assignments routed to its E/m experts
+  (``models/moe.py``, expert parallelism, as the reference's rules name
+  it).
+* **With ``tensor_parallel``, it splits attention and the dense MLP
+  too.** Where the specs put the columns of ``wq``/``wk``/``wv`` and the
+  rows of ``wo`` over ``model`` and H and Hkv divide by its size m, each
+  ``model`` rank computes its H/m query and Hkv/m KV heads (rotation,
+  norms, masks and the flash kernel on those heads) and their rows of
+  ``wo``; where ``wi_gate``/``wi_up``'s columns and ``wo``'s rows are
+  over it and d_ff divides by m, its d_ff/m columns of the dense MLP.
+  ``gather_layer`` gathers those leaves over the batch axes only, and
+  ``Layout.split`` records, layer by layer, which sublayers split. The
+  input enters through f and the row-parallel output leaves through g
+  (``ModelSplit``), both summed over ``model`` in float32 over partials
+  that were not rounded to the compute dtype, and rounded once: the
+  row product (``layers.row_product``) and the column products' input
+  gradients (``layers.column_product``) are float32 products (on the
+  card a float32-output GEMM, on the CPU the operands upcast), each
+  input gradient summed over the ranks and rounded once, then the
+  products' added in the compute dtype as the one-process backward
+  adds them. ``q_norm``/``k_norm``,
+  applied to the rank's own heads, are gathered as float32 and their
+  gradients summed over ``model`` too. Embeddings, the loss, Mamba-2
+  mixers, MoE layers' shared experts and any sublayer whose counts do
+  not divide by m are gathered whole, and every rank along ``model``
+  computes the same rows with them; at m = 1 nothing splits.
+  It is off by default: a split re-associates the sums of every split
+  product, so that the step is no longer the one-process step's
+  arithmetic up to the order of the batch ranks' gradient sums (in
+  bfloat16 a sum that rounds the other way changes what follows it;
+  ``tests/test_torch_tp.py`` holds the split step to its own bounds).
 * **Batches.** Every rank builds the same global batch; ``local_batch``
   keeps its rows of each microbatch (per ``batch_specs``), which must
   split evenly over (pod, data). The loss divides each rank's summed
@@ -83,18 +109,32 @@ def _map2(fn, tree, specs):
 
 class _Gather(torch.autograd.Function):
     """Forward: cast the block, all-gather it. Backward: upcast the
-    gradient to float32, sum it over the batch ranks, keep the block."""
+    gradient to float32, sum it over the batch ranks, keep the block.
+    ``partial``: the leaf is used on each ``model`` rank's share of a
+    split sublayer, so its gradient there is a partial sum: the gathered
+    leaf is float32 (the cast's values) and its gradient is summed over
+    ``model`` as well, in float32."""
 
     @staticmethod
-    def forward(ctx, shard, layout, spec, dtype):
+    def forward(ctx, shard, layout, spec, dtype, partial):
         ctx.layout, ctx.spec, ctx.dtype = layout, spec, shard.dtype
+        ctx.partial = partial
         x = shard if dtype is None else shard.to(dtype)
-        return layout.all_gather(x, spec)
+        ctx.cast = x.dtype
+        x = layout.all_gather(x, spec)
+        return x.float() if partial else x
 
     @staticmethod
     def backward(ctx, grad):
-        g = ctx.layout.reduce_block(grad.float(), ctx.spec)
-        return g.to(ctx.dtype), None, None, None
+        g = grad.float()
+        if ctx.partial:
+            # rounded once, to the dtype the one-process leaf's gradient
+            # takes
+            g = g.contiguous()
+            dist.all_reduce(g, group=ctx.layout.groups[mesh_lib.TP])
+            g = g.to(ctx.cast).float()
+        g = ctx.layout.reduce_block(g, ctx.spec)
+        return g.to(ctx.dtype), None, None, None, None
 
 
 class _ModelSum(torch.autograd.Function):
@@ -126,6 +166,124 @@ class _ModelEnter(torch.autograd.Function):
         grad = grad.contiguous().clone()
         dist.all_reduce(grad, group=ctx.group)
         return grad, None
+
+
+class _SplitEnter(torch.autograd.Function):
+    """f of a split sublayer's ``n`` column products: forward, ``n``
+    float32 copies of ``x``, one a product; backward, each product's
+    input gradient (a float32 partial sum over this rank's heads or
+    columns) summed over the ``model`` ranks in float32, in one
+    all-reduce, and rounded once to ``x``'s dtype, then the products'
+    gradients added in that dtype, the last product's first: the
+    one-process backward's order, where autograd runs the node made
+    last first (``_qkv``: v, then k, then q). ``group`` None: the ranks
+    were computed in turn in this process, and autograd has already
+    summed their partials in float32."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.dtype = group, x.dtype
+        return tuple(x.float() for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        g = torch.stack(grads)
+        if ctx.group is not None:
+            dist.all_reduce(g, group=ctx.group)
+        g = g.to(ctx.dtype)
+        out = g[-1]
+        for i in reversed(range(len(grads) - 1)):
+            out = out + g[i]
+        return out, None, None
+
+
+class ModelSplit:
+    """What a layer whose ``sublayers`` ("attn", "mlp") are split over
+    the ``model`` ranks of ``group`` needs (``models/model.py``):
+    ``run(share, p, x, n)`` is the sublayer's output from this rank's
+    ``share(p, xs)``, a float32 partial sum over the ranks, of its input
+    ``x`` entered through f (``_SplitEnter``, ``xs`` one float32 copy
+    for each of the ``n`` column products), summed by g in float32 and
+    rounded once to ``x``'s dtype. ``group`` None is the stand-in for
+    the collectives on one device: ``p`` is then a list of every rank's
+    tree, each rank's share is computed in turn and the shares are
+    summed in float32, as the all-reduce would sum them."""
+
+    def __init__(self, group, sublayers: tuple):
+        self.group = group
+        self.sublayers = sublayers
+
+    def run(self, share, p, x: torch.Tensor, n: int) -> torch.Tensor:
+        xs = _SplitEnter.apply(x, self.group, n)
+        if self.group is None:
+            y = share(p[0], xs)
+            for q in p[1:]:
+                y = y + share(q, xs)
+        else:
+            y = _ModelSum.apply(share(p, xs), self.group)
+        return y.to(x.dtype)
+
+
+#: the leaves of a split sublayer that each ``model`` rank holds a block
+#: of and computes with: column blocks of the first three, row blocks of
+#: ``wo``
+SPLIT_LEAVES = {"attn": ("wq", "wk", "wv", "wo"),
+                "mlp": ("wi_gate", "wi_up", "wo")}
+
+
+def without_model(spec: tuple) -> tuple:
+    """``spec`` with the ``model`` axis taken out of every entry: what a
+    leaf is gathered over when each ``model`` rank computes with its own
+    block of it."""
+    out = []
+    for entry in spec:
+        axes = tuple(a for a in sharding.entry_axes(entry)
+                     if a != mesh_lib.TP)
+        out.append(axes if len(axes) > 1 else (axes[0] if axes else None))
+    return tuple(out)
+
+
+def split_sublayers(cfg, specs: Params, m: int) -> tuple:
+    """Which sublayers of one layer (``specs``: its spec tree) compute
+    split over ``model`` of size ``m``: attention where the specs put
+    the columns of wq/wk/wv and the rows of wo over ``model`` and H and
+    Hkv divide by m; the dense MLP where they put wi_gate/wi_up's
+    columns and wo's rows there and d_ff divides by m. None at m = 1."""
+    if m == 1:
+        return ()
+    counts = {"attn": (cfg.num_heads, cfg.num_kv_heads), "mlp": (cfg.d_ff,)}
+    out = []
+    for name, leaves in SPLIT_LEAVES.items():
+        if name not in specs or any(n % m for n in counts[name]):
+            continue
+        dims = [specs[name][k][0 if k == "wo" else 1] for k in leaves]
+        if all(mesh_lib.TP in sharding.entry_axes(e) for e in dims):
+            out.append(name)
+    return tuple(out)
+
+
+def split_in_turn(cfg, i: int, layer: Params, m: int):
+    """(tree, ``ModelSplit``): layer ``i``'s weights ``layer`` (whole,
+    in the compute dtype) as the ``m`` ``model`` ranks of a (1, m) mesh
+    hold them once gathered, each split sublayer a list of every rank's
+    tree, with the stand-in that computes every rank's share in turn in
+    this process (``ModelSplit`` with no group): the split checked on
+    one device. The blocks are views of ``layer``'s leaves, so their
+    gradients reach those leaves; the rest of a split attention
+    (``q_norm``, ``k_norm``) is one float32 copy that every rank reads,
+    as ``gather_layer`` gives it."""
+    mesh = sharding.MeshShape((1, m), (mesh_lib.FSDP, mesh_lib.TP))
+    specs = mesh_lib.param_specs(cfg, mesh)["layers"][i]
+    subs = split_sublayers(cfg, specs, m)
+    tree = dict(layer)
+    for name in subs:
+        shared = {k: model_lib.tree_map(lambda t: t.float(), v)
+                  for k, v in layer[name].items()
+                  if k not in SPLIT_LEAVES[name]}
+        tree[name] = [{**shared, **{
+            k: sharding.block(layer[name][k], specs[name][k], mesh, (0, r))
+            for k in SPLIT_LEAVES[name]}} for r in range(m)]
+    return tree, ModelSplit(None, subs)
 
 
 class MoeExchange:
@@ -172,9 +330,14 @@ class Layout:
     """Where each parameter leaf lives on ``mesh`` (a ``DeviceMesh``
     named ``("data", "model")`` or ``("pod", "data", "model")``) and how
     its blocks move: ``specs`` is ``mesh.param_specs(cfg, mesh)``;
-    ``moe_exchange`` the ``MoeExchange`` of a MoE model (else None)."""
+    ``moe_exchange`` the ``MoeExchange`` of a MoE model (else None).
+    ``tensor_parallel``: split attention and the dense MLP over
+    ``model`` where ``split_sublayers`` allows (``split`` records it, a
+    tuple of sublayer names per layer); off, every rank along ``model``
+    computes them whole, and the step is the one-process step's
+    arithmetic but for the order of the sums over the batch ranks."""
 
-    def __init__(self, cfg, mesh):
+    def __init__(self, cfg, mesh, tensor_parallel: bool = False):
         mesh_lib.require_group(mesh.device_type, "a sharded layout")
         self.cfg = cfg
         self.mesh = mesh
@@ -189,6 +352,10 @@ class Layout:
                                 if a in self.groups)
         self.specs = mesh_lib.param_specs(cfg, mesh)
         self.moe_exchange = MoeExchange(mesh) if cfg.num_experts else None
+        m = self.sizes.get(mesh_lib.TP, 1) if tensor_parallel else 1
+        #: per layer, the sublayers it computes split over ``model``
+        self.split = [split_sublayers(cfg, s, m)
+                      for s in self.specs["layers"]]
 
     # -- blocks ------------------------------------------------------------
 
@@ -240,18 +407,24 @@ class Layout:
 
     # -- what the model and the step call ----------------------------------
 
-    def gather(self, shard: torch.Tensor, spec: tuple, dtype=None):
+    def gather(self, shard: torch.Tensor, spec: tuple, dtype=None,
+               partial: bool = False):
         """The whole leaf for compute, in ``dtype`` (cast before the
-        gather) where given; differentiable."""
+        gather) where given; differentiable. ``partial``: see
+        ``_Gather``."""
         if dtype is not None and shard.dtype != torch.float32:
             dtype = None
-        return _Gather.apply(shard, self, spec, dtype)
+        return _Gather.apply(shard, self, spec, dtype, partial)
 
     def gather_layer(self, i: int, p: Params) -> Params:
         """Layer ``i``'s weights from its blocks ``p``, every float32
         leaf in the compute dtype (``model.cast_layers``' rule). A MoE
         layer's experts are gathered over every axis but ``model``:
-        this rank's E/m of them where the spec splits E."""
+        this rank's E/m of them where the spec splits E. So are the
+        ``SPLIT_LEAVES`` of the sublayers ``split[i]`` names: this
+        rank's heads' columns of wq/wk/wv and rows of wo, its d_ff/m
+        columns of wi_gate/wi_up and rows of wo; the rest of a split
+        attention (``q_norm``, ``k_norm``) is gathered ``partial``."""
         cd = self.cfg.cdtype
         specs = self.specs["layers"][i]
         if "moe" in specs:
@@ -260,7 +433,28 @@ class Layout:
                 if moe[k][0] == mesh_lib.TP:
                     moe[k] = (None,) + moe[k][1:]
             specs = {**specs, "moe": moe}
-        return _map2(lambda t, s: self.gather(t, s, cd), p, specs)
+        for name in self.split[i]:
+            sub = dict(specs[name])
+            for k in SPLIT_LEAVES[name]:
+                sub[k] = without_model(sub[k])
+            specs = {**specs, name: sub}
+        out = {}
+        for k, v in p.items():
+            if k == "attn" and "attn" in self.split[i]:
+                out[k] = {n: _map2(lambda t, s: self.gather(
+                    t, s, cd, partial=n not in SPLIT_LEAVES["attn"]),
+                    w, specs[k][n]) for n, w in v.items()}
+            else:
+                out[k] = _map2(lambda t, s: self.gather(t, s, cd), v,
+                               specs[k])
+        return out
+
+    def model_split(self, i: int) -> ModelSplit | None:
+        """The ``ModelSplit`` layer ``i`` computes with, None where no
+        sublayer of it splits."""
+        if not self.split[i]:
+            return None
+        return ModelSplit(self.groups[mesh_lib.TP], self.split[i])
 
     def gather_top(self, params: Params, names, dtype=None) -> Params:
         """The top-level entries ``names`` (those present) gathered."""

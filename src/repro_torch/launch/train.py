@@ -9,6 +9,8 @@ ported from ``repro/launch/train.py``.
         --arch llama3-8b --device cpu --mesh 2,2 --steps 4   # FSDP, CPU
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch granite-moe-1b-a400m --device cpu --mesh 2,2  # MoE, CPU
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch llama3-8b --device cpu --mesh 2,2 --tensor-parallel
 
 Wires together, on one device (the GPU unless ``device="cpu"``) or,
 with ``mesh=``, on each rank of a ``("data", "model")`` mesh:
@@ -30,8 +32,10 @@ it goes), the global batch of ``batch_at`` is split over the batch
 axes (``mesh.batch_specs``), and checkpoints are written whole and
 restored onto this mesh's blocks. A MoE model routes each microbatch
 whole across the batch ranks and computes each expert on the ``model``
-ranks that hold it. ``--mesh DATA,MODEL`` under ``torchrun`` starts the
-group from torchrun's environment.
+ranks that hold it. ``tensor_parallel`` (``--tensor-parallel``) also
+splits attention heads and the dense MLP's columns over the ``model``
+ranks (``fsdp.Layout``). ``--mesh DATA,MODEL`` under ``torchrun`` starts
+the group from torchrun's environment.
 """
 from __future__ import annotations
 
@@ -62,7 +66,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50,
           num_microbatches: int = 2, seed: int = 0, device=None,
           params=None, overrides: dict | None = None,
           on_step: Optional[Callable[[int, dict, float], None]] = None,
-          mesh=None) -> dict:
+          mesh=None, tensor_parallel: bool = False) -> dict:
     """Train ``arch`` for ``steps`` steps (smoke config unless
     ``smoke=False``) and return the reference's keys (``losses``,
     ``wall_s``, ``final_step``, ``params``, ``opt``, ``stragglers``).
@@ -74,7 +78,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50,
     step, which ends by reading the loss. ``mesh``: train sharded
     (module docstring); ``params``, when given, are the whole weights
     (each rank copies its blocks), and the returned ``params`` and
-    ``opt`` are this rank's blocks."""
+    ``opt`` are this rank's blocks; ``tensor_parallel``: ``fsdp.Layout``'s."""
     device = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if overrides:
@@ -84,7 +88,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50,
         if mesh.device_type != device.type:
             raise ValueError(f"a {mesh.device_type} mesh for a "
                              f"{device.type} run")
-        layout = fsdp.Layout(cfg, mesh)
+        layout = fsdp.Layout(cfg, mesh, tensor_parallel)
         shardings = mesh_lib.named(mesh, {
             "params": layout.specs, "opt": mesh_lib.opt_specs(layout.specs)})
         params = (fsdp.init_params(cfg, layout, seed, device)
@@ -161,6 +165,9 @@ def main(argv=None):
                     "ranks torchrun starts (NCCL on the GPU, gloo on the "
                     "CPU); a MoE model routes over the whole microbatch "
                     "and splits its experts over MODEL")
+    ap.add_argument("--tensor-parallel", action="store_true",
+                    help="with --mesh: split attention heads and the dense "
+                    "MLP's columns over MODEL")
     args = ap.parse_args(argv)
     mesh = None
     if args.mesh:
@@ -174,7 +181,8 @@ def main(argv=None):
     try:
         out = train(args.arch, smoke=not args.full, steps=args.steps,
                     batch=args.batch, seq=args.seq, ckpt_dir=args.ckpt_dir,
-                    fail_at=args.fail_at, device=args.device, mesh=mesh)
+                    fail_at=args.fail_at, device=args.device, mesh=mesh,
+                    tensor_parallel=args.tensor_parallel)
         where = f"rank {dist.get_rank()}: " if mesh is not None else ""
         print(f"{where}done: final loss {out['losses'][-1]:.4f} "
               f"({out['wall_s']:.1f}s), {fsdp.numel(out['params'])} "

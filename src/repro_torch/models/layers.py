@@ -144,6 +144,71 @@ def mlp(params: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     return h @ params["wo"]
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of 2-D operands of one dtype as float32, not rounded to
+    that dtype: on the card a float32-output GEMM (the tensor cores'
+    float32 accumulators written out), elsewhere the operands upcast."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _ColumnProduct(torch.autograd.Function):
+    """``x @ w`` in ``w``'s dtype, as the one-process layer computes it
+    (``x32``: a float32 copy of compute-dtype values, cast back first),
+    whose input gradient is float32 and not rounded (``_mm_f32``): over
+    a block of ``w``'s columns, a partial sum that f adds over the
+    ranks. The weight's gradient is the one-process product's."""
+
+    @staticmethod
+    def forward(ctx, x32, w):
+        x = x32.to(w.dtype)
+        ctx.save_for_backward(x, w)
+        return x @ w
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = _mm_f32(g2, w.T)
+        return dx.view(*g.shape[:-1], -1), x.reshape(-1, x.shape[-1]).T @ g2
+
+
+class _RowProduct(torch.autograd.Function):
+    """``a @ w`` in float32, not rounded (``_mm_f32``): over a block of
+    ``w``'s rows, a partial sum that g adds over the ranks. Its
+    gradients are the one-process product's, in ``a``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        return _mm_f32(a.reshape(-1, a.shape[-1]), w).view(
+            *a.shape[:-1], -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        g2 = g.to(a.dtype).reshape(-1, g.shape[-1])
+        da = (g2 @ w.T).view(*a.shape)
+        return da, a.reshape(-1, a.shape[-1]).T @ g2
+
+
+#: the column- and row-parallel products of a split sublayer
+column_product, row_product = _ColumnProduct.apply, _RowProduct.apply
+
+
+def mlp_share(params: Params, xs: tuple, act: str = "silu") -> torch.Tensor:
+    """One ``model`` rank's share of a dense MLP split over the ranks
+    (``launch/fsdp.py``): ``params`` holds its column blocks of
+    wi_gate/wi_up and the matching row block of wo. ``xs``: the input in
+    float32, one copy for each column product. ``mlp``'s products on
+    the rank's columns, the last one's output float32 and not rounded:
+    a partial sum over the ranks."""
+    h = _act(column_product(xs[0], params["wi_gate"]), act) \
+        * column_product(xs[1], params["wi_up"])
+    return row_product(h, params["wo"])
+
+
 # ---------------------------------------------------------------------------
 # Softcap
 # ---------------------------------------------------------------------------

@@ -61,9 +61,11 @@ from repro_torch.core.executor import resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init,
-                                       embed_init, mlp, mlp_init, rmsnorm,
-                                       rmsnorm_init, softcap)
+from repro_torch.models.layers import (apply_mrope, apply_rope,
+                                       column_product, dense_init,
+                                       embed_init, mlp, mlp_init, mlp_share,
+                                       rmsnorm, rmsnorm_init, row_product,
+                                       softcap)
 
 Params = dict[str, Any]
 
@@ -376,6 +378,35 @@ def _attn_block(cfg: ModelConfig, spec: BlockSpec, p: Params,
     return out, cache
 
 
+def attn_share(cfg: ModelConfig, spec: BlockSpec, p: Params, xs: tuple,
+               positions: torch.Tensor) -> torch.Tensor:
+    """One ``model`` rank's share of an attention sublayer split over the
+    ranks (``launch/fsdp.py``): ``p`` holds its column blocks of
+    wq/wk/wv, so H/m query and Hkv/m KV heads (GQA keeps its groups, as
+    head j reads KV head j // g), and the matching row block of wo.
+    ``xs``: the normed input in float32, one copy for each of the q, k
+    and v products (f's outputs). ``_attn_block`` on the rank's heads:
+    the products (``layers.column_product``), rotation,
+    ``q_norm``/``k_norm`` (float32 leaves: their gradient here is a
+    partial sum), masks and attention; the row product
+    (``layers.row_product``) is float32 and not rounded: (b, s, d), a
+    partial sum over the ranks that g adds."""
+    b, s, _ = xs[0].shape
+    local = spec.mixer == "attn_local"
+    q, k, v = (column_product(x32, p[n]).reshape(b, s, -1, cfg.head_dim)
+               for x32, n in zip(xs, ("wq", "wk", "wv")))
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    q = _rotate(cfg, spec, q, positions)
+    k = _rotate(cfg, spec, k, positions)
+    out = attn_lib.attention(
+        q, k, v, causal=cfg.causal, window=cfg.window if local else None,
+        logit_softcap=cfg.attn_logit_softcap or None,
+        impl=cfg.attn_impl, chunk_size=cfg.attn_chunk)
+    return row_product(out.reshape(b, s, -1), p["wo"])
+
+
 def _ssm_kw(cfg: ModelConfig) -> dict:
     return dict(state=cfg.ssm_state, conv=cfg.ssm_conv,
                 expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
@@ -383,14 +414,21 @@ def _ssm_kw(cfg: ModelConfig) -> dict:
 
 
 def _mlp_part(cfg: ModelConfig, spec: BlockSpec, p: Params,
-              h: torch.Tensor, exchange=None):
+              h: torch.Tensor, exchange=None, split=None):
     """(h + the MLP sublayer's output, its MoE aux loss or None).
-    ``exchange``: a sharded run's ``fsdp.MoeExchange`` (``moe_apply``)."""
+    ``exchange``: a sharded run's ``fsdp.MoeExchange`` (``moe_apply``);
+    ``split``: its ``fsdp.ModelSplit`` where the layer splits over
+    ``model`` (the dense MLP through ``mlp_share`` where it names
+    "mlp")."""
     if spec.mlp == "none":
         return h, None
     x = rmsnorm(p["ln_mlp"], h, cfg.norm_eps)
     aux = None
-    if spec.mlp == "dense":
+    if spec.mlp == "dense" and split is not None \
+            and "mlp" in split.sublayers:
+        out = split.run(lambda q, xs: mlp_share(q, xs, act=cfg.act),
+                        p["mlp"], x, 2)
+    elif spec.mlp == "dense":
         out = mlp(p["mlp"], x, act=cfg.act)
     else:
         b, s, d = x.shape
@@ -406,10 +444,17 @@ def _mlp_part(cfg: ModelConfig, spec: BlockSpec, p: Params,
 
 def _apply_block_with_cache(cfg: ModelConfig, spec: BlockSpec, p: Params,
                             h: torch.Tensor, positions: torch.Tensor,
-                            exchange=None):
-    """(h, MoE aux or None, the layer's decode cache)."""
+                            exchange=None, split=None):
+    """(h, MoE aux or None, the layer's decode cache). ``split``: the
+    layer's ``fsdp.ModelSplit`` on a mesh whose ``model`` ranks split
+    its attention (``attn_share``; no cache) or its dense MLP; the
+    post-norms and the residual adds run on the summed outputs."""
     x = rmsnorm(p["ln_mixer"], h, cfg.norm_eps)
-    if spec.mixer.startswith("attn"):
+    if split is not None and "attn" in split.sublayers:
+        out = split.run(lambda q, xs: attn_share(cfg, spec, q, xs,
+                                                 positions), p["attn"], x, 3)
+        cache = None
+    elif spec.mixer.startswith("attn"):
         out, cache = _attn_block(cfg, spec, p["attn"], x, positions)
     else:
         out, cache = ssm_lib.mamba2_forward(
@@ -417,7 +462,7 @@ def _apply_block_with_cache(cfg: ModelConfig, spec: BlockSpec, p: Params,
             **_ssm_kw(cfg))
     if cfg.use_post_norm:
         out = rmsnorm(p["post_ln_mixer"], out, cfg.norm_eps)
-    h, aux = _mlp_part(cfg, spec, p, h + out, exchange)
+    h, aux = _mlp_part(cfg, spec, p, h + out, exchange, split)
     return h, aux, cache
 
 
@@ -466,10 +511,11 @@ def _embed_inputs(cfg: ModelConfig, params: Params, batch: dict):
 
 
 def _apply_block(cfg: ModelConfig, spec: BlockSpec, p: Params,
-                 h: torch.Tensor, positions: torch.Tensor, exchange=None):
+                 h: torch.Tensor, positions: torch.Tensor, exchange=None,
+                 split=None):
     """(h, MoE aux or None): what ``checkpoint`` recomputes."""
     h, aux, _ = _apply_block_with_cache(cfg, spec, p, h, positions,
-                                        exchange)
+                                        exchange, split)
     return h, aux
 
 
@@ -502,10 +548,11 @@ def _remat(cfg: ModelConfig, params: Params) -> dict | None:
 def _apply_gathered(cfg: ModelConfig, spec: BlockSpec, layout, i: int,
                     p: Params, h: torch.Tensor, positions: torch.Tensor):
     """``_apply_block`` on layer ``i``'s weights gathered from its blocks
-    ``p`` (``launch/fsdp.py``): under ``checkpoint`` the backward gathers
-    them again (and a MoE layer exchanges its counts again)."""
+    ``p`` (``launch/fsdp.py``), its sublayers split over ``model`` as
+    the layout records: under ``checkpoint`` the backward gathers them
+    again (and a MoE layer exchanges its counts again)."""
     return _apply_block(cfg, spec, layout.gather_layer(i, p), h, positions,
-                        layout.moe_exchange)
+                        layout.moe_exchange, layout.model_split(i))
 
 
 def _run_blocks(cfg: ModelConfig, params: Params, batch: dict,

@@ -337,6 +337,50 @@ def test_chip_smoke_moe_serve_path_rehearsal_on_cpu(monkeypatch):
         monkeypatch.undo()
 
 
+def test_chip_smoke_tp_layer_path_rehearsal_on_cpu(monkeypatch):
+    """chip_smoke.py's phase 17 at the smoke sizes of llama3-8b and
+    gemma3-12b (window 8 over 16 positions, qk-norm, post-norms) with
+    8/4 heads, so that its 4 ranks divide them, on the CPU's plain
+    attention route: the layer split four ways, each rank's share in
+    turn, agrees with the whole layer in float32 and bfloat16 within
+    TP_TOL on its output, its input gradient and every weight gradient,
+    and the kernel entry point is never called. At the published
+    configs the first layer splits too: 8/2 and 4/2 heads a rank."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    from repro_torch.configs import get_config
+    from repro_torch.launch import fsdp
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.sharding import MeshShape
+    from repro_torch.kernels import ops
+    m = chip_smoke.TP_RANKS
+    for arch in chip_smoke.TP_ARCHS:
+        full = get_config(arch)
+        specs = mesh_lib.param_specs(full, MeshShape((1, m),
+                                                     ("data", "model")))
+        assert fsdp.split_sublayers(full, specs["layers"][0], m) == (
+            "attn", "mlp")
+        counters = {"flash_attention": _CountCalls(monkeypatch, ops,
+                                                   "flash_attention")}
+        out = chip_smoke.tp_layer_path(
+            torch.device("cpu"), arch, smoke=True, batch=2, seq=16,
+            overrides={"num_heads": 8, "num_kv_heads": 4},
+            counters=counters)
+        assert out["ranks"] == m and out["heads"] == [8, 4]
+        assert out["qk_norm"] == (arch == "gemma3-12b")
+        for dtype, tol in chip_smoke.TP_TOL.items():
+            rec = out[dtype]
+            assert rec["finite"] and rec["worst"] <= tol
+            assert {"out", "x", "attn/wq", "attn/wo", "mlp/wi_gate",
+                    "mlp/wo", "ln_mixer/scale"} <= set(rec["max_rel_err"])
+            assert ("attn/q_norm/scale" in rec["max_rel_err"]) \
+                == (arch == "gemma3-12b")
+            assert rec["launches_split"] == rec["launches_whole"] == {
+                "flash_attention": 0}
+        assert "ms" not in out
+        monkeypatch.undo()
+
+
 def test_chip_smoke_route_replay_on_cpu():
     """``RouteReplay`` routes a MoE layer to the expert ids a
     ``RouteLog`` recorded: the ids it was given, with the call's own
