@@ -446,6 +446,15 @@ TP_TOKENS = (8, 2048)
 # bfloat16 also lets such a sum round to the other side of a bf16
 # boundary now and then, and what follows rounds its own way
 TP_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# phase 17's vocabulary lines: the token lookup and the chunked loss of
+# llama3-8b (its own lm_head) and gemma2-9b (the tied embed, final
+# softcap 30) at published width, V split over TP_RANKS ranks in turn
+# (``fsdp.vocab_in_turn``) against whole on TP_TOKENS tokens, one in
+# TP_VOCAB_UNLABELED of the labels -1; the loss, its input gradient,
+# the table's gradient and the lookup's table gradient held to TP_TOL,
+# the lookup's rows equal bit for bit
+TP_VOCAB_ARCHS = ("llama3-8b", "gemma2-9b")
+TP_VOCAB_UNLABELED = 8
 # result positions (DistributeResult order) that are sums, averages or
 # divisions: compared to SUM_RTOL between routes, all else exactly
 TOLERANT = {"Q3": {0}, "Q4": {0}, "Q7": {0}, "Q8": {0}, "Q9": {2},
@@ -3882,13 +3891,13 @@ def moe_wide_path(dev, arch: str, *, smoke: bool = False,
 
 def tp_layer_path(dev, arch: str, *, smoke: bool = False,
                   overrides: dict | None = None, batch: int = TP_TOKENS[0],
-                  seq: int = TP_TOKENS[1], m: int = TP_RANKS,
-                  counters: dict | None = None, capture=None) -> dict:
+                  seq: int = TP_TOKENS[1], counters: dict | None = None,
+                  capture=None) -> dict:
     """Phase 17, one of TP_ARCHS: its first layer (gemma3's is local) at
     published width (the smoke config with ``smoke``; ``overrides``: more
     fields), seeded weights (norm scales drawn too) and ``batch`` x
     ``seq`` seeded inputs and output gradient, run whole
-    (``model._apply_block``) and split over ``m`` ``model`` ranks as
+    (``model._apply_block``) and split over TP_RANKS ``model`` ranks as
     ``fsdp.Layout`` splits it on a mesh, each rank's share computed in
     turn with the partials summed in float32 where the collectives would
     sum them (``fsdp.split_in_turn``), in float32 and in bfloat16: the
@@ -3915,7 +3924,7 @@ def tp_layer_path(dev, arch: str, *, smoke: bool = False,
     shape = (batch, seq, cfg.d_model)
     positions = torch.arange(seq, device=dev).expand(batch, seq)
     counters = counters or {}
-    rec = {"arch": cfg.name, "ranks": m, "tokens": [batch, seq],
+    rec = {"arch": cfg.name, "ranks": TP_RANKS, "tokens": [batch, seq],
            "d_model": cfg.d_model, "heads": [cfg.num_heads,
                                              cfg.num_kv_heads],
            "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
@@ -3925,7 +3934,7 @@ def tp_layer_path(dev, arch: str, *, smoke: bool = False,
     with capture if capture is not None else contextlib.nullcontext():
         for dtype in ("float32", "bfloat16"):
             rec[dtype] = _tp_layer_check(dev, cfg, dtype, spec, layer32,
-                                         shape, positions, m, counters,
+                                         shape, positions, counters,
                                          capture, rec)
     rec["seconds"] = time.perf_counter() - t0
     log(f"tp layer {arch} " + json.dumps(rec))
@@ -3933,7 +3942,7 @@ def tp_layer_path(dev, arch: str, *, smoke: bool = False,
 
 
 def _tp_layer_check(dev, cfg, dtype: str, spec, layer32, shape, positions,
-                    m: int, counters: dict, capture, rec: dict) -> dict:
+                    counters: dict, capture, rec: dict) -> dict:
     """``tp_layer_path`` in one compute dtype: the record of the whole
     and the split layer's agreement and launches; in bfloat16 on the
     card also ``rec["ms"]``."""
@@ -3947,9 +3956,9 @@ def _tp_layer_check(dev, cfg, dtype: str, spec, layer32, shape, positions,
     leaves = list(model._leaves(layer))
     x = normal(shape, SEED + 1, dev, c.cdtype).requires_grad_()
     dy = normal(shape, SEED + 2, dev, c.cdtype)
-    tree, split = fsdp.split_in_turn(c, 0, layer, m)
+    tree, split = fsdp.split_in_turn(c, 0, layer, TP_RANKS)
     require(split.sublayers == ("attn", "mlp"),
-            f"{arch}: the layer splits {split.sublayers} over {m}")
+            f"{arch}: the layer splits {split.sublayers} over {TP_RANKS}")
 
     def run(p, sp):
         y, _ = model._apply_block(c, spec, p, x, positions, None, sp)
@@ -3971,9 +3980,9 @@ def _tp_layer_check(dev, cfg, dtype: str, spec, layer32, shape, positions,
         model_paths(layer), g1[1:], g0[1:])})
     finite = all(bool(torch.isfinite(t).all()) for t in (y1, *g1))
     flash = ("flash_attention", "flash_attention_bwd")
-    want = {k: m * (k in flash and dev.type == "cuda")
+    want = {k: TP_RANKS * (k in flash and dev.type == "cuda")
             for k in launches}
-    require(whole == {k: v // m for k, v in want.items()},
+    require(whole == {k: v // TP_RANKS for k, v in want.items()},
             f"{arch} whole layer in {dtype}: the kernels launched "
             f"{whole}")
     heads = None
@@ -3988,17 +3997,150 @@ def _tp_layer_check(dev, cfg, dtype: str, spec, layer32, shape, positions,
             f"one: {out}")
     require(launches == want, f"{arch} split layer in {dtype}: the "
             f"kernels launched {launches}, want {want}")
-    require(heads is None or heads == (batch, cfg.num_heads // m),
+    require(heads is None or heads == (batch, cfg.num_heads // TP_RANKS),
             f"{arch}: the flash kernel ran on (B, H) {heads}, not on "
-            f"each rank's {cfg.num_heads // m} heads")
+            f"each rank's {cfg.num_heads // TP_RANKS} heads")
     if dev.type == "cuda" and dtype == "bfloat16":
         one = {**tree, **{k: tree[k][:1] for k in split.sublayers}}
         rec["ms"] = {"whole": cuda_ms(lambda: run(layer, None)),
                      "one_rank": cuda_ms(lambda: run(one, split))}
         rec["ms"]["one_rank_x_ranks_over_whole"] = (
-            rec["ms"]["one_rank"] * m / rec["ms"]["whole"])
+            rec["ms"]["one_rank"] * TP_RANKS / rec["ms"]["whole"])
     del layer, leaves, tree, x, dy
     release(dev)
+    return out
+
+
+def tp_vocab_path(dev, arch: str, *, smoke: bool = False,
+                  batch: int = TP_TOKENS[0], seq: int = TP_TOKENS[1],
+                  card: str | None = None) -> dict:
+    """Phase 17's vocabulary split, one of TP_VOCAB_ARCHS at published
+    width (the smoke config with ``smoke``): seeded tables as
+    ``model.init_params`` draws them (``embed``, and ``lm_head`` where
+    untied), ``batch`` x ``seq`` seeded tokens, labels and hidden
+    states, every rank's share computed in turn (``fsdp.vocab_in_turn``)
+    against the whole table, in float32 and in bfloat16: the lookup's
+    rows (``model._embed_tokens``) bit for bit, its table gradient, the
+    loss (``layers.chunked_cross_entropy_sums`` with the config's chunks
+    and softcap), its input gradient and its table gradient within
+    TP_TOL. Then on the card, in bfloat16, one rank's share of the loss,
+    forward and backward, timed beside the whole loss, with the peak
+    memory of each (``card``: the nvidia-smi name and power limit)."""
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch import fsdp
+    from repro_torch.models import layers
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    v, d = cfg.vocab_size, cfg.d_model
+    g = _gen(SEED + 3, dev)
+    tables = {"embed": layers.embed_init(g, v, d, torch.float32, dev)}
+    if not cfg.tie_embeddings:
+        tables["lm_head"] = layers.dense_init(g, d, v, torch.float32, dev)
+    n = v // TP_RANKS
+    edges = torch.tensor([e for r in range(TP_RANKS)
+                          for e in (r * n, r * n + n - 1)], device=dev)
+    tokens = torch.randint(0, v, (batch, seq), generator=g, device=dev)
+    tokens.view(-1)[:edges.numel()] = edges
+    labels = torch.randint(0, v, (batch * seq,), generator=g, device=dev)
+    labels[::TP_VOCAB_UNLABELED] = -1
+    labels[edges.numel():2 * edges.numel()] = edges
+    cap = cfg.final_logit_softcap or None
+    rec = {"arch": cfg.name, "ranks": TP_RANKS, "tokens": [batch, seq],
+           "vocab": v, "d_model": d, "tied": cfg.tie_embeddings,
+           "final_softcap": cap, "chunks": cfg.ce_chunks,
+           "labeled": int((labels >= 0).sum())}
+    t0 = time.perf_counter()
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        rec[dtype] = _tp_vocab_check(dev, c, dtype, tables, tokens, labels,
+                                     cap, rec)
+    if dev.type == "cuda":
+        rec["card"] = card
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"tp vocab {arch} " + json.dumps(rec))
+    return rec
+
+
+def _tp_vocab_check(dev, c, dtype: str, tables: dict, tokens, labels, cap,
+                    rec: dict) -> dict:
+    """``tp_vocab_path`` in one compute dtype: the record of the split's
+    agreement with the whole; in bfloat16 on the card also
+    ``rec["ms"]`` and ``rec["peak_mib"]``."""
+    import torch
+    from repro_torch.launch import fsdp
+    from repro_torch.models import layers, model
+    head32 = tables.get("lm_head")
+    head32 = tables["embed"] if head32 is None else head32.T
+    x = normal((tokens.numel(), c.d_model), SEED + 4, dev, c.cdtype)
+    dy = normal(tuple(tokens.shape) + (c.d_model,), SEED + 5, dev, c.cdtype)
+
+    def lookup(split: bool):
+        t = tables["embed"].detach().requires_grad_()
+        blocks, vocab = (fsdp.vocab_in_turn(c, t, TP_RANKS) if split
+                          else (t, None))
+        rows = model._embed_tokens(c, {"embed": blocks}, tokens, vocab)
+        return rows, torch.autograd.grad(rows, t, dy)[0]
+
+    def loss(head, xs, vocab):
+        tot, cnt = layers.chunked_cross_entropy_sums(
+            xs, head, labels, c.ce_chunks, cap, vocab=vocab)
+        return tot / cnt
+
+    def run(split: bool):
+        t = head32.detach().requires_grad_()
+        xs = x.detach().requires_grad_()
+        head, vocab = t.to(c.cdtype), None
+        if split:
+            head, vocab = fsdp.vocab_in_turn(c, head, TP_RANKS)
+        out = loss(head, xs, vocab)
+        return (out.detach(),) + torch.autograd.grad(out, [xs, t])
+
+    rows0, gl0 = lookup(False)
+    rows1, gl1 = lookup(True)
+    errs = {"lookup_table": _rel(gl1, gl0)}
+    out = {"lookup_equal": bool(torch.equal(rows1, rows0)),
+           "lookup_table_grad_equal": bool(torch.equal(gl1, gl0))}
+    del rows0, gl0, rows1, gl1
+    w = run(False)
+    s = run(True)
+    errs.update({k: _rel(a, b) for k, a, b in zip(("loss", "x", "table"),
+                                                  s, w)})
+    out.update({"max_rel_err": errs, "worst": max(errs.values()),
+                "finite": all(bool(torch.isfinite(t).all()) for t in s),
+                "loss": float(s[0])})
+    del w, s
+    release(dev)
+    require(out["finite"] and out["lookup_equal"]
+            and out["worst"] <= TP_TOL[dtype],
+            f"{c.name} split vocabulary in {dtype} disagrees with the whole "
+            f"one: {out}")
+    if dev.type == "cuda" and dtype == "bfloat16":
+        # one rank's share holds its block alone, as a rank of the mesh
+        whole = head32.detach().to(c.cdtype).requires_grad_()
+        n = whole.shape[0] // TP_RANKS
+        block = whole.detach()[:n].clone().requires_grad_()
+        runs = {"whole": (whole, whole, None),
+                "one_rank": ([block], block,
+                             fsdp.VocabSplit(None, [(0, n)]))}
+        xs = x.detach().requires_grad_()
+        rec["ms"], rec["peak_mib"] = {}, {}
+        for k, (head, leaf, vocab) in runs.items():
+            def step(head=head, leaf=leaf, vocab=vocab):
+                return torch.autograd.grad(loss(head, xs, vocab), [xs, leaf])
+
+            device_sync(dev)
+            resident = torch.cuda.memory_allocated(dev) / 2**20
+            reset_peak(dev)
+            step()
+            device_sync(dev)
+            rec["peak_mib"][k] = {"peak": peak_mib(dev),
+                                  "resident": resident}
+            rec["ms"][k] = cuda_ms(step)
+        rec["ms"]["one_rank_x_ranks_over_whole"] = (
+            rec["ms"]["one_rank"] * TP_RANKS / rec["ms"]["whole"])
+        del runs, whole, block, xs
+        release(dev)
+    del x, dy
     return out
 
 
@@ -4318,6 +4460,9 @@ def main() -> int:
             templates, where=f"{arch} split layer, one of {TP_RANKS} "
             "ranks' heads")[::-1]
         del last_flash, tp
+        release(dev)
+    for arch in TP_VOCAB_ARCHS:
+        tp_vocab_path(dev, arch, card=smi)
         release(dev)
     log(f"tp path ok ({time.perf_counter() - t0:.1f} s)")
 

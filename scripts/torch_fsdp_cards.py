@@ -27,7 +27,10 @@ runs are held on the losses, norms and first-batch gradients
 (``tests/test_torch_tp.py``'s bounds, ``TOL["split"]``), their bfloat16
 ones on the losses and norms within ``TOL["split bfloat16"]`` and the
 first-batch gradients within the bf16 bound; each record holds what the
-layout split. Then llama3-8b's bf16 (2, 2) run's params and AdamW state are
+layout split. The vocabulary splits there too (the smoke V of 128
+divides by m): each record's ``vocab_blocks`` lists every rank's row
+range and the rows of ``embed`` and columns of ``lm_head`` it gathers,
+V/m where split. Then llama3-8b's bf16 (2, 2) run's params and AdamW state are
 saved sharded and restored onto the mesh bit for bit, and a save whose
 write fails must raise on every rank, in ``save`` and at
 ``save_async``'s ``wait``. Attention takes the plain route
@@ -99,6 +102,20 @@ def rel_err(a: list, b: list) -> float:
     return max(abs(x - y) / abs(y) for x, y in zip(a, b))
 
 
+def vocab_blocks(layout, params) -> list:
+    """Every rank's row range of the vocabulary (None where it is whole)
+    and the V rows of ``embed`` and columns of ``lm_head`` it gathers to
+    compute with: V/m of each where the layout splits the vocabulary."""
+    with torch.no_grad():
+        top = layout.gather_top(params, ("embed", "lm_head"))
+    mine = {"ranges": None if layout.vocab is None else layout.vocab.ranges,
+            "rows": {k: v.shape[1 if k == "lm_head" else 0]
+                     for k, v in top.items()}}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return every
+
+
 def train_check(dev, arch, shape, dtype, split=None):
     """(record, layout, params blocks, opt blocks) of one mesh run; the
     record's comparison is filled on rank 0. ``split``: config fields of
@@ -111,6 +128,7 @@ def train_check(dev, arch, shape, dtype, split=None):
                          tensor_parallel=split is not None)
     t0 = time.perf_counter()
     params = fsdp.init_params(cfg, layout, SEED, dev)
+    blocks = vocab_blocks(layout, params)
     params, opt, losses, norms = run_steps(
         params, adamw_init(params),
         steps.make_train_step(cfg, layout=layout, **KW), batches)
@@ -129,7 +147,7 @@ def train_check(dev, arch, shape, dtype, split=None):
            "stored_numel": fsdp.numel(params),
            "whole_numel": fsdp.numel(whole),
            "split": layout.split if split is not None else None,
-           "config": split}
+           "vocab_blocks": blocks, "config": split}
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, losses)
     rec["ranks_agree"] = all(x == losses for x in every)

@@ -48,10 +48,18 @@ places each leaf by its ``NamedSharding`` and inserts the collectives.
   products' added in the compute dtype as the one-process backward
   adds them. ``q_norm``/``k_norm``,
   applied to the rank's own heads, are gathered as float32 and their
-  gradients summed over ``model`` too. Embeddings, the loss, Mamba-2
-  mixers, MoE layers' shared experts and any sublayer whose counts do
-  not divide by m are gathered whole, and every rank along ``model``
-  computes the same rows with them; at m = 1 nothing splits.
+  gradients summed over ``model`` too. Where the specs put ``embed``'s
+  rows and ``lm_head``'s columns over ``model`` (V divides by m), the
+  vocabulary splits as well (``VocabSplit``, ``Layout.vocab``): each
+  rank gathers its V/m rows over the batch axes only, looks up the
+  tokens it holds (zeros elsewhere, summed over ``model``: exact, one
+  rank holds each row)
+  and computes the cross-entropy on its V/m logits, the max, the sum of
+  exponentials and the gold logit combined over ``model``; a tied table
+  is read as the same block twice. Mamba-2 mixers, MoE layers' shared
+  experts and any sublayer or table whose counts do not divide by m are
+  gathered whole, and every rank along ``model`` computes the same rows
+  with them; at m = 1 nothing splits.
   It is off by default: a split re-associates the sums of every split
   product, so that the step is no longer the one-process step's
   arithmetic up to the order of the batch ranks' gradient sums (in
@@ -262,6 +270,88 @@ def split_sublayers(cfg, specs: Params, m: int) -> tuple:
     return tuple(out)
 
 
+class VocabSplit:
+    """The vocabulary split over the ``model`` ranks of ``group``
+    (``models/model.py``'s lookup, ``models/layers.py``'s cross-entropy):
+    ``ranges`` holds the row range ``(lo, hi)`` of the V rows of each
+    block of ``embed`` (``lm_head``'s columns) that this process
+    computes with: this rank's alone. ``group`` None is the stand-in on
+    one device: every rank's range in rank order, each rank's share
+    computed in turn and combined here as the all-reduces would."""
+
+    def __init__(self, group, ranges):
+        self.group = group
+        self.ranges = tuple(ranges)
+
+    def blocks(self, table) -> list:
+        """The blocks this process computes with: a rank's ``table``, or
+        the stand-in's list of every rank's as it is."""
+        return [table] if self.group is not None else list(table)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """f of the hidden states that meet the vocab blocks: a float32
+        copy whose gradient, float32 partial sums over each rank's
+        columns, is summed over ``model`` and rounded once to ``x``'s
+        dtype."""
+        return _SplitEnter.apply(x, self.group, 1)[0]
+
+    def sum(self, parts: list) -> torch.Tensor:
+        """g: the sum over the ranks of each block's ``parts`` (the
+        backward hands each its gradient)."""
+        if self.group is not None:
+            return _ModelSum.apply(parts[0], self.group)
+        return _sum_in_order(parts)
+
+    def combine(self, parts: list, op: str) -> torch.Tensor:
+        """The ``op`` ("sum" or "max") over the ranks of each block's
+        ``parts``, outside autograd."""
+        if self.group is not None:
+            x = parts[0].clone()
+            dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max"
+                            else dist.ReduceOp.SUM, group=self.group)
+            return x
+        if op == "max":
+            return torch.stack(parts).amax(0)
+        return _sum_in_order(parts)
+
+
+def _sum_in_order(parts: list) -> torch.Tensor:
+    """The stand-in's sum over the ranks, in rank order."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
+def vocab_splits(specs: Params, m: int) -> bool:
+    """Whether the vocabulary splits over ``model`` of size ``m``: the
+    specs put ``model`` on ``embed``'s rows or ``lm_head``'s columns
+    (``mesh._sh`` puts it there where m divides V). Never at m = 1."""
+    if m == 1:
+        return False
+    dims = [specs["embed"][0]] if "embed" in specs else []
+    if "lm_head" in specs:
+        dims.append(specs["lm_head"][1])
+    return any(mesh_lib.TP in sharding.entry_axes(e) for e in dims)
+
+
+def vocab_in_turn(cfg, table: torch.Tensor, m: int):
+    """(blocks, ``VocabSplit``): the (V, d) table ``table`` (``embed``,
+    or ``lm_head``'s transpose) as the ``m`` ``model`` ranks of a (1, m)
+    mesh hold it, a list of every rank's V/m rows (views of ``table``,
+    so their gradients reach it), with the stand-in that computes every
+    rank's share in turn in this process (``VocabSplit`` with no group):
+    the split checked on one device. ``(table, None)`` where the
+    vocabulary does not split (m = 1, or V not divisible by m)."""
+    mesh = sharding.MeshShape((1, m), (mesh_lib.FSDP, mesh_lib.TP))
+    specs = mesh_lib.param_specs(cfg, mesh)
+    if not vocab_splits(specs, m):
+        return table, None
+    n = table.shape[0] // m
+    ranges = [(r * n, (r + 1) * n) for r in range(m)]
+    return [table[lo:hi] for lo, hi in ranges], VocabSplit(None, ranges)
+
+
 def split_in_turn(cfg, i: int, layer: Params, m: int):
     """(tree, ``ModelSplit``): layer ``i``'s weights ``layer`` (whole,
     in the compute dtype) as the ``m`` ``model`` ranks of a (1, m) mesh
@@ -333,7 +423,9 @@ class Layout:
     ``moe_exchange`` the ``MoeExchange`` of a MoE model (else None).
     ``tensor_parallel``: split attention and the dense MLP over
     ``model`` where ``split_sublayers`` allows (``split`` records it, a
-    tuple of sublayer names per layer); off, every rank along ``model``
+    tuple of sublayer names per layer), and the vocabulary of ``embed``,
+    ``lm_head`` and the loss where ``vocab_splits`` does (``vocab``, this
+    rank's ``VocabSplit``, else None); off, every rank along ``model``
     computes them whole, and the step is the one-process step's
     arithmetic but for the order of the sums over the batch ranks."""
 
@@ -356,6 +448,13 @@ class Layout:
         #: per layer, the sublayers it computes split over ``model``
         self.split = [split_sublayers(cfg, s, m)
                       for s in self.specs["layers"]]
+        #: the vocabulary's split over ``model``, None where it is whole
+        self.vocab = None
+        if vocab_splits(self.specs, m):
+            n = cfg.vocab_size // m
+            r = dict(zip(self.sizes, self.coords))[mesh_lib.TP]
+            self.vocab = VocabSplit(self.groups[mesh_lib.TP],
+                                    [(r * n, (r + 1) * n)])
 
     # -- blocks ------------------------------------------------------------
 
@@ -457,9 +556,15 @@ class Layout:
         return ModelSplit(self.groups[mesh_lib.TP], self.split[i])
 
     def gather_top(self, params: Params, names, dtype=None) -> Params:
-        """The top-level entries ``names`` (those present) gathered."""
+        """The top-level entries ``names`` (those present) gathered;
+        under the vocab split, ``embed`` and ``lm_head`` over the batch
+        axes only: this rank's V/m rows (``lm_head``'s columns)."""
+        def spec(k):
+            if self.vocab is not None and k in ("embed", "lm_head"):
+                return without_model(self.specs[k])
+            return self.specs[k]
         return {k: _map2(lambda t, s: self.gather(t, s, dtype), params[k],
-                         self.specs[k])
+                         spec(k))
                 for k in names if k in params}
 
     def local_batch(self, batch: dict) -> dict:

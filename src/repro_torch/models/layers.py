@@ -249,6 +249,65 @@ def _chunk_nll(xi: torch.Tensor, embed: torch.Tensor, li: torch.Tensor,
     return torch.sum((logz - gold) * valid), torch.sum(valid)
 
 
+class _VocabNll(torch.autograd.Function):
+    """Each token's nll from its logits split over the vocabulary:
+    ``logits``, float32 (after the softcap), one (T, V/m) block a rank
+    this process computes (``vocab.ranges``, ``fsdp.VocabSplit``). The
+    logsumexp is the max over every rank's blocks plus the log of the
+    sum of exp(l - max) over them; the gold logit is the label's, from
+    the block that holds it (zero elsewhere, then summed; -1 is in
+    none). The backward is local: softmax minus one-hot on each block,
+    times the nll's gradient, with no collective."""
+
+    @staticmethod
+    def forward(ctx, vocab, labels, *logits):
+        lab = labels.long()
+        mx = vocab.combine([l.amax(-1) for l in logits], "max")
+        se = vocab.combine([torch.exp(l - mx[:, None]).sum(-1)
+                            for l in logits], "sum")
+        logz = mx + torch.log(se)
+        golds = []
+        for l, (lo, hi) in zip(logits, vocab.ranges):
+            own = (lab >= lo) & (lab < hi)
+            g = torch.gather(l, -1, torch.where(own, lab - lo, 0)[:, None])
+            golds.append(torch.where(own, g[:, 0], 0.0))
+        ctx.vocab = vocab
+        ctx.save_for_backward(lab, logz, *logits)
+        return logz - vocab.combine(golds, "sum")
+
+    @staticmethod
+    def backward(ctx, dnll):
+        lab, logz, *logits = ctx.saved_tensors
+        out = []
+        for l, (lo, hi) in zip(logits, ctx.vocab.ranges):
+            own = (lab >= lo) & (lab < hi)
+            g = torch.exp(l - logz[:, None]).scatter_add_(
+                1, torch.where(own, lab - lo, 0)[:, None],
+                -own.float()[:, None])
+            out.append(g * dnll[:, None])
+        return (None, None, *out)
+
+
+def _chunk_nll_split(xi: torch.Tensor, li: torch.Tensor,
+                     final_softcap: float | None, vocab, *blocks):
+    """``_chunk_nll`` with the vocabulary split over the ranks
+    (``vocab``): each block's logits are the column block of the
+    one-process product (``column_product`` on the chunk entered through
+    ``vocab.enter``, so that its input gradient is summed over the ranks
+    in float32 and rounded once), then float32, then the softcap; the
+    nll combines the blocks (``_VocabNll``)."""
+    x32 = vocab.enter(xi)
+    logits = []
+    for emb in blocks:
+        lg = column_product(x32, emb.T).float()
+        if final_softcap is not None:
+            lg = softcap(lg, final_softcap)
+        logits.append(lg)
+    nll = _VocabNll.apply(vocab, li, *logits)
+    valid = (li >= 0).float()
+    return torch.sum(nll * valid), torch.sum(valid)
+
+
 def chunked_cross_entropy_loss(x: torch.Tensor, embed: torch.Tensor,
                                labels: torch.Tensor, num_chunks: int = 8,
                                final_softcap: float | None = None
@@ -260,9 +319,10 @@ def chunked_cross_entropy_loss(x: torch.Tensor, embed: torch.Tensor,
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def chunked_cross_entropy_sums(x: torch.Tensor, embed: torch.Tensor,
-                               labels: torch.Tensor, num_chunks: int = 8,
-                               final_softcap: float | None = None
+def chunked_cross_entropy_sums(x: torch.Tensor, embed, labels: torch.Tensor,
+                               num_chunks: int = 8,
+                               final_softcap: float | None = None,
+                               vocab=None
                                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Cross-entropy without materializing the full (T, V) logits: (the
     sum of nll over the valid labels, their count), float32.
@@ -273,7 +333,12 @@ def chunked_cross_entropy_sums(x: torch.Tensor, embed: torch.Tensor,
     and reduces them to a sum of nll. Where grad is on, each chunk runs
     under activation checkpointing, so its logits are recomputed in the
     backward instead of kept: at qwen3-1.7b's width a chunk of 1024 rows
-    holds 1024 x 151936 logits in bf16 and float32."""
+    holds 1024 x 151936 logits in bf16 and float32.
+
+    ``vocab``: a sharded run's ``fsdp.VocabSplit``; ``embed`` is then
+    this rank's (V/m, d) rows (the stand-in's: a list of every rank's),
+    and the chunks run ``_chunk_nll_split``. The sums are the whole
+    vocabulary's, equal on every rank along ``model``."""
     t = x.shape[0]
     pad = (-t) % num_chunks
     if pad:
@@ -281,16 +346,20 @@ def chunked_cross_entropy_sums(x: torch.Tensor, embed: torch.Tensor,
         labels = F.pad(labels, (0, pad), value=-1)
     xc = x.reshape(num_chunks, -1, x.shape[-1])
     lc = labels.reshape(num_chunks, -1)
-    remat = torch.is_grad_enabled() and (x.requires_grad
-                                         or embed.requires_grad)
+    blocks = [embed] if vocab is None else vocab.blocks(embed)
+    remat = torch.is_grad_enabled() and (
+        x.requires_grad or any(e.requires_grad for e in blocks))
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for xi, li in zip(xc, lc):
+        fn, args = ((_chunk_nll, (xi, embed, li, final_softcap))
+                    if vocab is None else
+                    (_chunk_nll_split, (xi, li, final_softcap, vocab,
+                                        *blocks)))
         if remat:
-            nll, valid = checkpoint(_chunk_nll, xi, embed, li, final_softcap,
-                                    use_reentrant=False)
+            nll, valid = checkpoint(fn, *args, use_reentrant=False)
         else:
-            nll, valid = _chunk_nll(xi, embed, li, final_softcap)
+            nll, valid = fn(*args)
         tot = tot + nll
         cnt = cnt + valid
     return tot, cnt

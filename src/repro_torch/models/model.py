@@ -472,11 +472,26 @@ def _scaled(cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def _embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor):
+def _embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                  vocab=None):
     """(B, S, d) token rows in the compute dtype. Rows are gathered, then
     cast: the same values as the JAX order (cast the table, then gather)
-    at a fraction of the traffic."""
-    return params["embed"][tokens.long()].to(cfg.cdtype)
+    at a fraction of the traffic. ``vocab``: a sharded run's
+    ``fsdp.VocabSplit``, ``params["embed"]`` this rank's rows (the
+    stand-in's: a list of every rank's): each block gives the rows of
+    the tokens in its range, cast, and zeros elsewhere, summed over the
+    ranks in the compute dtype. The sum is exact, the row itself: one
+    rank holds each row, and every other rank adds zero. The backward
+    adds each token's gradient into its owner's rows."""
+    t = tokens.long()
+    if vocab is None:
+        return params["embed"][t].to(cfg.cdtype)
+    parts = []
+    for table, (lo, hi) in zip(vocab.blocks(params["embed"]), vocab.ranges):
+        own = (t >= lo) & (t < hi)
+        rows = table[torch.where(own, t - lo, 0)].to(cfg.cdtype)
+        parts.append(torch.where(own[..., None], rows, 0.0))
+    return vocab.sum(parts)
 
 
 def _project(cfg: ModelConfig, params: Params, x: torch.Tensor):
@@ -487,16 +502,19 @@ def _project(cfg: ModelConfig, params: Params, x: torch.Tensor):
     return x.to(cd) @ params["frontend_proj"].to(cd)
 
 
-def _embed_inputs(cfg: ModelConfig, params: Params, batch: dict):
+def _embed_inputs(cfg: ModelConfig, params: Params, batch: dict,
+                  vocab=None):
     """(h (B, S, d), positions): (B, S), or (3, B, S) with M-RoPE. The
-    ``patches`` rows come first, then the tokens'."""
+    ``patches`` rows come first, then the tokens'. ``vocab``: see
+    ``_embed_tokens``."""
     if cfg.frontend == "tokens":
-        h = _embed_tokens(cfg, params, batch["tokens"])
+        h = _embed_tokens(cfg, params, batch["tokens"], vocab)
     elif cfg.frontend == "frames":
         h = _project(cfg, params, batch["frames"])
     elif cfg.frontend == "patches":
         h = torch.cat([_project(cfg, params, batch["patches"]),
-                       _embed_tokens(cfg, params, batch["tokens"])], 1)
+                       _embed_tokens(cfg, params, batch["tokens"], vocab)],
+                      1)
     else:
         raise ValueError(cfg.frontend)
     h = _scaled(cfg, h)
@@ -560,9 +578,11 @@ def _run_blocks(cfg: ModelConfig, params: Params, batch: dict,
     """(final hidden states, the sum of the MoE aux losses in float32);
     appends each layer's cache to ``caches`` where given. ``layout``
     (``launch/fsdp.Layout``): ``params`` are this rank's blocks,
-    gathered where they are used."""
+    gathered where they are used (``embed``: this rank's rows where the
+    layout splits the vocabulary)."""
     check_supported(cfg)
     remat = _remat(cfg, params) if caches is None else None
+    vocab = None
     if layout is None:
         layers = cast_layers(cfg, params["layers"])
     else:
@@ -571,7 +591,8 @@ def _run_blocks(cfg: ModelConfig, params: Params, batch: dict,
         layers = params["layers"]
         params = layout.gather_top(params, ("embed", "frontend_proj",
                                             "final_norm"))
-    h, positions = _embed_inputs(cfg, params, batch)
+        vocab = layout.vocab
+    h, positions = _embed_inputs(cfg, params, batch, vocab)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, p in enumerate(layers):
         spec = cfg.layer_spec(i)

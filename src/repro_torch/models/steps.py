@@ -44,7 +44,9 @@ def loss_fn(cfg: ModelConfig, params: Any, batch: dict,
     """(loss, {"ce", "moe_aux"}). With ``layout`` (``launch/fsdp``),
     ``params`` are this rank's blocks and ``batch`` its rows, and the
     loss is this rank's share: its nll sum over the count of valid
-    labels on every rank that splits the batch."""
+    labels on every rank that splits the batch. Where the layout splits
+    the vocabulary, the output table is this rank's V/m rows and the nll
+    is combined over ``model`` (``layers.chunked_cross_entropy_sums``)."""
     h, moe_aux = model_lib.forward(cfg, params, batch, layout)
     b, s, d = h.shape
     labels = batch["labels"]
@@ -63,7 +65,8 @@ def loss_fn(cfg: ModelConfig, params: Any, batch: dict,
         emb = model_lib.output_embedding(
             cfg, layout.gather_top(params, (head,), cfg.cdtype))
         tot, cnt = chunked_cross_entropy_sums(h.reshape(b * s, d), emb,
-                                              labels.reshape(b * s), **kw)
+                                              labels.reshape(b * s),
+                                              vocab=layout.vocab, **kw)
         ce = tot / torch.clamp(layout.batch_sum(cnt), min=1.0)
     loss = ce + aux_weight * moe_aux
     return loss, {"ce": ce, "moe_aux": moe_aux}

@@ -345,7 +345,13 @@ def test_chip_smoke_tp_layer_path_rehearsal_on_cpu(monkeypatch):
     turn, agrees with the whole layer in float32 and bfloat16 within
     TP_TOL on its output, its input gradient and every weight gradient,
     and the kernel entry point is never called. At the published
-    configs the first layer splits too: 8/2 and 4/2 heads a rank."""
+    configs the first layer splits too: 8/2 and 4/2 heads a rank. Then
+    phase 17's vocabulary lines at the smoke sizes of llama3-8b (its own
+    lm_head) and gemma2-9b (tied, final softcap 30): the lookup's rows
+    equal the whole table's bit for bit, and the loss, its input
+    gradient, the table's gradient and the lookup's table gradient agree
+    within TP_TOL in float32 and bfloat16; the published vocabularies
+    (128256, 256000) split over the 4 ranks."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     from repro_torch.configs import get_config
@@ -379,6 +385,24 @@ def test_chip_smoke_tp_layer_path_rehearsal_on_cpu(monkeypatch):
                 "flash_attention": 0}
         assert "ms" not in out
         monkeypatch.undo()
+    for arch in chip_smoke.TP_VOCAB_ARCHS:
+        full = get_config(arch)
+        specs = mesh_lib.param_specs(full, MeshShape((1, m),
+                                                     ("data", "model")))
+        assert fsdp.vocab_splits(specs, m)
+        out = chip_smoke.tp_vocab_path(torch.device("cpu"), arch,
+                                       smoke=True, batch=2, seq=16)
+        assert out["ranks"] == m and out["vocab"] == 128
+        assert out["tied"] == (arch == "gemma2-9b")
+        assert out["final_softcap"] == (full.final_logit_softcap or None)
+        assert 0 < out["labeled"] < 32
+        for dtype, tol in chip_smoke.TP_TOL.items():
+            rec = out[dtype]
+            assert rec["finite"] and rec["lookup_equal"]
+            assert rec["worst"] <= tol
+            assert set(rec["max_rel_err"]) == {"lookup_table", "loss", "x",
+                                               "table"}
+        assert "ms" not in out and "peak_mib" not in out
 
 
 def test_chip_smoke_route_replay_on_cpu():

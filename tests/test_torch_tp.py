@@ -20,6 +20,15 @@ layer whose heads m does not divide runs its attention whole, and
 ``Layout.split`` records which sublayers split. On one in-process rank
 (m = 1) nothing splits and the step is the one-process step bit for
 bit.
+
+The vocabulary splits too (``Layout.vocab``, ``fsdp.VocabSplit``): the
+smoke V of 128 divides by 2 and 4, so every case looks up its tokens in
+each rank's V/m rows of ``embed`` and computes the loss on its V/m
+logits (``lm_head``'s columns, or the tied ``embed``'s rows read again),
+the max, the sum of exponentials and the gold logit combined over
+``model``. Each rank gathers ``embed``/``lm_head`` as its V/m rows
+(columns). One case (``ODD_VOCAB``, a V that m = 2 does not divide)
+splits its layers and keeps both tables whole, as granite's 49155 stays.
 """
 import dataclasses
 import pickle
@@ -49,21 +58,32 @@ HEADS = {"num_heads": 8, "num_kv_heads": 4}
 #: every attention and dense MLP of llama3 and gemma3 (windows of 8 over
 #: 16 positions, post-norms, qk_norm) four ways; llama3 with its own 4/2 heads
 #: splits only its MLPs (Hkv = 2); on (2, 2) the split meets the data
-#: split, and each layer is checkpointed under remat "dots" (``REMAT``),
-#: so that the backward gathers it and all-reduces its outputs again
+#: split, and each layer is checkpointed under remat "dots"; the last
+#: case splits llama3's 8/4-head layers over m = 2 with a vocabulary that
+#: 2 does not divide, so that its tables stay whole (``OVER``)
 CASES = (("llama3-8b", (1, 4), "float32", True),
          ("gemma3-12b", (1, 4), "float32", True),
          ("llama3-8b", (1, 4), "bfloat16", True),
          ("llama3-8b", (1, 4), "float32", False),
-         ("llama3-8b", (2, 2), "float32", False))
-REMAT = {CASES[4]: {"remat": True, "remat_policy": "dots"}}
+         ("llama3-8b", (2, 2), "float32", False),
+         ("llama3-8b", (2, 2), "float32", True))
+#: a vocabulary that neither 2 nor 4 divides: the tables stay whole
+ODD_VOCAB = 129
+#: config fields a case replaces besides its heads
+OVER = {CASES[4]: {"remat": True, "remat_policy": "dots"},
+        CASES[5]: {"vocab_size": ODD_VOCAB}}
 IDS = [f"{a}-{'x'.join(map(str, s))}-{d}{'-8h' if h else ''}"
-       for a, s, d, h in CASES]
+       + (f"-v{ODD_VOCAB}" if "vocab_size" in OVER.get(c, {}) else "")
+       for c in CASES for a, s, d, h in [c]]
 F32_PARAMS = tuple(c for c in CASES if c[1] == (1, 4) and c[2] == "float32")
 # of each leaf's largest |g|: a split moves the forward's sums, and so
 # every gradient, by float32 roundings (measured below 1.5e-6 on these
 # cases; 2.8e-5 on jamba's smallest Mamba-2 leaf, whose largest |g| is
-# 2.8e-5, split on (2, 2))
+# 2.8e-5, split on (2, 2)). With the vocabulary split as well: 1.32e-6,
+# 5.74e-6 (gemma3), 8.5e-7 and 1.16e-6 on the float32 cases, in order,
+# and 9.8e-7 on the ODD_VOCAB case (tables whole); their losses equal,
+# grad norms within 3.8e-7 relative, the (1, 4) cases' AdamW params at
+# most 3.1e-7 past RTOL's share (ATOL 1e-6)
 GRAD_TOL = 1e-4
 # bfloat16: a split re-associates each split product's float32 sum, and
 # where that sum lands on the other side of a bf16 rounding boundary
@@ -73,7 +93,8 @@ GRAD_TOL = 1e-4
 # for the data split, where the forward stays bit for bit: measured
 # 4.0e-5 (losses) and 6.0e-5 (norms) on this case, 1.06e-4 (norms) for
 # llama3 on (2, 2). The first batch's gradients were equal bit for bit
-# here and hold to BF16_GRAD_TOL.
+# here and hold to BF16_GRAD_TOL. With the vocabulary split as well:
+# 3.99e-5 (losses), 6.01e-5 (norms), the gradients still equal.
 TP_BF16_RTOL = 2e-4
 
 RANK_SCRIPT = r'''
@@ -102,8 +123,8 @@ for case in job["cases"]:
     arch, shape, dtype, heads = case
     cfg = dataclasses.replace(get_smoke_config(arch), compute_dtype=dtype,
                               **(job["heads"] if heads else {}),
-                              **job["remat"].get(case, {}))
-    full = convert.params_from_numpy(cfg, job["weights"][arch, heads], "cpu")
+                              **job["over"].get(case, {}))
+    full = convert.params_from_numpy(cfg, job["weights"][case], "cpu")
     if shape not in meshes:
         meshes[shape] = mesh_lib.make_mesh(shape, "cpu")
     layout = fsdp.Layout(cfg, meshes[shape], tensor_parallel=True)
@@ -114,6 +135,9 @@ for case in job["cases"]:
              for k, v in g[n].items() if k in fsdp.SPLIT_LEAVES[n]}
             for g in (layout.gather_layer(i, p) for i, p in
                       enumerate(layout.shard(full)["layers"]))]
+        top = layout.gather_top(layout.shard(full), ("embed", "lm_head"))
+    run["top"] = {k: tuple(v.shape) for k, v in top.items()}
+    run["vocab"] = None if layout.vocab is None else layout.vocab.ranges
     _, _, grads = steps.value_and_grad(cfg, layout.shard(full), batches[0],
                                        layout=layout)
     grads = layout.full(grads)
@@ -139,7 +163,7 @@ def configs(case):
     """(JAX config, port config) of one case."""
     arch, _, dtype, heads = case
     over = {"compute_dtype": dtype, **(HEADS if heads else {}),
-            **REMAT.get(case, {})}
+            **OVER.get(case, {})}
     return (dataclasses.replace(jax_smoke(arch), **over),
             dataclasses.replace(get_smoke_config(arch), **over))
 
@@ -149,14 +173,16 @@ def group(tmp_path_factory):
     """(each rank's results, the job): the 4-rank gloo group runs while
     this process waits."""
     out = tmp_path_factory.mktemp("tp")
-    weights = {}
-    for arch, shape, _, heads in CASES:
-        if (arch, heads) not in weights:
-            jcfg, _ = configs((arch, shape, "float32", heads))
-            weights[arch, heads] = jax.tree.map(
+    weights, inits = {}, {}
+    for case in CASES:
+        jcfg = dataclasses.replace(configs(case)[0], compute_dtype="float32")
+        key = case[0], case[3], jcfg.vocab_size
+        if key not in inits:
+            inits[key] = jax.tree.map(
                 np.asarray, jax_model.init_params(jcfg, jax.random.key(0)))
+        weights[case] = inits[key]
     vocab, = {jax_smoke(a).vocab_size for a, *_ in CASES}
-    job = {"cases": CASES, "heads": HEADS, "remat": REMAT,
+    job = {"cases": CASES, "heads": HEADS, "over": OVER,
            "weights": weights, "kw": KW,
            "batches": [lm_batch(vocab, 10 + i) for i in range(STEPS)]}
     with open(out / "job.pkl", "wb") as f:
@@ -185,10 +211,8 @@ def one_process(group):
     _, job = group
     out = {}
     for case in CASES:
-        arch, _, _, heads = case
         _, cfg = configs(case)
-        params = convert.params_from_numpy(cfg, job["weights"][arch, heads],
-                                           "cpu")
+        params = convert.params_from_numpy(cfg, job["weights"][case], "cpu")
         _, _, grads = steps.value_and_grad(cfg, params,
                                            _torch_batch(job["batches"][0]))
         opt = adamw_init(params)
@@ -229,9 +253,8 @@ def test_split_step_matches_one_process(group, one_process, case):
                          ids=lambda c: c[0])
 def test_first_split_loss_matches_jax(group, case):
     ranks, job = group
-    arch, _, _, heads = case
     jcfg, _ = configs(case)
-    jp = jax.tree.map(jnp.asarray, job["weights"][arch, heads])
+    jp = jax.tree.map(jnp.asarray, job["weights"][case])
     jstep = jax.jit(jax_steps.make_train_step(jcfg, **KW))
     _, _, m = jstep(jp, jax_adamw_init(jp),
                     jax.tree.map(jnp.asarray, job["batches"][0]))
@@ -245,14 +268,29 @@ def test_split_layers_compute_their_block(group, case):
     hold 1/m of the columns and its wo 1/m of the rows: the compute is
     split, not only the storage. What the layout records split is what
     divides by m: attention where H and Hkv do, the dense MLP where d_ff
-    does; Mamba-2 mixers and MoE layers never."""
+    does; Mamba-2 mixers and MoE layers never. The vocabulary splits
+    too: each rank's gathered ``embed`` holds its V/m rows and
+    ``lm_head`` its V/m columns, block ``model`` coordinate of the V;
+    where m does not divide V (``ODD_VOCAB``) both stay whole while the
+    layers split."""
     ranks, _ = group
     arch, shape, _, _ = case
     _, cfg = configs(case)
     m = shape[1]
     d, hd = cfg.d_model, cfg.head_dim
-    for r in ranks:
+    v = cfg.vocab_size // m
+    for rank, r in enumerate(ranks):
         run = r[case]
+        if cfg.vocab_size % m:
+            v = cfg.vocab_size
+            assert run["vocab"] is None
+        else:
+            lo = rank % m * v             # the model axis is the minor one
+            assert run["vocab"] == ((lo, lo + v),)
+        want_top = {"embed": (v, d)}
+        if not cfg.tie_embeddings:
+            want_top["lm_head"] = (d, v)
+        assert run["top"] == want_top, run["top"]
         for i, (split, got) in enumerate(zip(run["split"], run["gathered"])):
             spec = cfg.layer_spec(i)
             want_split = []
