@@ -8,6 +8,7 @@
     python3 benchmarks/torch_trace.py --lm --arch mamba2-370m  # another model
     python3 benchmarks/torch_trace.py --train --arch hubert-xlarge
     python3 benchmarks/torch_trace.py --lm --arch jamba-v0.1-52b
+    python3 benchmarks/torch_trace.py --tp-layer --arch jamba-v0.1-52b
 
 Builds the data of ``chip_smoke.py`` (same spec, P = 4), runs each of
 Q1–Q12 once on the kernel route with statistics-presized caps, then
@@ -30,7 +31,11 @@ hubert-xlarge), at full size the same way; phase 16's llama4-scout-17b-a16e
 and jamba-v0.1-52b, whose whole depths do not fit one card, at the depths
 of ``chip_smoke.MOE_WIDE_LAYERS`` (12 and 16 layers). The serve's weights are
 drawn in the compute dtype layer by layer (``model.init_compute_params``).
-``serve_batch`` takes token
+With ``--tp-layer``: ``chip_smoke.py`` phase 17's layer (the first of
+``--arch``, default llama3-8b, at published width, its seeded weights and
+8 x 2048 tokens, bfloat16, forward and backward), one warm run whole and
+one of its share on one of 4 ``model`` ranks (``fsdp.split_in_turn``, the
+first rank's tree alone), one JSON line each. ``serve_batch`` takes token
 prompts only, so with ``--lm`` qwen2-vl-2b's batch is batch 0 of
 ``data.pipeline`` (8 x 2048 positions, 512 of them patches), warmed up
 by one prefill, then traced through ``steps`` as above; hubert-xlarge,
@@ -211,6 +216,41 @@ def trace_train(arch: str | None) -> None:
         flush=True)
 
 
+def trace_tp_layer(arch: str | None) -> None:
+    import dataclasses
+
+    import torch
+
+    import chip_smoke
+    from repro_torch.configs import get_config
+    from repro_torch.launch import fsdp
+    from repro_torch.models import model
+    arch = arch or chip_smoke.TP_ARCHS[0]
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="bfloat16",
+                              attn_impl="auto")
+    spec, layer32 = chip_smoke.tp_layer_weights(cfg, dev)
+    layer = model.tree_map(lambda t: t.to(cfg.cdtype).requires_grad_(),
+                           layer32)
+    leaves = list(model._leaves(layer))
+    b, s = chip_smoke.TP_TOKENS
+    x, dy, positions = chip_smoke.tp_layer_inputs(cfg, dev, (b, s,
+                                                  cfg.d_model), cfg.cdtype)
+    ranks = chip_smoke.TP_RANKS
+    tree, split = fsdp.split_in_turn(cfg, 0, layer, ranks)
+    one = {**tree, **{k: tree[k][:1] for k in split.sublayers}}
+
+    def run(p, sp):
+        y, _ = model._apply_block(cfg, spec, p, x, positions, None, sp)
+        torch.autograd.grad(y, [x] + leaves, dy, allow_unused=True)
+
+    for name, p, sp in (("whole", layer, None), ("one_rank", one, split)):
+        run(p, sp)                              # warm-up: the cold run
+        print(json.dumps({"tp_layer": name, "arch": arch, "ranks": ranks,
+                          "tokens": [b, s], "split": split.sublayers,
+                          **traced(lambda: run(p, sp))}), flush=True)
+
+
 def trace_spmd() -> None:
     import torch
     import torch.distributed as dist
@@ -260,6 +300,10 @@ def main() -> int:
         return 0
     if "--train" in args:
         trace_train(arch)
+        print(subprocess_smi())
+        return 0
+    if "--tp-layer" in args:
+        trace_tp_layer(arch)
         print(subprocess_smi())
         return 0
     if "--spmd" in sys.argv[1:]:

@@ -205,14 +205,18 @@ Phases, each printed as it runs:
    card with its partials summed in float32 where NCCL's all-reduce
    would sum them (``fsdp.split_in_turn``; the collectives themselves
    need four cards): llama3-8b's first layer (d_model 4096, 32/8 heads
-   of 128, d_ff 14336: 8/2 heads and 3584 columns a rank) and
+   of 128, d_ff 14336: 8/2 heads and 3584 columns a rank),
    gemma3-12b's first, local one (d_model 3840, 16/8 heads of 256,
    window 1024, qk-norm, post-norms, d_ff 15360: 4/2 heads and 3840
-   columns a rank), seeded weights and 8 x 2048 tokens, in float32 and
-   bf16: the output, the input gradient and every weight gradient
-   against the unsplit layer (TP_TOL); the flash forward and backward
-   launched once a rank on its heads, counted; one rank's share,
-   forward and backward, timed beside the whole layer; then the flash
+   columns a rank), jamba-v0.1-52b's first (a Mamba-2 mixer, d_inner
+   8192, 128 heads of 64, state 16: 32 heads a rank, and a dense MLP of
+   14336) and mamba2-370m's (a mixer alone, d_inner 2048, 32 heads of
+   64, state 128: 8 a rank), seeded weights and 8 x 2048 tokens, in
+   float32 and bf16: the output, the input gradient and every weight
+   gradient against the unsplit layer (TP_TOL); the flash forward and
+   backward launched once a rank on its heads, counted (none on a mixer
+   layer); one rank's share, forward and backward, timed beside the
+   whole layer, under the card's name and power limit; then the flash
    kernels at that per-rank shape beside their plain versions.
 
 Phase 3's ``query`` lines also give each query's peak device memory and
@@ -435,9 +439,11 @@ MOE_WIDE_F64_TOKENS = 512
 # phase 17: the tensor-parallel split of one layer at full width, every
 # one of TP_RANKS ``model`` ranks' share computed in turn on the card
 # (``fsdp.split_in_turn``), held against the unsplit layer on TP_TOKENS
-# tokens: llama3-8b's layer and gemma3-12b's local layer (window 1024,
-# qk-norm, post-norms)
-TP_ARCHS = ("llama3-8b", "gemma3-12b")
+# tokens: llama3-8b's layer, gemma3-12b's local layer (window 1024,
+# qk-norm, post-norms), jamba's first (a Mamba-2 mixer of 128 heads of
+# 64, state 16, and a dense MLP) and mamba2-370m's (a mixer of 32 heads
+# of 64, state 128, alone)
+TP_ARCHS = ("llama3-8b", "gemma3-12b", "jamba-v0.1-52b", "mamba2-370m")
 TP_RANKS = 4
 TP_TOKENS = (8, 2048)
 # the split's output, input gradient and every weight gradient against
@@ -3892,10 +3898,13 @@ def moe_wide_path(dev, arch: str, *, smoke: bool = False,
 def tp_layer_path(dev, arch: str, *, smoke: bool = False,
                   overrides: dict | None = None, batch: int = TP_TOKENS[0],
                   seq: int = TP_TOKENS[1], counters: dict | None = None,
-                  capture=None) -> dict:
-    """Phase 17, one of TP_ARCHS: its first layer (gemma3's is local) at
-    published width (the smoke config with ``smoke``; ``overrides``: more
-    fields), seeded weights (norm scales drawn too) and ``batch`` x
+                  capture=None, card: str | None = None) -> dict:
+    """Phase 17, one of TP_ARCHS: its first layer (gemma3's is local;
+    jamba's and mamba2-370m's a Mamba-2 mixer, whose heads split, its
+    gated norm's statistic summed over the ranks) at published width
+    (the smoke config with ``smoke``; ``overrides``: more fields),
+    seeded weights (norm scales, and a Mamba-2 mixer's dt_bias, D and
+    conv_b, drawn too) and ``batch`` x
     ``seq`` seeded inputs and output gradient, run whole
     (``model._apply_block``) and split over TP_RANKS ``model`` ranks as
     ``fsdp.Layout`` splits it on a mesh, each rank's share computed in
@@ -3906,23 +3915,18 @@ def tp_layer_path(dev, arch: str, *, smoke: bool = False,
     (the plain route on the CPU): the split launches the flash forward
     and backward once a rank, on its H/m heads (``counters``: the
     wrappers, their ``launches`` reset here; ``capture``: ``LastFlash``,
-    whose last call must have H/m heads). Then one rank's share of the
-    layer, forward and backward, timed beside the whole layer."""
-    import torch
+    whose last call must have H/m heads); a mixer layer launches no
+    kernel. Then one rank's share of the layer, forward and backward,
+    timed beside the whole layer (``card``: the nvidia-smi name and
+    power limit)."""
     from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.models import model
+    from repro_torch.models import ssm as ssm_lib
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     cfg = dataclasses.replace(
         cfg, attn_impl="auto" if dev.type == "cuda" else "dense",
         **(overrides or {}))
-    spec = cfg.layer_spec(0)
-    g = _gen(SEED, dev)
-    layer32 = model._init_block(cfg, spec, g, dev)
-    for path, t in zip(model_paths(layer32), model._leaves(layer32)):
-        if path.endswith("scale"):
-            t.normal_(0.0, 0.1, generator=g)
+    spec, layer32 = tp_layer_weights(cfg, dev)
     shape = (batch, seq, cfg.d_model)
-    positions = torch.arange(seq, device=dev).expand(batch, seq)
     counters = counters or {}
     rec = {"arch": cfg.name, "ranks": TP_RANKS, "tokens": [batch, seq],
            "d_model": cfg.d_model, "heads": [cfg.num_heads,
@@ -3930,18 +3934,59 @@ def tp_layer_path(dev, arch: str, *, smoke: bool = False,
            "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
            "mixer": spec.mixer, "window": cfg.window or None,
            "qk_norm": cfg.qk_norm}
+    if spec.mixer == "mamba":
+        d_inner, nheads = ssm_lib.ssm_dims(cfg.d_model, cfg.ssm_expand,
+                                           cfg.ssm_head_dim)
+        rec.update({"heads": None, "head_dim": None, "d_inner": d_inner,
+                    "ssm_heads": nheads, "ssm_head_dim": cfg.ssm_head_dim,
+                    "ssm_state": cfg.ssm_state, "ssm_chunk": cfg.ssm_chunk})
+    if spec.mlp != "dense":
+        rec["d_ff"] = None
     t0 = time.perf_counter()
     with capture if capture is not None else contextlib.nullcontext():
         for dtype in ("float32", "bfloat16"):
             rec[dtype] = _tp_layer_check(dev, cfg, dtype, spec, layer32,
-                                         shape, positions, counters,
-                                         capture, rec)
+                                         shape, counters, capture, rec)
+    if dev.type == "cuda":
+        rec["card"] = card
     rec["seconds"] = time.perf_counter() - t0
     log(f"tp layer {arch} " + json.dumps(rec))
     return rec
 
 
-def _tp_layer_check(dev, cfg, dtype: str, spec, layer32, shape, positions,
+def tp_layer_weights(cfg, dev) -> tuple:
+    """(spec, float32 weights) of phase 17's layer, ``cfg``'s first,
+    drawn from SEED: as ``model._init_block`` draws them, with the norm
+    scales and a Mamba-2 mixer's dt_bias, D and conv_b drawn too."""
+    from repro_torch.models import model
+    spec = cfg.layer_spec(0)
+    g = _gen(SEED, dev)
+    layer32 = model._init_block(cfg, spec, g, dev)
+    for path, t in zip(model_paths(layer32), model._leaves(layer32)):
+        if path.endswith(("scale", "dt_bias", "/D", "conv_b")):
+            t.normal_(1.0 if path.endswith("/D") else 0.0, 0.1,
+                      generator=g)
+    return spec, layer32
+
+
+def tp_layer_inputs(cfg, dev, shape, dtype) -> tuple:
+    """(x, dy, positions) of phase 17's layer: ``shape`` = (batch, seq,
+    d_model) seeded inputs and output gradient in ``dtype``, x requiring
+    its gradient."""
+    import torch
+    x = normal(shape, SEED + 1, dev, dtype).requires_grad_()
+    dy = normal(shape, SEED + 2, dev, dtype)
+    positions = torch.arange(shape[1], device=dev).expand(shape[:2])
+    return x, dy, positions
+
+
+def tp_sublayers(spec) -> tuple:
+    """The sublayers of a layer of ``spec`` that phase 17 splits."""
+    mixer = "attn" if spec.mixer.startswith("attn") else "mamba"
+    return (mixer,) + (("mlp",) if spec.mlp == "dense" else ())
+
+
+def _tp_layer_check(dev, cfg, dtype: str, spec, layer32, shape,
                     counters: dict, capture, rec: dict) -> dict:
     """``tp_layer_path`` in one compute dtype: the record of the whole
     and the split layer's agreement and launches; in bfloat16 on the
@@ -3954,10 +3999,9 @@ def _tp_layer_check(dev, cfg, dtype: str, spec, layer32, shape, positions,
     layer = model.tree_map(
         lambda t: t.detach().to(c.cdtype).requires_grad_(), layer32)
     leaves = list(model._leaves(layer))
-    x = normal(shape, SEED + 1, dev, c.cdtype).requires_grad_()
-    dy = normal(shape, SEED + 2, dev, c.cdtype)
+    x, dy, positions = tp_layer_inputs(c, dev, shape, c.cdtype)
     tree, split = fsdp.split_in_turn(c, 0, layer, TP_RANKS)
-    require(split.sublayers == ("attn", "mlp"),
+    require(split.sublayers == tp_sublayers(spec),
             f"{arch}: the layer splits {split.sublayers} over {TP_RANKS}")
 
     def run(p, sp):
@@ -3980,7 +4024,8 @@ def _tp_layer_check(dev, cfg, dtype: str, spec, layer32, shape, positions,
         model_paths(layer), g1[1:], g0[1:])})
     finite = all(bool(torch.isfinite(t).all()) for t in (y1, *g1))
     flash = ("flash_attention", "flash_attention_bwd")
-    want = {k: TP_RANKS * (k in flash and dev.type == "cuda")
+    want = {k: TP_RANKS * (k in flash and dev.type == "cuda"
+                           and "attn" in split.sublayers)
             for k in launches}
     require(whole == {k: v // TP_RANKS for k, v in want.items()},
             f"{arch} whole layer in {dtype}: the kernels launched "
@@ -4453,12 +4498,14 @@ def main() -> int:
     t0 = time.perf_counter()
     for arch in TP_ARCHS:
         last_flash = LastFlash()
-        tp = tp_layer_path(dev, arch, counters=attn, capture=last_flash)
-        # the flash kernels at the shape one rank gives them
-        extra_records += train_kernel_timing(
-            last_flash.call, tp["bfloat16"]["launches_split"], edge_errs,
-            templates, where=f"{arch} split layer, one of {TP_RANKS} "
-            "ranks' heads")[::-1]
+        tp = tp_layer_path(dev, arch, counters=attn, capture=last_flash,
+                           card=smi)
+        if last_flash.call is not None:
+            # the flash kernels at the shape one rank gives them
+            extra_records += train_kernel_timing(
+                last_flash.call, tp["bfloat16"]["launches_split"],
+                edge_errs, templates, where=f"{arch} split layer, one of "
+                f"{TP_RANKS} ranks' heads")[::-1]
         del last_flash, tp
         release(dev)
     for arch in TP_VOCAB_ARCHS:

@@ -20,9 +20,12 @@ batches, and holds the losses and grad norms, and in float32 the
 gathered params, in bfloat16 the first batch's gathered gradients, to
 the CPU tests' bounds (``TOL``); every rank must report the same
 losses. The ``tensor_parallel`` runs (``TP_RUNS``) also split each
-attention and dense MLP over the ``model`` ranks (``fsdp.Layout(...,
-tensor_parallel=True)``): llama3-8b with its heads replaced to 8/4 on
-(1, 4) and as it is on (2, 2), gemma3-12b 8/4 on (1, 4); their float32
+attention, Mamba-2 mixer and dense MLP over the ``model`` ranks
+(``fsdp.Layout(..., tensor_parallel=True)``): llama3-8b with its heads
+replaced to 8/4 on (1, 4) and as it is on (2, 2), gemma3-12b 8/4 on
+(1, 4), jamba-v0.1-52b 8/4 on (1, 4) (its mixers, attention, dense MLPs,
+experts and vocabulary over ``model`` at once) and mamba2-370m on
+(2, 2) (the mixers beside the data split); their float32
 runs are held on the losses, norms and first-batch gradients
 (``tests/test_torch_tp.py``'s bounds, ``TOL["split"]``), their bfloat16
 ones on the losses and norms within ``TOL["split bfloat16"]`` and the
@@ -77,7 +80,9 @@ TP_RUNS = (("llama3-8b", (1, 4), "float32", HEADS),
            ("llama3-8b", (1, 4), "bfloat16", HEADS),
            ("gemma3-12b", (1, 4), "float32", HEADS),
            ("llama3-8b", (2, 2), "float32", {}),
-           ("llama3-8b", (2, 2), "bfloat16", {}))
+           ("llama3-8b", (2, 2), "bfloat16", {}),
+           ("jamba-v0.1-52b", (1, 4), "float32", HEADS),
+           ("mamba2-370m", (2, 2), "float32", {}))
 STEPS, BATCH, SEQ, SEED = 2, 8, 64, 0
 KW = dict(num_microbatches=2, peak_lr=1e-3, warmup_steps=1, total_steps=10)
 #: per compute dtype, ``tests/test_torch_fsdp.py``'s bounds: losses and

@@ -7,6 +7,12 @@ vocabulary too), repeated with one thing changed at a time.
         scripts/torch_tp_probe.py                      # four cards, NCCL
     python -m torch.distributed.run --nproc-per-node 4 \\
         scripts/torch_tp_probe.py --device cpu         # four gloo ranks
+    python scripts/torch_tp_probe.py --one-process     # one card, no group
+
+``--cpu-weights``: ``model.init_params`` draws every weight with a CPU
+generator and moves it to the device, so that the card's runs start
+from the CPU's weights (by default each device draws its own from the
+same seed, and the card's and the CPU's weights differ).
 
 Each variant runs ``torch_fsdp_cards.train_check`` (two steps against
 the one-process step on the same weights and batches: the losses' and
@@ -37,6 +43,34 @@ The variants, in order:
 Rank 0 prints one JSON line a variant, then the device's name and power
 limit on the card. It checks nothing and exits 0: ``torch_fsdp_cards.py``
 holds the bounds.
+
+``--layer ARCH`` (no group) repeats ``chip_smoke.py`` phase 17's float32
+check of ARCH's first layer (published width, or the smoke config with
+``--smoke``; 8 x 2048 tokens, or ``--tokens B S``) and holds both the
+whole float32 layer and its split over 4 ranks in turn against the whole
+layer in float64 on the same weights and inputs: each tensor's largest
+difference over its largest |value|, for the output, the input gradient
+and every weight gradient, of the whole and of the split against
+float64 and of the split against the whole (the check's own number).
+The float64 run keeps the port's float32 upcasts (``Tensor.float``) in
+float64 and fails if any function still computes a float32 tensor from
+a float32 one. For a Mamba-2 mixer also each head's ``a_log`` gradient
+as a sum over the tokens (``ssm.ssd_chunked`` given ``a_log`` broadcast
+to every token, whose gradient is each token's term): the largest and
+the median cancellation ratio (sum of |terms| over |sum|), and the
+largest summed |terms| over the largest |gradient|, the scale of a
+float32 rounding of the sum against the check's normaliser. One JSON
+line, then the card's name and power limit.
+
+``--one-process`` (no group; ``--cpu-weights`` implied) computes the
+one-process step alone, bfloat16 and float32, on the device and on the
+CPU from the same weights and batches: the first batch's gradient
+norms and, over ``cards.STEPS`` steps, the losses and grad norms, each
+bfloat16 norm's relative gap to the float32 one, and then, leaf by
+leaf, the card's gradients against the CPU's in each dtype (the
+``TOP`` leaves whose largest difference over their largest |g| is
+widest, by layer), to find the layer where the card's bfloat16 step
+starts to depart. One JSON line a device, one for the comparison.
 """
 from __future__ import annotations
 
@@ -52,7 +86,9 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 
-sys.path.insert(0, str(Path(__file__).resolve().parent))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(Path(__file__).resolve().parent), str(ROOT / "src"),
+                str(ROOT)]
 
 import torch_fsdp_cards as cards  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
@@ -61,6 +97,7 @@ from repro_torch.data.pipeline import batch_at  # noqa: E402
 from repro_torch.launch import fsdp  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.models import layers, model, steps  # noqa: E402
+from repro_torch.optim import adamw_init  # noqa: E402
 
 ARCH, SHAPE, DTYPE = "llama3-8b", (1, 4), "bfloat16"
 BOTH = ("attn", "mlp")
@@ -76,6 +113,80 @@ VARIANTS = (("split", True, False, True, BOTH),
             ("split again", True, False, True, BOTH))
 #: leaves listed per variant, by their share of the squared norm's gap
 TOP = 6
+
+
+@contextlib.contextmanager
+def cpu_weights():
+    """``model.init_params`` drawing on the CPU and moving the weights to
+    the device asked for (``fsdp.init_params`` and
+    ``torch_fsdp_cards.train_check`` call it through the module)."""
+    init = model.init_params
+
+    def drawn(cfg, seed=0, device=None, keep=None):
+        if str(device) == "meta":             # shapes only, nothing drawn
+            return init(cfg, seed, device, keep=keep)
+        tree = init(cfg, seed, "cpu", keep=keep)
+        return model.tree_map(lambda t: t.to(resolve_device(device)), tree)
+
+    model.init_params = drawn
+    try:
+        yield
+    finally:
+        model.init_params = init
+
+
+def one_process(dev) -> tuple:
+    """(record, {dtype: the first batch's gradients, on the CPU}) of the
+    one-process step on ``dev`` in bfloat16 and float32 from the same
+    CPU-drawn weights: the first batch's gradient norms and
+    ``cards.STEPS`` steps' losses and grad norms."""
+    out = {"device": str(dev)}
+    grads = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(get_smoke_config(ARCH),
+                                  compute_dtype=dtype, attn_impl="dense",
+                                  **cards.HEADS)
+        batches = [batch_at(cfg, i, batch=cards.BATCH, seq=cards.SEQ,
+                            seed=cards.SEED, device=dev)
+                   for i in range(cards.STEPS)]
+        with cpu_weights():
+            params = model.init_params(cfg, cards.SEED, dev)
+        _, _, g = steps.value_and_grad(cfg, params, batches[0])
+        grads[dtype] = model.tree_map(lambda t: t.detach().cpu(), g)
+        _, _, losses, norms = cards.run_steps(
+            params, adamw_init(params), steps.make_train_step(cfg, **cards.KW),
+            batches)
+        out[dtype] = {"first_batch_norm": _norm(g), "losses": losses,
+                      "grad_norms": norms}
+    f32 = out["float32"]
+    out["bf16_gap"] = {
+        "first_batch": abs(out["bfloat16"]["first_batch_norm"]
+                           - f32["first_batch_norm"])
+        / f32["first_batch_norm"],
+        "grad_norms": [abs(a - b) / b for a, b in zip(
+            out["bfloat16"]["grad_norms"], f32["grad_norms"])]}
+    return out, grads
+
+
+def _norm(tree) -> float:
+    return sum(float(t.double().square().sum())
+               for t in model._leaves(tree)) ** 0.5
+
+
+def leaf_gaps(a, b) -> list:
+    """The ``TOP`` leaves of ``a`` farthest from ``b``'s, each largest
+    difference over ``b``'s largest |g|, and every layer's worst."""
+    rows = [(float((x.float() - y.float()).abs().max()
+                   / y.float().abs().max()), p)
+            for p, x, y in zip(_paths(b), model._leaves(a),
+                               model._leaves(b))]
+    by_layer = {}
+    for e, p in rows:
+        key = "/".join(p.split("/")[:2]) if p.startswith("layers") else p
+        by_layer[key] = max(by_layer.get(key, 0.0), e)
+    return {"top": [{"leaf": p, "rel_err": e}
+                    for e, p in sorted(rows, reverse=True)[:TOP]],
+            "by_layer": by_layer}
 
 
 def _upcast_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -154,12 +265,158 @@ def gradient_gap(dev) -> dict | None:
             "float32_norm": f32, "leaves": rows[:TOP]}
 
 
+class Float32Ops(torch.overrides.TorchFunctionMode):
+    """Records the functions that compute a float32 tensor from a
+    float32 one."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = set()
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        ins, _ = torch.utils._pytree.tree_flatten((args, kwargs))
+        outs, _ = torch.utils._pytree.tree_flatten(out)
+        if any(isinstance(t, torch.Tensor) and t.dtype == torch.float32
+               for t in outs) and any(
+                   isinstance(t, torch.Tensor) and t.dtype == torch.float32
+                   for t in ins):
+            self.seen.add(getattr(func, "__qualname__", str(func)))
+        return out
+
+
+@contextlib.contextmanager
+def float64_kept():
+    """``Tensor.float()`` leaves a float64 tensor as it is."""
+    saved = torch.Tensor.float
+    torch.Tensor.float = lambda t, *a, **k: (
+        t if t.dtype == torch.float64 else saved(t, *a, **k))
+    try:
+        yield
+    finally:
+        torch.Tensor.float = saved
+
+
+@contextlib.contextmanager
+def a_log_terms(terms: list):
+    """``ssm.ssd_chunked`` with ``a_log`` broadcast to (B, L, H): the
+    broadcast copy's gradient, each token's term of a_log's gradient, is
+    appended to ``terms``. Its zero initial state in x's dtype (the scan
+    makes a float32 one)."""
+    from repro_torch.models import ssm
+    scan = ssm.ssd_chunked
+
+    def per_token(x, dt, a_log, bmat, *a, **k):
+        tok = a_log.expand(dt.shape)
+        tok.register_hook(terms.append)
+        b, _, h, p = x.shape
+        k.setdefault("init_state", x.new_zeros(b, h, bmat.shape[-1], p))
+        return scan(x, dt, tok, bmat, *a, **k)
+
+    ssm.ssd_chunked = per_token
+    try:
+        yield
+    finally:
+        ssm.ssd_chunked = scan
+
+
+def layer_f64(dev, arch: str, smoke: bool, tokens: tuple) -> dict:
+    """``--layer``: the record of ARCH's first layer in float32, whole
+    and split, against float64."""
+    import chip_smoke
+    from repro_torch.configs import get_config
+    cfg = (get_smoke_config if smoke else get_config)(arch)
+    cfg = dataclasses.replace(cfg, attn_impl="dense")
+    spec, layer32 = chip_smoke.tp_layer_weights(cfg, dev)
+    shape = (*tokens, cfg.d_model)
+    paths = ["out", "x"] + chip_smoke.model_paths(layer32)
+    x32, dy32, positions = chip_smoke.tp_layer_inputs(cfg, dev, shape,
+                                                      torch.float32)
+
+    def run(dtype, split: bool):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        layer = model.tree_map(
+            lambda t: t.detach().to(c.cdtype).requires_grad_(), layer32)
+        x = x32.detach().to(c.cdtype).requires_grad_()
+        p, sp = layer, None
+        if split:
+            p, sp = fsdp.split_in_turn(c, 0, layer, chip_smoke.TP_RANKS)
+        y, _ = model._apply_block(c, spec, p, x, positions, None, sp)
+        grads = torch.autograd.grad(y, [x] + list(model._leaves(layer)),
+                                    dy32.to(c.cdtype))
+        return [t.detach().double() for t in (y, *grads)]
+
+    terms, ops = [], Float32Ops()
+    with float64_kept(), a_log_terms(terms) if spec.mixer == "mamba"             else contextlib.nullcontext():
+        c = dataclasses.replace(cfg, compute_dtype="float64")
+        layer = model.tree_map(
+            lambda t: t.detach().double().requires_grad_(), layer32)
+        x = x32.detach().double().requires_grad_()
+        with ops:
+            y, _ = model._apply_block(c, spec, layer, x, positions, None,
+                                      None)
+        grads = torch.autograd.grad(y, [x] + list(model._leaves(layer)),
+                                    dy32.double())
+        ref = [t.detach() for t in (y, *grads)]
+        del y, grads, layer, x
+    if ops.seen:
+        raise SystemExit(f"the float64 layer computed float32 in "
+                         f"{sorted(ops.seen)}")
+    whole = run("float32", False)
+    split = run("float32", True)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / max(float(b.abs().max()),
+                                               1e-300))
+
+    rows = [{"tensor": n, "whole_vs_f64": rel(w, r),
+             "split_vs_f64": rel(t, r), "split_vs_whole": rel(t, w)}
+            for n, w, t, r in zip(paths, whole, split, ref)]
+    rec = {"arch": cfg.name, "layer": [spec.mixer, spec.mlp],
+           "tokens": list(tokens), "ranks": chip_smoke.TP_RANKS,
+           "worst_split_vs_whole": max(rows, key=lambda r:
+                                       r["split_vs_whole"]),
+           "tensors": rows}
+    if terms:
+        t = torch.cat([t.reshape(-1, t.shape[-1]) for t in terms])
+        g = t.sum(0)
+        ratio = t.abs().sum(0) / g.abs().clamp_min(1e-300)
+        rec["a_log"] = {
+            "terms": t.shape[0], "heads": t.shape[1],
+            "ratio_max": float(ratio.max()),
+            "ratio_median": float(ratio.median()),
+            "summed_abs_over_max_grad": float(t.abs().sum(0).max()
+                                              / g.abs().max()),
+            "grad_vs_leaf": rel(g, ref[paths.index("mamba/a_log")])}
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None,
                     help="default: the GPU; 'cpu' runs gloo ranks")
+    ap.add_argument("--cpu-weights", action="store_true",
+                    help="draw the weights on the CPU, then move them")
+    ap.add_argument("--one-process", action="store_true",
+                    help="no group: the one-process step on the device "
+                    "and on the CPU from the same weights")
+    ap.add_argument("--layer", metavar="ARCH",
+                    help="no group: phase 17's float32 layer check of "
+                    "ARCH against the layer in float64")
+    ap.add_argument("--smoke", action="store_true",
+                    help="--layer: the smoke config")
+    ap.add_argument("--tokens", type=int, nargs=2, default=(8, 2048),
+                    metavar=("B", "S"), help="--layer: batch and length")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
+    if args.layer:
+        print(json.dumps(layer_f64(dev, args.layer, args.smoke,
+                                   tuple(args.tokens))), flush=True)
+        if dev.type == "cuda":
+            print_card()
+        return 0
+    if args.one_process:
+        return one_process_main(dev)
     if dev.type == "cuda":
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
     dist.init_process_group(mesh_lib.BACKENDS[dev.type])
@@ -167,12 +424,15 @@ def main(argv=None) -> int:
         if dist.get_world_size() != 4:
             raise SystemExit("run on 4 ranks: the mesh is (1, 4)")
         for name, vocab, upcast, reduced, sublayers in VARIANTS:
-            with variant(vocab, upcast, reduced, sublayers):
+            with (cpu_weights() if args.cpu_weights
+                  else contextlib.nullcontext()), \
+                    variant(vocab, upcast, reduced, sublayers):
                 rec, *_ = cards.train_check(dev, ARCH, SHAPE, DTYPE,
                                             cards.HEADS)
                 gap = gradient_gap(dev)
             if dist.get_rank() == 0:
-                out = {"variant": name, "vocab_split": vocab,
+                out = {"variant": name, "cpu_weights": args.cpu_weights,
+                       "vocab_split": vocab,
                        "upcast": upcast, "reduced_reductions": reduced,
                        "split": rec["split"]}
                 out.update({k: rec[k] for k in (
@@ -183,16 +443,36 @@ def main(argv=None) -> int:
                 out["first_batch"] = gap
                 print(json.dumps(out), flush=True)
         if dist.get_rank() == 0 and dev.type == "cuda":
-            smi = subprocess.run(
-                ["nvidia-smi", "--query-gpu=name,power.limit",
-                 "--format=csv,noheader"], capture_output=True, text=True)
-            print(json.dumps({"device": torch.cuda.get_device_name(0),
-                              "count": torch.cuda.device_count(),
-                              "nvidia_smi": smi.stdout.strip()}),
-                  flush=True)
+            print_card()
         return 0
     finally:
         dist.destroy_process_group()
+
+
+def print_card() -> None:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "count": torch.cuda.device_count(),
+                      "nvidia_smi": smi.stdout.strip()}), flush=True)
+
+
+def one_process_main(dev) -> int:
+    """``--one-process``: one JSON line for ``dev``, one for the CPU,
+    one for the leaf-by-leaf comparison of their gradients."""
+    runs = [one_process(d) for d in dict.fromkeys([dev,
+                                                   torch.device("cpu")])]
+    for rec, _ in runs:
+        print(json.dumps(rec), flush=True)
+    if len(runs) == 2:
+        (_, card), (_, cpu) = runs
+        print(json.dumps({"card_vs_cpu": {
+            dtype: leaf_gaps(card[dtype], cpu[dtype]) for dtype in card}}),
+            flush=True)
+    if dev.type == "cuda":
+        print_card()
+    return 0
 
 
 if __name__ == "__main__":

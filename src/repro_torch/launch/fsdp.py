@@ -29,37 +29,55 @@ places each leaf by its ``NamedSharding`` and inserts the collectives.
   rank computes the assignments routed to its E/m experts
   (``models/moe.py``, expert parallelism, as the reference's rules name
   it).
-* **With ``tensor_parallel``, it splits attention and the dense MLP
-  too.** Where the specs put the columns of ``wq``/``wk``/``wv`` and the
-  rows of ``wo`` over ``model`` and H and Hkv divide by its size m, each
-  ``model`` rank computes its H/m query and Hkv/m KV heads (rotation,
-  norms, masks and the flash kernel on those heads) and their rows of
-  ``wo``; where ``wi_gate``/``wi_up``'s columns and ``wo``'s rows are
-  over it and d_ff divides by m, its d_ff/m columns of the dense MLP.
-  ``gather_layer`` gathers those leaves over the batch axes only, and
+* **With ``tensor_parallel``, it splits attention, the dense MLP and the
+  Mamba-2 mixer too.** Where the specs put the columns of
+  ``wq``/``wk``/``wv`` and the rows of ``wo`` over ``model`` and H and
+  Hkv divide by its size m, each ``model`` rank computes its H/m query
+  and Hkv/m KV heads (rotation, norms, masks and the flash kernel on
+  those heads) and their rows of ``wo``; where ``wi_gate``/``wi_up``'s
+  columns and ``wo``'s rows are over it and d_ff divides by m, its
+  d_ff/m columns of the dense MLP; where ``wz``/``wx``/``wdt``'s
+  columns, ``wo``'s rows and ``dt_bias``/``a_log``/``D`` are over it and
+  the mixer's heads divide by m, its H/m SSD heads (``models/ssm.py``'s
+  ``mamba2_share_in``/``_out``: z, x and dt on its columns, the causal
+  conv on its d_inner/m x-channels, the scan, the D skip and the gate on
+  its heads, its rows of ``wo``). B and C depend on no head: every rank
+  computes them whole (``mamba2_share_bc``) from the whole ``wB``/``wC``
+  and the B/C channels of the conv, and their gradient, each rank's
+  partial over its heads, is summed over the ranks where B and C enter
+  the heads and rounded once (``_SharedEnter``). ``gather_layer``
+  gathers the ``SPLIT_LEAVES`` over the batch axes only, and
   ``Layout.split`` records, layer by layer, which sublayers split. The
   input enters through f and the row-parallel output leaves through g
   (``ModelSplit``), both summed over ``model`` in float32 over partials
-  that were not rounded to the compute dtype, and rounded once: the
-  row product (``layers.row_product``) and the column products' input
+  that were not rounded to the compute dtype, and rounded once: the row
+  product (``layers.row_product``) and the column products' input
   gradients (``layers.column_product``) are float32 products (on the
   card a float32-output GEMM, on the CPU the operands upcast), each
   input gradient summed over the ranks and rounded once, then the
-  products' added in the compute dtype as the one-process backward
-  adds them. ``q_norm``/``k_norm``,
-  applied to the rank's own heads, are gathered as float32 and their
-  gradients summed over ``model`` too. Where the specs put ``embed``'s
-  rows and ``lm_head``'s columns over ``model`` (V divides by m), the
-  vocabulary splits as well (``VocabSplit``, ``Layout.vocab``): each
-  rank gathers its V/m rows over the batch axes only, looks up the
-  tokens it holds (zeros elsewhere, summed over ``model``: exact, one
-  rank holds each row)
-  and computes the cross-entropy on its V/m logits, the max, the sum of
+  products' added in the compute dtype as the one-process backward adds
+  them. The rest of a split sublayer (attention's ``q_norm``/``k_norm``;
+  the mixer's ``wB``, ``wC``, ``conv_w``, ``conv_b`` and ``norm``) is
+  gathered whole as float32, its gradient summed over ``model`` too
+  (``partial``); the mixer reads the rank's channels of ``conv_w``,
+  ``conv_b`` and ``norm`` (``mixer_channels``: ``conv_w``'s stored block
+  does not follow the heads). The mixer's gated RMSNorm takes its mean
+  of squares over all d_inner channels, so each rank's float32 sum of
+  squares is summed over ``model`` in the middle of its share, the third
+  collective beside f and g (``_StatSum``, whose backward is an
+  all-reduce too: each rank's gradient of the statistic is a partial),
+  and ``ModelSplit.run_staged`` runs the share in two stages around it.
+  Where the specs put ``embed``'s rows and ``lm_head``'s columns over
+  ``model`` (V divides by m), the vocabulary splits as well
+  (``VocabSplit``, ``Layout.vocab``): each rank gathers its V/m rows
+  over the batch axes only, looks up the tokens it holds (zeros
+  elsewhere, summed over ``model``: exact, one rank holds each row) and
+  computes the cross-entropy on its V/m logits, the max, the sum of
   exponentials and the gold logit combined over ``model``; a tied table
-  is read as the same block twice. Mamba-2 mixers, MoE layers' shared
-  experts and any sublayer or table whose counts do not divide by m are
-  gathered whole, and every rank along ``model`` computes the same rows
-  with them; at m = 1 nothing splits.
+  is read as the same block twice. MoE layers' shared experts and any
+  sublayer or table whose counts do not divide by m are gathered whole,
+  and every rank along ``model`` computes the same rows with them; at m
+  = 1 nothing splits.
   It is off by default: a split re-associates the sums of every split
   product, so that the step is no longer the one-process step's
   arithmetic up to the order of the batch ranks' gradient sums (in
@@ -95,6 +113,7 @@ import torch.distributed as dist
 from repro_torch import sharding
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import model as model_lib
+from repro_torch.models import ssm as ssm_lib
 
 Params = dict[str, Any]
 
@@ -176,6 +195,52 @@ class _ModelEnter(torch.autograd.Function):
         return grad, None
 
 
+class _StatSum(torch.autograd.Function):
+    """The third collective of a split sublayer, beside f and g: a
+    statistic of every rank's channels (the mixer's float32 sum of
+    squares) summed over the ``model`` ranks, forward and backward. What
+    follows the sum is not replicated along ``model``: each rank
+    normalises its own channels, so each rank's gradient of the sum is a
+    partial and the whole gradient is their sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _SharedEnter(torch.autograd.Function):
+    """f of a tensor that every ``model`` rank computes whole and reads
+    on its own heads (the mixer's B and C): forward, a float32 copy;
+    backward, each rank's float32 partial gradient summed over the ranks
+    and rounded once to the tensor's dtype, as the one process rounds
+    it, then handed on by the group's first rank alone (the others hand
+    on zeros), so that what computed the tensor gets the whole gradient
+    once and its leaves' and input's partial sums over the ranks add up
+    to it."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.dtype = group, x.dtype
+        return x.float()
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        if dist.get_rank(ctx.group) != 0:
+            grad.zero_()
+        return grad.to(ctx.dtype), None
+
+
 class _SplitEnter(torch.autograd.Function):
     """f of a split sublayer's ``n`` column products: forward, ``n``
     float32 copies of ``x``, one a product; backward, each product's
@@ -206,8 +271,9 @@ class _SplitEnter(torch.autograd.Function):
 
 
 class ModelSplit:
-    """What a layer whose ``sublayers`` ("attn", "mlp") are split over
-    the ``model`` ranks of ``group`` needs (``models/model.py``):
+    """What a layer whose ``sublayers`` ("attn", "mamba", "mlp") are
+    split over the ``model`` ranks of ``group`` needs
+    (``models/model.py``):
     ``run(share, p, x, n)`` is the sublayer's output from this rank's
     ``share(p, xs)``, a float32 partial sum over the ranks, of its input
     ``x`` entered through f (``_SplitEnter``, ``xs`` one float32 copy
@@ -224,19 +290,61 @@ class ModelSplit:
     def run(self, share, p, x: torch.Tensor, n: int) -> torch.Tensor:
         xs = _SplitEnter.apply(x, self.group, n)
         if self.group is None:
-            y = share(p[0], xs)
-            for q in p[1:]:
-                y = y + share(q, xs)
+            y = _sum_in_order([share(q, xs) for q in p])
         else:
             y = _ModelSum.apply(share(p, xs), self.group)
         return y.to(x.dtype)
 
+    def run_staged(self, shared, first, second, p, x: torch.Tensor,
+                   n: int) -> torch.Tensor:
+        """``run`` of a share whose middle needs a statistic of every
+        rank's channels (the mixer's gated RMSNorm) and which reads a
+        tensor that depends on no rank's block (the mixer's B and C):
+        ``shared(p, xs)`` is that tensor, computed whole and entered
+        through ``_SharedEnter`` (the stand-in computes it once, as
+        float32, and autograd sums the ranks' gradients into it);
+        ``first(p, xs, shared)`` is (what the rank carries on, its
+        float32 part of the statistic); the parts are summed over the
+        ranks (``_StatSum``) and ``second(p, carried, total)`` is the
+        rank's float32 partial output. The stand-in runs every rank's
+        first stage, sums the parts in rank order, then runs every
+        rank's second stage."""
+        xs = _SplitEnter.apply(x, self.group, n)
+        if self.group is None:
+            common = shared(p[0], xs).float()
+            mids = [first(q, xs, common) for q in p]
+            total = _sum_in_order([s for _, s in mids])
+            y = _sum_in_order([second(q, c, total)
+                               for q, (c, _) in zip(p, mids)])
+        else:
+            c, s = first(p, xs, _SharedEnter.apply(shared(p, xs),
+                                                   self.group))
+            y = _ModelSum.apply(second(p, c, _StatSum.apply(s, self.group)),
+                                self.group)
+        return y.to(x.dtype)
+
 
 #: the leaves of a split sublayer that each ``model`` rank holds a block
-#: of and computes with: column blocks of the first three, row blocks of
-#: ``wo``
+#: of and computes with: row blocks of ``wo``, head blocks of the 1-D
+#: leaves, column blocks of the rest
 SPLIT_LEAVES = {"attn": ("wq", "wk", "wv", "wo"),
+                "mamba": ("wz", "wx", "wdt", "dt_bias", "a_log", "D", "wo"),
                 "mlp": ("wi_gate", "wi_up", "wo")}
+
+
+def _split_dim(name: str, spec: tuple) -> int:
+    """The dim of a ``SPLIT_LEAVES`` leaf that the ``model`` ranks
+    split."""
+    return 0 if name == "wo" or len(spec) == 1 else 1
+
+
+def _counts(cfg) -> dict:
+    """What each splittable sublayer's split must divide: the heads, the
+    KV heads, d_ff, the mixer's SSD heads."""
+    _, nheads = ssm_lib.ssm_dims(cfg.d_model, cfg.ssm_expand,
+                                 cfg.ssm_head_dim)
+    return {"attn": (cfg.num_heads, cfg.num_kv_heads), "mamba": (nheads,),
+            "mlp": (cfg.d_ff,)}
 
 
 def without_model(spec: tuple) -> tuple:
@@ -255,16 +363,19 @@ def split_sublayers(cfg, specs: Params, m: int) -> tuple:
     """Which sublayers of one layer (``specs``: its spec tree) compute
     split over ``model`` of size ``m``: attention where the specs put
     the columns of wq/wk/wv and the rows of wo over ``model`` and H and
-    Hkv divide by m; the dense MLP where they put wi_gate/wi_up's
-    columns and wo's rows there and d_ff divides by m. None at m = 1."""
+    Hkv divide by m; the Mamba-2 mixer where they put wz/wx/wdt's
+    columns, wo's rows and dt_bias/a_log/D there and its heads divide by
+    m; the dense MLP where they put wi_gate/wi_up's columns and wo's
+    rows there and d_ff divides by m. None at m = 1."""
     if m == 1:
         return ()
-    counts = {"attn": (cfg.num_heads, cfg.num_kv_heads), "mlp": (cfg.d_ff,)}
+    counts = _counts(cfg)
     out = []
     for name, leaves in SPLIT_LEAVES.items():
         if name not in specs or any(n % m for n in counts[name]):
             continue
-        dims = [specs[name][k][0 if k == "wo" else 1] for k in leaves]
+        dims = [specs[name][k][_split_dim(k, specs[name][k])]
+                for k in leaves]
         if all(mesh_lib.TP in sharding.entry_axes(e) for e in dims):
             out.append(name)
     return tuple(out)
@@ -352,6 +463,24 @@ def vocab_in_turn(cfg, table: torch.Tensor, m: int):
     return [table[lo:hi] for lo, hi in ranges], VocabSplit(None, ranges)
 
 
+def mixer_channels(cfg, p: Params, r: int, m: int) -> Params:
+    """A split mixer's tree ``p`` with rank ``r``'s channels (of ``m``)
+    of ``conv_w``, ``conv_b`` and ``norm``: its d_inner/m x-channels,
+    then the 2N B/C channels for the first two; its x-channels for the
+    norm. ``conv_w``'s stored block (channels over ``model``) does not
+    follow the heads, so these leaves arrive whole; the slices' gradients
+    land in the whole leaf, and the sum over ``model`` makes it whole."""
+    d_inner, _ = ssm_lib.ssm_dims(cfg.d_model, cfg.ssm_expand,
+                                  cfg.ssm_head_dim)
+    lo, hi = r * d_inner // m, (r + 1) * d_inner // m
+
+    def conv(t):
+        return torch.cat([t[..., lo:hi], t[..., d_inner:]], -1)
+
+    return {**p, "conv_w": conv(p["conv_w"]), "conv_b": conv(p["conv_b"]),
+            "norm": {"scale": p["norm"]["scale"][lo:hi]}}
+
+
 def split_in_turn(cfg, i: int, layer: Params, m: int):
     """(tree, ``ModelSplit``): layer ``i``'s weights ``layer`` (whole,
     in the compute dtype) as the ``m`` ``model`` ranks of a (1, m) mesh
@@ -359,9 +488,11 @@ def split_in_turn(cfg, i: int, layer: Params, m: int):
     tree, with the stand-in that computes every rank's share in turn in
     this process (``ModelSplit`` with no group): the split checked on
     one device. The blocks are views of ``layer``'s leaves, so their
-    gradients reach those leaves; the rest of a split attention
-    (``q_norm``, ``k_norm``) is one float32 copy that every rank reads,
-    as ``gather_layer`` gives it."""
+    gradients reach those leaves; the rest of a split sublayer
+    (``q_norm``, ``k_norm``; the mixer's ``wB``, ``wC``, ``conv_w``,
+    ``conv_b``, ``norm``) is one float32 copy that every rank reads (the
+    mixer's channels of it, ``mixer_channels``), as ``gather_layer``
+    gives it."""
     mesh = sharding.MeshShape((1, m), (mesh_lib.FSDP, mesh_lib.TP))
     specs = mesh_lib.param_specs(cfg, mesh)["layers"][i]
     subs = split_sublayers(cfg, specs, m)
@@ -373,6 +504,9 @@ def split_in_turn(cfg, i: int, layer: Params, m: int):
         tree[name] = [{**shared, **{
             k: sharding.block(layer[name][k], specs[name][k], mesh, (0, r))
             for k in SPLIT_LEAVES[name]}} for r in range(m)]
+        if name == "mamba":
+            tree[name] = [mixer_channels(cfg, q, r, m)
+                          for r, q in enumerate(tree[name])]
     return tree, ModelSplit(None, subs)
 
 
@@ -421,13 +555,14 @@ class Layout:
     named ``("data", "model")`` or ``("pod", "data", "model")``) and how
     its blocks move: ``specs`` is ``mesh.param_specs(cfg, mesh)``;
     ``moe_exchange`` the ``MoeExchange`` of a MoE model (else None).
-    ``tensor_parallel``: split attention and the dense MLP over
-    ``model`` where ``split_sublayers`` allows (``split`` records it, a
-    tuple of sublayer names per layer), and the vocabulary of ``embed``,
-    ``lm_head`` and the loss where ``vocab_splits`` does (``vocab``, this
-    rank's ``VocabSplit``, else None); off, every rank along ``model``
-    computes them whole, and the step is the one-process step's
-    arithmetic but for the order of the sums over the batch ranks."""
+    ``tensor_parallel``: split attention, the Mamba-2 mixer and the
+    dense MLP over ``model`` where ``split_sublayers`` allows (``split``
+    records it, a tuple of sublayer names per layer), and the vocabulary
+    of ``embed``, ``lm_head`` and the loss where ``vocab_splits`` does
+    (``vocab``, this rank's ``VocabSplit``, else None); off, every rank
+    along ``model`` computes them whole, and the step is the one-process
+    step's arithmetic but for the order of the sums over the batch
+    ranks."""
 
     def __init__(self, cfg, mesh, tensor_parallel: bool = False):
         mesh_lib.require_group(mesh.device_type, "a sharded layout")
@@ -448,11 +583,15 @@ class Layout:
         #: per layer, the sublayers it computes split over ``model``
         self.split = [split_sublayers(cfg, s, m)
                       for s in self.specs["layers"]]
+        #: the ``model`` ranks that split the compute (1: none do)
+        self.model_ranks = m
+        #: this rank's coordinate along ``model``
+        self.model_rank = dict(zip(self.sizes, self.coords)).get(
+            mesh_lib.TP, 0)
         #: the vocabulary's split over ``model``, None where it is whole
         self.vocab = None
         if vocab_splits(self.specs, m):
-            n = cfg.vocab_size // m
-            r = dict(zip(self.sizes, self.coords))[mesh_lib.TP]
+            n, r = cfg.vocab_size // m, self.model_rank
             self.vocab = VocabSplit(self.groups[mesh_lib.TP],
                                     [(r * n, (r + 1) * n)])
 
@@ -522,8 +661,10 @@ class Layout:
         this rank's E/m of them where the spec splits E. So are the
         ``SPLIT_LEAVES`` of the sublayers ``split[i]`` names: this
         rank's heads' columns of wq/wk/wv and rows of wo, its d_ff/m
-        columns of wi_gate/wi_up and rows of wo; the rest of a split
-        attention (``q_norm``, ``k_norm``) is gathered ``partial``."""
+        columns of wi_gate/wi_up and rows of wo, its heads' columns of
+        wz/wx/wdt, rows of wo and blocks of dt_bias/a_log/D; the rest of
+        a split sublayer is gathered ``partial``, a mixer's then cut to
+        this rank's channels (``mixer_channels``)."""
         cd = self.cfg.cdtype
         specs = self.specs["layers"][i]
         if "moe" in specs:
@@ -539,13 +680,16 @@ class Layout:
             specs = {**specs, name: sub}
         out = {}
         for k, v in p.items():
-            if k == "attn" and "attn" in self.split[i]:
+            if k in self.split[i]:
                 out[k] = {n: _map2(lambda t, s: self.gather(
-                    t, s, cd, partial=n not in SPLIT_LEAVES["attn"]),
+                    t, s, cd, partial=n not in SPLIT_LEAVES[k]),
                     w, specs[k][n]) for n, w in v.items()}
             else:
                 out[k] = _map2(lambda t, s: self.gather(t, s, cd), v,
                                specs[k])
+        if "mamba" in self.split[i]:
+            out["mamba"] = mixer_channels(self.cfg, out["mamba"],
+                                          self.model_rank, self.model_ranks)
         return out
 
     def model_split(self, i: int) -> ModelSplit | None:

@@ -33,10 +33,11 @@ axes (``mesh.batch_specs``), and checkpoints are written whole and
 restored onto this mesh's blocks. A MoE model routes each microbatch
 whole across the batch ranks and computes each expert on the ``model``
 ranks that hold it. ``tensor_parallel`` (``--tensor-parallel``) also
-splits attention heads, the dense MLP's columns and the vocabulary of
-the embedding, the output head and the loss over the ``model`` ranks
-(``fsdp.Layout``). ``--mesh DATA,MODEL`` under ``torchrun`` starts
-the group from torchrun's environment.
+splits attention heads, Mamba-2 mixer heads (the gated norm's
+statistic summed over the ranks), the dense MLP's columns and the
+vocabulary of the embedding, the output head and the loss over the
+``model`` ranks (``fsdp.Layout``). ``--mesh DATA,MODEL`` under
+``torchrun`` starts the group from torchrun's environment.
 """
 from __future__ import annotations
 
@@ -167,8 +168,9 @@ def main(argv=None):
                     "CPU); a MoE model routes over the whole microbatch "
                     "and splits its experts over MODEL")
     ap.add_argument("--tensor-parallel", action="store_true",
-                    help="with --mesh: split attention heads, the dense "
-                    "MLP's columns and the vocabulary over MODEL")
+                    help="with --mesh: split attention heads, Mamba-2 "
+                    "mixer heads, the dense MLP's columns and the "
+                    "vocabulary over MODEL")
     args = ap.parse_args(argv)
     mesh = None
     if args.mesh:

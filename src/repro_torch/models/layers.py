@@ -158,10 +158,18 @@ class _ColumnProduct(torch.autograd.Function):
     (``x32``: a float32 copy of compute-dtype values, cast back first),
     whose input gradient is float32 and not rounded (``_mm_f32``): over
     a block of ``w``'s columns, a partial sum that f adds over the
-    ranks. The weight's gradient is the one-process product's."""
+    ranks. The weight's gradient is the one-process product's.
+    ``dtype``: ``w`` is a float32 leaf whose gradient is a partial sum
+    over the ranks (the mixer's whole ``wB``/``wC``, gathered
+    ``partial``): the product runs on ``w`` cast to ``dtype``, the one
+    process's forward, and the weight's gradient is float32 and not
+    rounded either, so that the sum over the ranks rounds it once."""
 
     @staticmethod
-    def forward(ctx, x32, w):
+    def forward(ctx, x32, w, dtype=None):
+        ctx.partial = dtype is not None
+        if ctx.partial:
+            w = w.to(dtype)
         x = x32.to(w.dtype)
         ctx.save_for_backward(x, w)
         return x @ w
@@ -170,8 +178,10 @@ class _ColumnProduct(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         g2 = g.reshape(-1, g.shape[-1])
+        x2 = x.reshape(-1, x.shape[-1])
         dx = _mm_f32(g2, w.T)
-        return dx.view(*g.shape[:-1], -1), x.reshape(-1, x.shape[-1]).T @ g2
+        dw = _mm_f32(x2.T, g2) if ctx.partial else x2.T @ g2
+        return dx.view(*g.shape[:-1], -1), dw, None
 
 
 class _RowProduct(torch.autograd.Function):

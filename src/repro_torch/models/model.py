@@ -407,6 +407,28 @@ def attn_share(cfg: ModelConfig, spec: BlockSpec, p: Params, xs: tuple,
     return row_product(out.reshape(b, s, -1), p["wo"])
 
 
+def mamba_split(cfg: ModelConfig, split, p, x: torch.Tensor
+                ) -> torch.Tensor:
+    """``ssm.mamba2_forward`` of the normed input ``x`` split over the
+    ``model`` ranks (``split``, a ``fsdp.ModelSplit``; ``p`` the rank's
+    mixer tree, the stand-in's list of every rank's): B and C whole
+    (``ssm.mamba2_share_bc``), each rank's ``mamba2_share_in`` on them,
+    its float32 sums of squares summed over the ranks, then its
+    ``mamba2_share_out``, the partial outputs summed in float32 and
+    rounded once. The input enters through f as five copies, one for
+    each of the z, x, B, C and dt products."""
+    d_inner, _ = ssm_lib.ssm_dims(cfg.d_model, cfg.ssm_expand,
+                                  cfg.ssm_head_dim)
+    return split.run_staged(
+        lambda q, xs: ssm_lib.mamba2_share_bc(q, xs, state=cfg.ssm_state),
+        lambda q, xs, bc: ssm_lib.mamba2_share_in(
+            q, xs, bc, state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
+            chunk=cfg.ssm_chunk),
+        lambda q, gated, sumsq: ssm_lib.mamba2_share_out(
+            q, gated, sumsq, d_inner, cfg.norm_eps),
+        p, x, 5)
+
+
 def _ssm_kw(cfg: ModelConfig) -> dict:
     return dict(state=cfg.ssm_state, conv=cfg.ssm_conv,
                 expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
@@ -447,13 +469,18 @@ def _apply_block_with_cache(cfg: ModelConfig, spec: BlockSpec, p: Params,
                             exchange=None, split=None):
     """(h, MoE aux or None, the layer's decode cache). ``split``: the
     layer's ``fsdp.ModelSplit`` on a mesh whose ``model`` ranks split
-    its attention (``attn_share``; no cache) or its dense MLP; the
-    post-norms and the residual adds run on the summed outputs."""
+    its attention (``attn_share``), its Mamba-2 mixer (``mamba_split``:
+    two stages around the sum of the gated norm's statistic over the
+    ranks) or its dense MLP; a split sublayer keeps no cache (training
+    only). The post-norms and the
+    residual adds run on the summed outputs."""
     x = rmsnorm(p["ln_mixer"], h, cfg.norm_eps)
     if split is not None and "attn" in split.sublayers:
         out = split.run(lambda q, xs: attn_share(cfg, spec, q, xs,
                                                  positions), p["attn"], x, 3)
         cache = None
+    elif split is not None and "mamba" in split.sublayers:
+        out, cache = mamba_split(cfg, split, p["mamba"], x), None
     elif spec.mixer.startswith("attn"):
         out, cache = _attn_block(cfg, spec, p["attn"], x, positions)
     else:
@@ -475,8 +502,12 @@ def _scaled(cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 def _embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                   vocab=None):
     """(B, S, d) token rows in the compute dtype. Rows are gathered, then
-    cast: the same values as the JAX order (cast the table, then gather)
-    at a fraction of the traffic. ``vocab``: a sharded run's
+    cast: the forward's values are those of the JAX order (cast the
+    table, then gather) at a fraction of the traffic, but not the
+    backward's: the table's gradient here sums each row's output
+    gradients in float32, where the reference's bf16 scatter rounds as
+    it sums (``tests/test_torch_vocab.py`` holds the two apart; the
+    port's is the closer to the float32 sum). ``vocab``: a sharded run's
     ``fsdp.VocabSplit``, ``params["embed"]`` this rank's rows (the
     stand-in's: a list of every rank's): each block gives the rows of
     the tokens in its range, cast, and zeros elsewhere, summed over the

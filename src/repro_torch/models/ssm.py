@@ -13,6 +13,12 @@ softplus, the conv's accumulation, the whole chunked scan, the ``D * x``
 skip and the SSM state in the cache; the compute dtype elsewhere,
 the conv tail in the cache included. The projections stay separate (z,
 x, B, C, dt), as in the reference.
+
+Split over the ``model`` ranks in sharded training
+(``launch/fsdp.py``), a rank computes its heads: ``mamba2_share_bc``
+(B and C, whole), ``mamba2_share_in`` (up to the gated norm's sum of
+squares) and ``mamba2_share_out`` (the norm with the statistic summed
+over the ranks, and the rank's rows of the out-projection).
 """
 from __future__ import annotations
 
@@ -21,7 +27,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, rmsnorm, rmsnorm_init
+from repro_torch.models.layers import (column_product, dense_init, rmsnorm,
+                                       rmsnorm_init, row_product)
 
 Params = dict[str, Any]
 
@@ -159,6 +166,75 @@ def mamba2_forward(params: Params, x: torch.Tensor, *, state: int,
         return out, {"conv": xbc_raw[:, -(conv - 1):, :].clone(),
                      "ssm": final_state}
     return out
+
+
+def mamba2_share_bc(params: Params, xs: tuple, *, state: int
+                    ) -> torch.Tensor:
+    """B and C of a mixer split over the ``model`` ranks
+    (``launch/fsdp.py``), which depend on no head: (B, L, 2N) in the
+    compute dtype, after the conv and the silu, computed whole from the
+    whole wB/wC (float32 leaves, cast to the compute dtype first: the one
+    process's products) and the B/C channels of conv_w/conv_b. ``xs``:
+    ``mamba2_share_in``'s. Every rank reads all of it on its heads, so
+    it enters them through ``ModelSplit.run_staged``'s f of a shared
+    tensor: their gradients are summed over the ranks in float32 and
+    rounded once, as the one process rounds its own."""
+    cd = params["wx"].dtype
+    bm = column_product(xs[2], params["wB"], cd)
+    cm = column_product(xs[3], params["wC"], cd)
+    n = 2 * state
+    return F.silu(_causal_conv(torch.cat([bm, cm], dim=-1),
+                               params["conv_w"][:, -n:],
+                               params["conv_b"][-n:]))
+
+
+def mamba2_share_in(params: Params, xs: tuple, bc: torch.Tensor, *,
+                    state: int, head_dim: int, chunk: int):
+    """The first stage of one ``model`` rank's share of
+    ``mamba2_forward`` split over the ranks (``launch/fsdp.py``):
+    ``params`` holds its column blocks of wz/wx/wdt (H/m heads), its
+    blocks of dt_bias/a_log/D, its channels of conv_w/conv_b/norm (its
+    d_inner/m x-channels, then the 2N B/C channels) and the whole wB/wC
+    as float32 partial leaves. ``xs``: the input in float32, one copy
+    for each of the z, x, B, C and dt products (f's outputs,
+    ``_in_proj``'s order); ``bc``: ``mamba2_share_bc``'s B and C, as
+    float32. The z, x and dt products on the rank's columns, the conv on
+    its x-channels (depthwise: each channel's values are the whole
+    conv's), the scan, the D skip and the gate on its heads. Returns
+    (the gated ``y * silu(z)`` on the rank's channels, cast to float32
+    once, as ``rmsnorm`` casts it, so that the gradients of its two uses
+    add in float32 before one rounding; its sum of squares over them,
+    (B, L, 1)): the gated RMSNorm's statistic, which the ranks sum
+    before any of them can normalise."""
+    bsz, length, _ = xs[0].shape
+    z = column_product(xs[0], params["wz"])
+    xr = column_product(xs[1], params["wx"])
+    dt = F.softplus(column_product(xs[4], params["wdt"]).float()
+                    + params["dt_bias"].float())
+    n = 2 * state
+    xc = F.silu(_causal_conv(xr, params["conv_w"][:, :-n],
+                             params["conv_b"][:-n]))
+    xh = xc.reshape(bsz, length, -1, head_dim)
+    y, _ = ssd_chunked(xh, dt, params["a_log"], bc[..., :state],
+                       bc[..., state:], chunk=chunk)
+    y = y + params["D"].float()[None, None, :, None] * xh.float()
+    y = y.reshape(xr.shape).to(z.dtype)
+    gated = (y * F.silu(z)).float()
+    return gated, torch.sum(torch.square(gated), dim=-1, keepdim=True)
+
+
+def mamba2_share_out(params: Params, gated: torch.Tensor,
+                     sumsq: torch.Tensor, d_inner: int,
+                     norm_eps: float = 1e-6) -> torch.Tensor:
+    """The second stage: the gated RMSNorm of the rank's channels
+    (``gated``, float32) with ``sumsq``, the sum of squares over all
+    d_inner channels (summed over the ranks), as ``rmsnorm`` computes
+    it, rounded to the compute dtype, then the row product
+    (``row_product``) with the rank's rows of wo: (B, L, d_model)
+    float32, not rounded, a partial sum over the ranks that g adds."""
+    x = gated * torch.rsqrt(sumsq / d_inner + norm_eps)
+    x = x * (1.0 + params["norm"]["scale"].float())
+    return row_product(x.to(params["wo"].dtype), params["wo"])
 
 
 def mamba2_init_cache(batch: int, d_model: int, *, state: int, conv: int,

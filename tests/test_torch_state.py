@@ -341,11 +341,14 @@ def test_chip_smoke_tp_layer_path_rehearsal_on_cpu(monkeypatch):
     """chip_smoke.py's phase 17 at the smoke sizes of llama3-8b and
     gemma3-12b (window 8 over 16 positions, qk-norm, post-norms) with
     8/4 heads, so that its 4 ranks divide them, on the CPU's plain
-    attention route: the layer split four ways, each rank's share in
-    turn, agrees with the whole layer in float32 and bfloat16 within
-    TP_TOL on its output, its input gradient and every weight gradient,
-    and the kernel entry point is never called. At the published
-    configs the first layer splits too: 8/2 and 4/2 heads a rank. Then
+    attention route, and of jamba-v0.1-52b and mamba2-370m, whose first
+    layer is a Mamba-2 mixer (8 heads of 16, 2 a rank; jamba's with a
+    dense MLP): the layer split four ways, each rank's share in turn,
+    agrees with the whole layer in float32 and bfloat16 within TP_TOL on
+    its output, its input gradient and every weight gradient, and the
+    kernel entry point is never called. At the published configs the
+    first layer splits too: 8/2 and 4/2 heads a rank, 32 and 8 SSD heads
+    a rank. Then
     phase 17's vocabulary lines at the smoke sizes of llama3-8b (its own
     lm_head) and gemma2-9b (tied, final softcap 30): the lookup's rows
     equal the whole table's bit for bit, and the loss, its input
@@ -364,21 +367,34 @@ def test_chip_smoke_tp_layer_path_rehearsal_on_cpu(monkeypatch):
         full = get_config(arch)
         specs = mesh_lib.param_specs(full, MeshShape((1, m),
                                                      ("data", "model")))
-        assert fsdp.split_sublayers(full, specs["layers"][0], m) == (
-            "attn", "mlp")
+        want = chip_smoke.tp_sublayers(full.layer_spec(0))
+        assert want == {"jamba-v0.1-52b": ("mamba", "mlp"),
+                        "mamba2-370m": ("mamba",)}.get(arch, ("attn", "mlp"))
+        assert fsdp.split_sublayers(full, specs["layers"][0], m) == want
         counters = {"flash_attention": _CountCalls(monkeypatch, ops,
                                                    "flash_attention")}
         out = chip_smoke.tp_layer_path(
             torch.device("cpu"), arch, smoke=True, batch=2, seq=16,
             overrides={"num_heads": 8, "num_kv_heads": 4},
             counters=counters)
-        assert out["ranks"] == m and out["heads"] == [8, 4]
+        mixer = "mamba" if "mamba" in want else "attn"
+        assert out["ranks"] == m and out["mixer"].startswith(mixer)
+        assert out["heads"] == ([8, 4] if mixer == "attn" else None)
         assert out["qk_norm"] == (arch == "gemma3-12b")
+        if mixer == "mamba":
+            assert (out["d_inner"], out["ssm_heads"]) == (128, 8)
+        leaves = {"attn": {"attn/wq", "attn/wo"},
+                  "mamba": {"mamba/wz", "mamba/wx", "mamba/wB", "mamba/wC",
+                            "mamba/wdt", "mamba/conv_w", "mamba/conv_b",
+                            "mamba/dt_bias", "mamba/a_log", "mamba/D",
+                            "mamba/norm/scale", "mamba/wo"}}[mixer]
+        if "mlp" in want:
+            leaves |= {"mlp/wi_gate", "mlp/wo"}
         for dtype, tol in chip_smoke.TP_TOL.items():
             rec = out[dtype]
             assert rec["finite"] and rec["worst"] <= tol
-            assert {"out", "x", "attn/wq", "attn/wo", "mlp/wi_gate",
-                    "mlp/wo", "ln_mixer/scale"} <= set(rec["max_rel_err"])
+            assert {"out", "x", "ln_mixer/scale"} | leaves \
+                <= set(rec["max_rel_err"])
             assert ("attn/q_norm/scale" in rec["max_rel_err"]) \
                 == (arch == "gemma3-12b")
             assert rec["launches_split"] == rec["launches_whole"] == {

@@ -31,7 +31,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_smoke_config as jax_smoke
 from repro.models import layers as jax_layers
+from repro.models import model as jax_model
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.launch import fsdp
 from repro_torch.launch import mesh as mesh_lib
@@ -166,3 +168,50 @@ def test_vocab_that_m_does_not_divide_stays_whole(m):
     for c in (cfg, get_config("granite-moe-1b-a400m")):
         assert not fsdp.vocab_splits(mesh_lib.param_specs(c, mesh), m)
     assert fsdp.vocab_splits(mesh_lib.param_specs(_cfg(), mesh), m)
+
+
+# the bfloat16 table gradient of a lookup whose 128 tokens repeat each
+# of 8 rows 16 times: the reference casts the table, then takes the rows
+# (``repro/models/model.py``'s ``_embed_inputs``), so its gradient sums
+# each row's 16 bf16 output gradients in bfloat16; the port takes the
+# rows, then casts, so it sums them in float32. Each gradient's largest
+# difference over the other's largest |value| (measured: the port
+# against the float32 sum 0, the reference against the port 9.55e-3,
+# a few bf16 steps of a row's sum)
+EMBED_GRAD_TOL = {"float32 sum": 1e-6, "jax": 2e-2}
+
+
+def test_bf16_table_gradient_sums_in_float32():
+    """The port's bf16 lookup gives the table the float32 sum of each
+    row's gradients (``EMBED_GRAD_TOL``), where the reference's bf16
+    scatter rounds as it sums; both agree with the other within a bf16
+    step, and the port is the closer to the float32 sum."""
+    cfg = _cfg("bfloat16")
+    rng = np.random.default_rng(3)
+    table = rng.normal(0.0, 0.5, (cfg.vocab_size, cfg.d_model)).astype(
+        np.float32)
+    tokens = np.repeat(np.arange(8), 16).reshape(2, 64)
+    rng.shuffle(tokens.reshape(-1))
+    dy = rng.normal(0.0, 1.0, tokens.shape + (cfg.d_model,)).astype(
+        np.float32)
+    dy = np.array(jnp.asarray(dy, jnp.bfloat16).astype(jnp.float32))
+
+    t = torch.from_numpy(table).requires_grad_()
+    h, _ = model._embed_inputs(cfg, {"embed": t},
+                               {"tokens": torch.from_numpy(tokens)})
+    assert h.dtype == torch.bfloat16
+    got = torch.autograd.grad(h, t, torch.from_numpy(dy).to(h.dtype))[0]
+
+    jcfg = dataclasses.replace(jax_smoke(ARCH), compute_dtype="bfloat16")
+    _, vjp = jax.vjp(lambda e: jax_model._embed_inputs(
+        jcfg, {"embed": e}, {"tokens": jnp.asarray(tokens)})[0],
+        jnp.asarray(table))
+    jgot, = vjp(jnp.asarray(dy, jnp.bfloat16))
+
+    want = np.zeros_like(table)
+    np.add.at(want, tokens.reshape(-1), dy.reshape(-1, cfg.d_model))
+    want = torch.from_numpy(want)
+    jgot = torch.from_numpy(np.array(jgot, np.float32))
+    assert _rel(got, want) <= EMBED_GRAD_TOL["float32 sum"]
+    assert _rel(jgot, got) <= EMBED_GRAD_TOL["jax"]
+    assert _rel(got, want) < _rel(jgot, want)
