@@ -8,7 +8,7 @@ Phases, each printed as it runs:
 1. environment: torch/CUDA versions, the card, the kernels' build time
    (every ``csrc/*.cu`` is compiled by nvcc at first use), and the
    attention kernels' registers and spills from ptxas (the bf16 forward
-   must not spill);
+   must not spill, nor the bf16 backward at head_dim 256);
 2. each CUDA kernel against its plain PyTorch version on the card, on
    seeded edge-shape inputs (ragged sizes, duplicate join keys, invalid
    rows; the join's hash table at its worst: every build key equal, no
@@ -217,7 +217,12 @@ Phases, each printed as it runs:
    backward launched once a rank on its heads, counted (none on a mixer
    layer); one rank's share, forward and backward, timed beside the
    whole layer, under the card's name and power limit; then the flash
-   kernels at that per-rank shape beside their plain versions.
+   kernels at that per-rank shape beside their plain versions. Then the
+   flash backward at gemma2-9b's training shape (one 4 x 2048
+   microbatch of 16/8 heads of 256, causal, softcap 50) on seeded
+   inputs, beside its plain version and compiled ``flex_attention``'s
+   autograd; logged only (no path trains gemma2-9b on the card, so it
+   has no launches of its own and stays out of the kernels line).
 
 Phase 3's ``query`` lines also give each query's peak device memory and
 the join kernel's hash-table scratch (``join_table_mib``); phase 6's
@@ -242,8 +247,8 @@ Which templates the flash backward (and the forward with L) ran at each
 training shape is read last, by ``torch.profiler`` in a process of its
 own for each shape (``python3 chip_smoke.py --templates <inputs.pt>``,
 on the layer inputs the training run gave the kernels, the libraries
-already built): in bf16 at head_dim 64, 80 and 128 they must be the
-tensor-core pair.
+already built): in bf16 they must be the tensor-core pair, at every
+head_dim.
 
 Then one JSON line with the seven kernels' numbers (the six ports of
 the Pallas kernels and the flash backward) and the rows of the same
@@ -460,6 +465,11 @@ TP_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # the table's gradient and the lookup's table gradient held to TP_TOL,
 # the lookup's rows equal bit for bit
 TP_VOCAB_ARCHS = ("llama3-8b", "gemma2-9b")
+# the flash backward at gemma2-9b's training shape, on seeded inputs: one
+# 4 x 2048 microbatch of its 16/8 heads of 256, causal (its window of
+# 4096 cuts nothing at 2048), softcap 50, scale 256^-1/2: (B, Hq, S, D),
+# g, softcap
+GEMMA2_BWD = ((4, 16, 2048, 256), 2, 50.0)
 TP_VOCAB_UNLABELED = 8
 # result positions (DistributeResult order) that are sums, averages or
 # divisions: compared to SUM_RTOL between routes, all else exactly
@@ -774,6 +784,15 @@ FLASH_EDGES = [
     # 128-row tile of the tensor-core tiling, and the FP32-core kernel
     (True, None, None, 5, 300, 300, 128, "bfloat16"),
     (True, None, None, 5, 200, 200, 128, "float32"),
+    # the backward's tensor-core tiling at head_dim 256 (gemma2-9b,
+    # gemma3-12b): 32-key tiles for dQ, 64 keys a CTA for dK, dV, the
+    # warpgroups splitting the columns. Sq, Sk no multiple of 32, softcap
+    # 50 on the masked diagonal tiles; Sq < Sk with g = 1; a window across
+    # key tiles; rows with no live key
+    (True, None, 50.0, 2, 1000, 1000, 256, "bfloat16"),
+    (True, None, None, 1, 100, 300, 256, "bfloat16"),
+    (True, 100, None, 2, 700, 700, 256, "bfloat16"),
+    (False, 8, 30.0, 2, 333, 200, 256, "bfloat16"),
 ]
 DECODE_EDGES = [
     # heads, g, smax, d, window, softcap; each in bf16 and float32. Six
@@ -2946,6 +2965,29 @@ def train_kernel_timing(call, launches: dict, edge_errs: dict,
     return bwd, fwd_rec
 
 
+def gemma2_bwd_row(dev, edge_errs: dict,
+                   templates: "TemplateCheck") -> dict:
+    """The flash backward (and the forward with L) at ``GEMMA2_BWD``
+    through ``train_kernel_timing``, on seeded q, k, v and the forward
+    kernel's O and L. No path trains gemma2-9b on one card: the record
+    has 0 launches and is logged, not put in the kernels line. Returns
+    the backward record."""
+    import torch
+    from repro_torch.kernels import flash_attention
+    (b, hq, s, d), g, cap = GEMMA2_BWD
+    q = normal((b, hq, s, d), SEED + 160, dev, torch.bfloat16)
+    k, v = (normal((b, hq // g, s, d), SEED + 161 + i, dev, torch.bfloat16)
+            for i in range(2))
+    kw = dict(g=g, causal=True, window=None, softcap=cap, scale=d ** -0.5)
+    o, lse = flash_attention.flash_attention_bhsd(q, k, v, return_lse=True,
+                                                  **kw)
+    bwd, _ = train_kernel_timing(
+        (q, k, v, o, lse, kw), {"flash_attention": 0,
+                                "flash_attention_bwd": 0},
+        edge_errs, templates, where="gemma2-9b training shape, seeded")
+    return bwd
+
+
 class TemplateCheck:
     """Which kernel templates the flash backward and the forward with L
     ran at each training shape, read by ``torch.profiler`` in a process
@@ -2953,8 +2995,8 @@ class TemplateCheck:
     session in one process returned no CUDA event on the H100 machine),
     all started together at the end, on the layer inputs the training
     run gave the kernels. Each backward record gets the templates it ran
-    with their ptxas registers and spills; in bf16 at head_dim 64, 80 or
-    128 they must be the tensor-core pair (``bwd_kernels``)."""
+    with their ptxas registers and spills; in bf16 they must be the
+    tensor-core pair (``bwd_kernels``)."""
 
     def __init__(self):
         self.tmp = tempfile.TemporaryDirectory()
@@ -4303,6 +4345,12 @@ def main() -> int:
     # phase 15's gemma layers run the head_dim 256 template
     require("flash_fwd_tc<256,256>" in ptx,
             f"no bf16 head_dim 256 forward in the ptxas report: {list(ptx)}")
+    # and their training the head_dim 256 tensor-core backward, unspilled
+    bwd256 = {n: ptx.get(n) for n in ("bwd_dq_tc<256,256>",
+                                      "bwd_dkdv_tc<256,256>")}
+    require(all(v is not None and not any(v["spill_bytes"])
+                for v in bwd256.values()),
+            f"the bf16 head_dim 256 backward is missing or spills: {bwd256}")
 
     wrappers = {"block_join_probe": hash_join.block_join_probe,
                 "segmented_aggregate": seg_aggregate.segmented_aggregate,
@@ -4512,6 +4560,10 @@ def main() -> int:
         tp_vocab_path(dev, arch, card=smi)
         release(dev)
     log(f"tp path ok ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    gemma2_bwd_row(dev, edge_errs, templates)
+    release(dev)
+    log(f"gemma2 backward row ok ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
     templates.run()

@@ -36,10 +36,10 @@ _BWD_ROWS = 128
 
 def bwd_kernels(dtype: torch.dtype, head_dim: int) -> tuple[str, str]:
     """The two kernels of ``csrc/flash_attention_bwd.cu`` that a backward
-    of this dtype and head_dim launches: bf16 at head_dim 64, 80 and 128
-    on the tensor cores, float32 (every head_dim) and bf16 at 256 on the
-    FP32 cores. Mirrors the C entry's dispatch."""
-    if dtype == torch.bfloat16 and head_dim != 256:
+    of this dtype and head_dim launches: bf16 at every head_dim (64, 80,
+    128, 256) on the tensor cores, float32 at every head_dim on the FP32
+    cores. Mirrors the C entry's dispatch."""
+    if dtype == torch.bfloat16:
         return ("bwd_dq_tc", "bwd_dkdv_tc")
     return ("bwd_dq", "bwd_dkdv")
 

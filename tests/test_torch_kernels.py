@@ -543,14 +543,15 @@ def test_flash_head_dim_80_admitted_with_its_own_scale():
     (torch.bfloat16, 64, ("bwd_dq_tc", "bwd_dkdv_tc")),
     (torch.bfloat16, 80, ("bwd_dq_tc", "bwd_dkdv_tc")),
     (torch.bfloat16, 128, ("bwd_dq_tc", "bwd_dkdv_tc")),
-    (torch.bfloat16, 256, ("bwd_dq", "bwd_dkdv")),
+    (torch.bfloat16, 256, ("bwd_dq_tc", "bwd_dkdv_tc")),
     (torch.float32, 64, ("bwd_dq", "bwd_dkdv")),
     (torch.float32, 128, ("bwd_dq", "bwd_dkdv")),
+    (torch.float32, 256, ("bwd_dq", "bwd_dkdv")),
 ])
 def test_flash_bwd_kernels_by_dtype_and_head_dim(dtype, d, want):
-    """Which two kernels a backward launches: bf16 at head_dim 64, 80 and
-    128 on the tensor cores, float32 and bf16 at 256 on the FP32 cores;
-    each name a ``__global__`` function of the source."""
+    """Which two kernels a backward launches: bf16 at every head_dim on
+    the tensor cores, float32 at every head_dim on the FP32 cores; each
+    name a ``__global__`` function of the source."""
     got = flash_attention.bwd_kernels(dtype, d)
     assert got == want
     src = (Path(flash_attention.__file__).with_name("csrc")
@@ -788,6 +789,12 @@ FLASH_BWD_CUDA_CASES = [
     (False, 16, None, 4, 300, 130, 128),          # rows with no live key
     (True, None, None, 1, 200, 200, 80),
     (False, 8, 30.0, 1, 333, 200, 80),
+    # head_dim 256: 32-key tiles for dQ, 64 keys a CTA for dK, dV with the
+    # warpgroups splitting the columns
+    (True, None, 50.0, 2, 1000, 1000, 256),      # no tile multiple, softcap
+    (True, None, None, 1, 100, 300, 256),         # Sq < Sk, g = 1
+    (True, 100, None, 2, 700, 700, 256),          # window across key tiles
+    (False, 8, 30.0, 2, 333, 200, 256),           # rows with no live key
 ]
 
 

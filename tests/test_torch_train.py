@@ -476,12 +476,12 @@ BWD_CASES = [
 ]
 
 
-def bwd_inputs(g, sq, sk, seed):
+def bwd_inputs(g, sq, sk, seed, d=16):
     rng = np.random.default_rng(seed)
-    return (rng.normal(size=(2 * g, sq, 16)).astype(np.float32),
-            rng.normal(size=(2, sk, 16)).astype(np.float32),
-            rng.normal(size=(2, sk, 16)).astype(np.float32),
-            rng.normal(size=(2 * g, sq, 16)).astype(np.float32))
+    return (rng.normal(size=(2 * g, sq, d)).astype(np.float32),
+            rng.normal(size=(2, sk, d)).astype(np.float32),
+            rng.normal(size=(2, sk, d)).astype(np.float32),
+            rng.normal(size=(2 * g, sq, d)).astype(np.float32))
 
 
 def jax_vjp(fn, q, k, v, do):
@@ -529,6 +529,25 @@ def test_flash_bwd_matches_jax_vjp(causal, window, softcap, g, sq, sk):
                                if every_row_live else ())
     for a, w in pairs:
         np.testing.assert_allclose(N(a), w, atol=ATT_TOL, rtol=ATT_TOL)
+
+
+@pytest.mark.parametrize("causal,window,softcap", [
+    (True, None, 50.0),                   # gemma2-9b's kind
+    (True, 16, None),                     # gemma3-12b's local layers
+])
+def test_flash_bwd_matches_jax_vjp_head_dim_256(causal, window, softcap):
+    """``ref.flash_attention_bwd``, the card's parity target for the
+    tensor-core backward at head_dim 256, against jax.vjp of the JAX
+    package's oracle at that width and its default scale 256^-1/2, g = 2,
+    48 positions (the window of 16 cuts them)."""
+    q, k, v, do = bwd_inputs(2, 48, 48, seed=256 + (window or 0), d=256)
+    kw = dict(g=2, causal=causal, window=window, softcap=softcap)
+    got = plain_bwd(q, k, v, do, **kw)
+    for a, w in zip(got, jax_vjp(
+            lambda a, b, c: jax_ref.flash_attention(a, b, c, **kw),
+            *map(jnp.asarray, (q, k, v, do)))):
+        np.testing.assert_allclose(N(a), np.asarray(w), atol=ATT_TOL,
+                                   rtol=ATT_TOL)
 
 
 @pytest.mark.parametrize("causal,window,softcap,g,sq,sk", BWD_CASES)
