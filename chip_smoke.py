@@ -223,6 +223,25 @@ Phases, each printed as it runs:
    inputs, beside its plain version and compiled ``flex_attention``'s
    autograd; logged only (no path trains gemma2-9b on the card, so it
    has no launches of its own and stays out of the kernels line).
+18. the serve over a (1, 4) ``("data", "model")`` mesh
+   (``launch/fsdp.ServeLayout``), every ``model`` rank's share computed
+   in turn on the one card (``fsdp.decode_in_turn``): one decode step of
+   the first layer of llama3-8b (phase 5's traffic, 2080 slots in four
+   slices of 520), gemma2-9b (its local layer, window 4096 and softcap 50
+   over 4 prompts of 3072-6144 tokens: four slices of 1544 slots, the
+   window spanning three) and llama4-scout-17b-a16e (its MoE layer: 4 of
+   the 16 experts a rank, the shared expert whole, the routes replayed)
+   at published width, seeded weights and caches, in float32 and bf16:
+   the heads' q, k, v gathered, the new token written by the rank whose
+   slice holds its slot, the decode kernel's partial mode on each slice
+   (4 launches; the whole step launches the decode kernel once), the
+   rows' partials combined, each rank's rows of wo, against the whole
+   layer's step (SERVE_SPLIT_TOL; cache slots not written equal bit for
+   bit); then each layer's prefill split by heads, its caches relaid to
+   each rank's slots (the all-to-all's pieces) bit for bit, and the greedy
+   argmax over the vocabulary split four ways against ``torch.argmax``;
+   and the partial mode at llama3-8b's and gemma2-9b's slice shapes beside
+   its plain version and compiled ``flex_attention(..., return_lse=True)``.
 
 Phase 3's ``query`` lines also give each query's peak device memory and
 the join kernel's hash-table scratch (``join_table_mib``); phase 6's
@@ -239,9 +258,9 @@ prefill ms, decode ms/token, tok/s, peak MiB and launches a serve; the
 routes' differences), phase 16 the ``moe-wide`` lines (the same, the
 peak after init, and the ``moe float64`` lines), phase 17 the ``tp
 layer`` lines (each tensor's largest difference over its largest
-|value|, the launches, ms). Phases run in the order 1–4, 6, 7, 8, 5, 9,
-10, 11, 12, 13, 14, 15, 16, 17: one database's tables, or one model,
-on the card at a time.
+|value|, the launches, ms), phase 18 the ``serve split`` lines. Phases
+run in the order 1–4, 6, 7, 8, 5, 9, 10, 11, 12, 13, 14, 15, 16, 17,
+18: one database's tables, or one model, on the card at a time.
 
 Which templates the flash backward (and the forward with L) ran at each
 training shape is read last, by ``torch.profiler`` in a process of its
@@ -253,7 +272,7 @@ head_dim.
 Then one JSON line with the seven kernels' numbers (the six ports of
 the Pallas kernels and the flash backward) and the rows of the same
 kernels at the other shapes the paths gave them (each record's
-``where``), the card's name and power limit, and the last line
+``where``), the decode kernel's partial mode among them, the card's name and power limit, and the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without
 that line, as does a machine without CUDA or a directory without the
 port's sources.
@@ -473,6 +492,26 @@ GEMMA2_BWD = ((4, 16, 2048, 256), 2, 50.0)
 TP_VOCAB_UNLABELED = 8
 # result positions (DistributeResult order) that are sums, averages or
 # divisions: compared to SUM_RTOL between routes, all else exactly
+# phase 18: the serve over a (1, 4) mesh, one layer's decode step with
+# every ``model`` rank's share computed in turn (``fsdp.decode_in_turn``):
+# (arch, requests, prompt length) of the cache, llama3-8b and llama4-scout
+# with phase 5's traffic, gemma2-9b's local layer (window 4096) with 4
+# prompts of 3072-6144 tokens, so that the window over four slices of 1544
+# slots spans three ranks
+SERVE_SPLIT_RANKS = 4
+SERVE_SPLIT_CASES = (("llama3-8b", LM_REQUESTS, LM_PROMPT),
+                     ("gemma2-9b", 4, 6144),
+                     ("llama4-scout-17b-a16e", LM_REQUESTS, LM_PROMPT))
+# the split step's output against the whole layer's, largest difference
+# over the largest |value|: the heads' products and the row product's
+# float32 partials re-associate sums, and the combine weighs four slices'
+# partials where the whole kernel merges its own splits; in bf16 each
+# path rounds its attention output and row product once, in other places.
+# Measured on the H100 (NVIDIA H100 80GB HBM3, 700.00 W): float32 5.71e-7,
+# 8.07e-7, 4.94e-7, bf16 5.95e-3, 8.20e-3, 5.15e-3 (llama3-8b, gemma2-9b,
+# llama4-scout); the limits are 12x and 3.7x the worst, the bf16 one
+# TP_TOL's
+SERVE_SPLIT_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 TOLERANT = {"Q3": {0}, "Q4": {0}, "Q7": {0}, "Q8": {0}, "Q9": {2},
             "Q10": {1}, "Q11": {2}, "Q12": {2}}
 
@@ -812,6 +851,35 @@ DECODE_EDGES = [
                                      # block of 8
     (16, 5, 2080, 128, None, None),  # llama4-scout: g = 5, three pad rows
 ]
+# the decode kernel's partial mode over one rank's slice of a cache split
+# by sequence (heads, g, slice slots, d, window, softcap), each in bf16 and
+# float32, on the shifted lengths of PARTIAL_LENS
+DECODE_PARTIAL_EDGES = [
+    (8, 2, 520, 128, None, None),     # qwen3-1.7b's and llama3's slices
+    (8, 4, 520, 128, None, None),
+    (8, 5, 520, 128, None, None),     # llama4-scout: g = 5
+    (8, 2, 1544, 256, 4096, 50.0),    # gemma2-9b's local layer
+    (8, 2, 1544, 256, None, 50.0),
+    (8, 4, 300, 64, 100, None),       # granite's D = 64, a short window
+    (8, 2, 20, 128, None, None),      # one split per head
+    (400, 2, 300, 128, None, None),   # more heads than resident CTAs
+]
+
+
+def partial_lens(smax: int, window) -> list:
+    """Shifted lengths, one a head, that the partial mode meets on a
+    slice of ``smax`` slots: no live slot (0 and below: the slice lies
+    past the live slots), 1, ragged, Smax, past Smax (the live slots run
+    on past the slice, every slot live, or with a window only its
+    tail), and where a window is on, windows that start in the slice
+    before (the slice holds their last slots) or end in the one after."""
+    out = [0, -37, 1, smax // 2 + 3, smax, smax + 7, 3 * smax]
+    if window:
+        out += [min(window, smax) // 2, smax + window // 2,
+                smax + window - 1, smax + window + 5]
+    return out
+
+
 AGG_EDGES = [
     # P, N, S, C, kind: uniform ids (some outside [0, S)); station-major
     # runs with N no multiple of 16 (the flag vectors) and runs across
@@ -856,6 +924,39 @@ def check_decode(q, k, v, kv_len, kw) -> float:
     again = decode_attention.decode_attention_bhgd(q, k, v, kv_len, **kw)
     require(torch.equal(again, got),
             "decode_attention differs from run to run")
+    return err
+
+
+def check_decode_partial(q, k, v, kv_len, kw) -> float:
+    """The partial mode's (o, lse) against its plain version: o within
+    ATT_TOL of the inputs' dtype, lse within LSE_TOL where it is finite
+    and -inf (with o = 0) exactly where no slot is live; the same bits
+    on a second launch."""
+    import torch
+    from repro_torch.kernels import decode_attention, ref
+    dt = str(q.dtype).split(".")[1]
+    o, lse = decode_attention.decode_attention_partial_bhgd(q, k, v, kv_len,
+                                                            **kw)
+    wo, wl = ref.decode_attention_partial(q, k, v, kv_len, **kw)
+    torch.cuda.synchronize()
+    require(o.dtype == torch.float32 and o.shape == q.shape
+            and lse.shape == q.shape[:-1],
+            f"decode_attention_partial: o {o.dtype} {tuple(o.shape)}, lse "
+            f"{tuple(lse.shape)}")
+    dead = torch.isinf(wl)
+    require(bool((torch.isinf(lse) == dead).all())
+            and bool((lse[dead] < 0).all())
+            and not bool(o[dead].any()),
+            "decode_attention_partial: a slice with no live slot did not "
+            "give o = 0, lse = -inf")
+    err = attn_err(o, wo, dt, "decode_attention_partial")
+    live = ~dead
+    if bool(live.any()):
+        check_lse(lse[live], wl[live], dt, "decode_attention_partial")
+    o2, lse2 = decode_attention.decode_attention_partial_bhgd(q, k, v,
+                                                              kv_len, **kw)
+    require(torch.equal(o2, o) and torch.equal(lse2, lse),
+            "decode_attention_partial differs from run to run")
     return err
 
 
@@ -952,6 +1053,18 @@ def attention_edge_checks(dev, errs: dict) -> None:
             e = check_decode(q, k, v, kv_len, dict(window=window,
                                                    softcap=cap))
             errs["decode_attention"] = max(errs["decode_attention"], e)
+    for i, (bh, g, smax, d, window, cap) in enumerate(DECODE_PARTIAL_EDGES):
+        lens = partial_lens(smax, window)
+        for dtype in (torch.bfloat16, torch.float32):
+            q = normal((bh, g, d), SEED + 160 + i, dev, dtype)
+            k = normal((bh, smax, d), SEED + 170 + i, dev, dtype)
+            v = normal((bh, smax, d), SEED + 180 + i, dev, dtype)
+            kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+            kv_len = kv_len.repeat(-(-bh // len(lens)))[:bh].contiguous()
+            e = check_decode_partial(q, k, v, kv_len, dict(window=window,
+                                                           softcap=cap))
+            errs["decode_attention_partial"] = max(
+                errs["decode_attention_partial"], e)
     for i, (p, n, s, share) in enumerate(SUM_COUNT_EDGES):
         g = _gen(SEED + 90 + i, dev)
         vals = torch.randint(-400, 400, (p, n), generator=g,
@@ -971,7 +1084,8 @@ def edge_checks(dev) -> dict[str, float]:
     errs = {"block_join_probe": 0.0, "segmented_aggregate": 0.0,
             "segment_topk": 0.0, "segmented_sum_count": 0.0,
             "flash_attention": 0.0, "flash_attention_bwd": 0.0,
-            "flash_attention_lse": 0.0, "decode_attention": 0.0}
+            "flash_attention_lse": 0.0, "decode_attention": 0.0,
+            "decode_attention_partial": 0.0}
     for i, (kind, p, nb, np_, nk) in enumerate(JOIN_EDGES):
         e = check_join(join_edge_inputs(kind, p, nb, np_, nk, SEED + i, dev))
         errs["block_join_probe"] = max(errs["block_join_probe"], e)
@@ -1703,13 +1817,15 @@ def agg_library(vals, ok, segs, valid, s):
 def kernel_record(name: str, launches: dict, err: float, run, plain, lib,
                   nbytes: float, flops: float, dtype: str, shape: dict,
                   where: str = "main-path shape",
-                  library: str | None = None) -> dict:
+                  library: str | None = None,
+                  kernel: str | None = None) -> dict:
     """Time one kernel beside its plain version and library call; the
     bound is the larger of bytes over the memory rate and operations
     over the peak rate of the input type. ``library``: the name of the
-    library call, where the record states it."""
+    library call, where the record states it; ``kernel``: the registry
+    entry whose mode ``name`` is (its source and Pallas kernel)."""
     from repro_torch.kernels.registry import KERNELS
-    entry = KERNELS[name]
+    entry = KERNELS[kernel or name]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     rec = {"name": name, "route": "cuda", "source": entry["source"],
@@ -2341,7 +2457,8 @@ def lm_kernel_timings(last: LastCall, launches: dict, edge_errs: dict,
 _FLEX: list = []
 
 
-def flex_call(q, k, v, mask_mod, batch, softcap, scale):
+def flex_call(q, k, v, mask_mod, batch, softcap, scale,
+              return_lse: bool = False):
     """One ``flex_attention`` call on (B, H, S, D) q, k, v: the block
     mask of ``mask_mod(b, h, q_idx, kv_idx)`` (made here, outside the
     call, as SDPA's boolean mask is), GQA by ``enable_gqa``, and where a
@@ -2362,12 +2479,16 @@ def flex_call(q, k, v, mask_mod, batch, softcap, scale):
     fa = flex_attention
     if q.is_cuda:
         if not _FLEX:
+            # each shape and mask of the script compiles once: more than
+            # dynamo's default limit of 8, past which flex runs eager
+            torch._dynamo.config.recompile_limit = 64
             _FLEX.append(torch.compile(flex_attention, dynamic=False))
         fa = _FLEX[0]
 
     def lib():
         return fa(q, k, v, score_mod=capped if cap else None,
-                  block_mask=bm, scale=scale, enable_gqa=True)
+                  block_mask=bm, scale=scale, enable_gqa=True,
+                  return_lse=return_lse)
     return lib
 
 
@@ -4231,6 +4352,285 @@ def _tp_vocab_check(dev, c, dtype: str, tables: dict, tokens, labels, cap,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the serve over a mesh, every rank in turn
+# ---------------------------------------------------------------------------
+
+class PartialCalls:
+    """Keeps the arguments of every ``ops.decode_attention_partial`` call
+    (each rank's slice, in turn) by standing in for it."""
+
+    def __init__(self, ops):
+        self.ops, self.calls = ops, []
+
+    def __enter__(self):
+        self.saved = self.ops.decode_attention_partial
+
+        def kept(*a, **k):
+            self.calls.append((a, k))
+            return self.saved(*a, **k)
+
+        self.ops.decode_attention_partial = kept
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.decode_attention_partial = self.saved
+
+
+def serve_split_path(dev, arch: str, *, smoke: bool = False,
+                     overrides: dict | None = None,
+                     requests: int = LM_REQUESTS, prompt_len: int = LM_PROMPT,
+                     gen_len: int = LM_GEN, counters: dict | None = None,
+                     capture=None) -> dict:
+    """Phase 18, one of SERVE_SPLIT_CASES: the first layer of ``arch`` at
+    published width (the smoke config with ``smoke``; ``overrides``: more
+    fields), seeded weights, a seeded cache of ``requests`` x
+    (``prompt_len`` + ``gen_len``) slots and the lengths of a serve's
+    first decode step (prompts of ``prompt_len`` // 2 to ``prompt_len``
+    tokens, drawn as ``serve_batch`` draws them), one decode step whole
+    (``model._attn_decode_block`` and the MLP) and split over
+    SERVE_SPLIT_RANKS ``model`` ranks as a serve over a (1, 4) mesh
+    splits it, each rank's share in turn (``fsdp.decode_in_turn``,
+    ``model.decode_block``: the heads' q, k, v gathered, the new token
+    written by the rank whose slice holds its slot, the decode kernel's
+    partial mode on each rank's slice, the partials combined, each rank's
+    rows of wo, the experts of a MoE layer by rank), in float32 and
+    bf16: the output and the caches against the whole layer's
+    (SERVE_SPLIT_TOL; slots not written equal bit for bit), the routes
+    of a MoE layer replayed (``RouteReplay``). On the card the whole step
+    launches the decode kernel once and the split one its partial mode
+    once a rank (``counters``: the wrappers by name, their ``launches``
+    reset here). Then, in bf16, the layer's prefill split by heads in
+    turn, its caches relaid to each rank's slots
+    (``fsdp.relayout_in_turn``, the all-to-all's pieces) against the
+    split prefill's whole cache bit for bit and against the whole
+    prefill's within SERVE_SPLIT_TOL; and the greedy argmax over the
+    vocabulary split four ways, with planted ties, against
+    ``torch.argmax``. ``capture``: a ``PartialCalls`` that keeps the
+    partial mode's calls of the bf16 step."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch import fsdp
+    from repro_torch.models import model
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    cfg = dataclasses.replace(
+        cfg, attn_impl="auto" if dev.type == "cuda" else "dense",
+        **(overrides or {}))
+    m = SERVE_SPLIT_RANKS
+    spec, layer32 = tp_layer_weights(cfg, dev)
+    lens = np.random.default_rng(SEED).integers(prompt_len // 2,
+                                                prompt_len + 1, requests)
+    kv_len = torch.as_tensor(lens + 1, dtype=torch.int32, device=dev)
+    smax = prompt_len + gen_len
+    counters = counters or {}
+    rec = {"arch": cfg.name, "ranks": m, "requests": requests,
+           "smax": smax, "kv_len": [int(x) for x in kv_len],
+           "heads": [cfg.num_heads, cfg.num_kv_heads],
+           "head_dim": cfg.head_dim, "window": cfg.window or None,
+           "mlp": spec.mlp}
+    t0 = time.perf_counter()
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, compute_dtype=dtype)
+        layer = model.tree_map(lambda t: t.detach().to(c.cdtype), layer32)
+        cache = {k: normal((requests, smax, c.num_kv_heads, c.head_dim),
+                           SEED + 3 + i, dev, c.cdtype)
+                 for i, k in enumerate(("k", "v"))}
+        h = normal((requests, 1, c.d_model), SEED + 5, dev, c.cdtype)
+        whole_cache = {k: v.clone() for k, v in cache.items()}
+        routes = RouteLog()
+        for w in counters.values():
+            w.launches = 0
+        with torch.no_grad(), routes:
+            x = model.rmsnorm(layer["ln_mixer"], h, c.norm_eps)
+            out, _ = model._attn_decode_block(c, spec, layer["attn"],
+                                              whole_cache, x, kv_len)
+            if c.use_post_norm:
+                out = model.rmsnorm(layer["post_ln_mixer"], out, c.norm_eps)
+            y0 = model._mlp_part(c, spec, layer, h + out)[0]
+        whole = {k: w.launches for k, w in counters.items()}
+        tree, split, caches, seq, exchange = fsdp.decode_in_turn(
+            c, 0, layer, cache, m)
+        for w in counters.values():
+            w.launches = 0
+        keep = capture if capture is not None and dtype == "bfloat16" \
+            else contextlib.nullcontext()
+        with torch.no_grad(), RouteReplay(routes.ids) if routes.ids \
+                else contextlib.nullcontext(), keep:
+            y1 = model.decode_block(c, spec, tree, caches, h, kv_len, split,
+                                    seq, exchange)
+        launches = {k: w.launches for k, w in counters.items()}
+        got = {k: torch.cat([cc[k] for cc in caches], 1) for k in cache}
+        slot = torch.zeros(requests, smax, dtype=torch.bool, device=dev)
+        slot[torch.arange(requests, device=dev), (kv_len - 1).long()] = True
+        errs = {"out": _rel(y1, y0)}
+        for k in cache:
+            errs[f"cache {k}, new slot"] = _rel(got[k][slot],
+                                                whole_cache[k][slot])
+            require(torch.equal(got[k][~slot], whole_cache[k][~slot]),
+                    f"{arch} split decode in {dtype}: the {k} cache changed "
+                    "outside the new token's slot")
+        card = dev.type == "cuda"
+        want = {k: int(card and k == "decode_attention") for k in counters}
+        want_split = {k: m * (card and k == "decode_attention_partial")
+                      for k in counters}
+        out = {"max_rel_err": errs, "worst": max(errs.values()),
+               "finite": bool(torch.isfinite(y1).all()),
+               "launches_whole": whole, "launches_split": launches,
+               "slices": [list(r) for r in seq.ranges]}
+        require(out["finite"] and out["worst"] <= SERVE_SPLIT_TOL[dtype],
+                f"{arch} split decode in {dtype} disagrees with the whole "
+                f"layer's: {out}")
+        require(whole == want and launches == want_split,
+                f"{arch} decode in {dtype}: the kernels launched {whole} "
+                f"whole and {launches} split, want {want} and {want_split}")
+        rec[dtype] = out
+        del layer, cache, whole_cache, tree, caches, got, y0, y1
+        release(dev)
+    rec["relayout"] = _relayout_check(dev, cfg, spec, layer32, prompt_len,
+                                      smax, m)
+    rec["argmax"] = _split_argmax_check(dev, cfg.vocab_size, m)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"serve split {arch} " + json.dumps(rec))
+    del layer32
+    release(dev)
+    return rec
+
+
+def _relayout_check(dev, cfg, spec, layer32, prompt_len: int, smax: int,
+                    m: int) -> dict:
+    """``serve_split_path``'s prefill check in bf16: 2 prompts of
+    ``prompt_len`` tokens through the layer split by heads over ``m``
+    ranks in turn, each rank's caches relaid to every rank's slots of a
+    cache of ``smax`` (``fsdp.relayout_in_turn``) against the split
+    prefill's cache (bit for bit) and against the whole layer's
+    (SERVE_SPLIT_TOL)."""
+    import torch
+    from repro_torch.launch import fsdp
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import model
+    from repro_torch.sharding import MeshShape
+    c = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    layer = model.tree_map(lambda t: t.detach().to(c.cdtype), layer32)
+    x = normal((2, prompt_len, c.d_model), SEED + 7, dev, c.cdtype)
+    positions = torch.arange(prompt_len, device=dev).expand(2, prompt_len)
+    tree, split = fsdp.split_in_turn(c, 0, layer, m)
+    exchange = None
+    if "moe" in tree:
+        tree["moe"], exchange = fsdp.moe_in_turn(tree["moe"], m)
+    log_ids = RouteLog()
+    with torch.no_grad(), log_ids:
+        _, _, whole = model._apply_block_with_cache(c, spec, layer, x,
+                                                    positions)
+    with torch.no_grad(), RouteReplay(log_ids.ids):
+        _, _, mine = model._apply_block_with_cache(
+            c, spec, tree, x, positions, exchange, split, split_cache=True)
+    kv = torch.stack([mine["k"], mine["v"]])
+    mesh = MeshShape((1, m), (mesh_lib.FSDP, mesh_lib.TP))
+    kv_spec = mesh_lib.cache_specs(c, mesh, model.init_cache(
+        c, 2, smax, "meta"))[0]["k"]
+    ranges = [mesh_lib.seq_range(kv_spec, mesh, (0, r), smax)
+              for r in range(m)]
+    got = fsdp.relayout_in_turn(list(kv.chunk(m, 3)), ranges, prompt_len)
+    for (lo, _), g in zip(ranges, got):
+        require(torch.equal(g, kv[:, :, lo:lo + g.shape[2]]),
+                f"{cfg.name}: the relaid slots {lo}.. differ from the split "
+                "prefill's cache")
+    require(sum(g.shape[2] for g in got) == prompt_len,
+            f"{cfg.name}: the relayout kept {[g.shape for g in got]}")
+    errs = {k: _rel(mine[k], whole[k]) for k in ("k", "v")}
+    require(max(errs.values()) <= SERVE_SPLIT_TOL["bfloat16"],
+            f"{cfg.name}: the split prefill's caches differ from the "
+            f"whole's: {errs}")
+    return {"slices": [list(r) for r in ranges],
+            "prompt_slots": [g.shape[2] for g in got],
+            "bit_for_bit": True, "split_vs_whole": errs}
+
+
+def _split_argmax_check(dev, vocab: int, m: int) -> dict:
+    """``layers.split_argmax`` over ``m`` vocabulary blocks against
+    ``torch.argmax`` of the whole, on seeded float32 logits of 8 rows
+    whose maxima are planted in one block, in two blocks (a tie across
+    ranks), twice in one block and at a block's edges."""
+    import torch
+    from repro_torch.launch import fsdp
+    from repro_torch.models import layers
+    x = normal((8, vocab), SEED + 9, dev, torch.float32)
+    n = vocab // m
+    top = float(x.max()) + 1.0
+    planted = [[3], [n - 1, n], [2 * n + 5, 2 * n + 9], [vocab - 1],
+               [0, vocab - 1], [n, 3 * n], [5, n + 5, 2 * n + 5, 3 * n + 5],
+               [n + 1]]
+    for row, cols in enumerate(planted):
+        x[row, cols] = top
+    ranges = [(r * n, (r + 1) * n) for r in range(m)]
+    got = layers.split_argmax([x[:, lo:hi] for lo, hi in ranges],
+                              fsdp.VocabSplit(None, ranges))
+    want = torch.argmax(x, dim=-1)
+    require(torch.equal(got.long(), want.long()),
+            f"split argmax {got.tolist()} against argmax {want.tolist()}")
+    return {"vocab": vocab, "blocks": m, "tokens": want.tolist()}
+
+
+def partial_record(calls: list, launches: dict, edge_errs: dict,
+                   where: str) -> dict:
+    """The decode kernel's partial mode on the rank's slice with the most
+    live slots among ``calls`` (``PartialCalls``'), beside its plain
+    version and ``flex_attention(..., return_lse=True)`` compiled with the
+    slice's live slots as its block mask; the bound counts those slots."""
+    import torch
+    from repro_torch.kernels import decode_attention, ref
+
+    def live(call):
+        (q, kc, vc, kl), kw = call
+        w = kw.get("window")
+        lo = (kl - w).clamp(min=0) if w else torch.zeros_like(kl)
+        return int((kl.clamp(max=kc.shape[1]) - lo).clamp(min=0).sum())
+
+    call = max(calls, key=live)
+    (q, kc, vc, kl), kw = call
+    dt = str(q.dtype).split(".")[1]
+    b, _, hq, d = q.shape
+    _, smax, hkv, _ = kc.shape
+    g = hq // hkv
+    dkw = dict(window=kw.get("window"), softcap=kw.get("logit_softcap"),
+               scale=kw.get("scale"))
+    q4 = q.reshape(b, hkv, g, d)
+    k4, v4 = kc.transpose(1, 2), vc.transpose(1, 2)
+    kl4 = kl[:, None].expand(b, hkv)
+    qb = q.reshape(b * hkv, g, d)
+    kb, vb = k4.reshape(b * hkv, smax, d), v4.reshape(b * hkv, smax, d)
+    klb = torch.repeat_interleave(kl, hkv)
+    got, _ = decode_attention.decode_attention_partial_bhgd(q4, k4, v4, kl4,
+                                                            **dkw)
+    want, _ = ref.decode_attention_partial(qb, kb, vb, klb, **dkw)
+    err = attn_err(got.reshape(b * hkv, g, d), want, dt,
+                   f"decode_attention_partial ({where})")
+    w = dkw["window"]
+    lo = (kl - w).clamp(min=0) if w else torch.zeros_like(kl)
+
+    def slots(bb, h, qi, ki):
+        return (ki < kl[bb]) & (ki >= lo[bb])
+    lib = flex_call(q.transpose(1, 2), k4, v4, slots, b, dkw["softcap"],
+                    dkw["scale"], return_lse=True)
+    attn_err(lib()[0].reshape(b * hkv, g, d), want, dt,
+             f"flex_attention ({where}), the library column's call")
+    n_live = live(call) * hkv
+    nbytes = 2 * n_live * d * q.element_size() + q.numel() * (
+        q.element_size() + 4) + b * hq * 4 + kl.numel() * 4
+    return kernel_record(
+        "decode_attention_partial", launches,
+        max(err, edge_errs["decode_attention_partial"]),
+        lambda: decode_attention.decode_attention_partial_bhgd(
+            q4, k4, v4, kl4, **dkw),
+        lambda: ref.decode_attention_partial(qb, kb, vb, klb, **dkw), lib,
+        nbytes, 4.0 * g * d * n_live, dt,
+        {"B*Hkv": b * hkv, "G": g, "Smax_local": smax, "D": d,
+         "kv_len_local": [int(x) for x in kl], "window": dkw["window"],
+         "softcap": dkw["softcap"], "dtype": dt}, where=where,
+        library="flex_attention", kernel="decode_attention")
+
+
 def _rel(a, b) -> float:
     """Largest |a - b| over the largest |b|."""
     a, b = a.detach().float(), b.detach().float()
@@ -4370,6 +4770,9 @@ def main() -> int:
     edge_errs = edge_checks(dev)
     log(f"kernels edge-shape parity ok {json.dumps(edge_errs)} "
         f"({time.perf_counter() - t0:.1f} s)")
+    # phase 2's comparisons are no path: from here the partial mode's
+    # count is the launches of the paths, none before phase 18's
+    decode_attention.decode_attention_partial_bhgd.launches = 0
 
     spec = WeatherSpec(**SPEC)
     t0 = time.perf_counter()
@@ -4564,6 +4967,26 @@ def main() -> int:
     gemma2_bwd_row(dev, edge_errs, templates)
     release(dev)
     log(f"gemma2 backward row ok ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    partial = decode_attention.decode_attention_partial_bhgd
+    require(partial.launches == 0, f"a path before phase 18 launched the "
+            f"decode kernel's partial mode {partial.launches} times")
+    split_counters = {"decode_attention": wrappers["decode_attention"],
+                      "decode_attention_partial": partial}
+    for arch, requests, prompt in SERVE_SPLIT_CASES:
+        calls = PartialCalls(ops)
+        rec = serve_split_path(dev, arch, requests=requests,
+                               prompt_len=prompt, counters=split_counters,
+                               capture=calls)
+        if arch != "llama4-scout-17b-a16e":
+            extra_records.append(partial_record(
+                calls.calls, rec["bfloat16"]["launches_split"], edge_errs,
+                where=f"{arch} split decode, the slice of one of "
+                f"{SERVE_SPLIT_RANKS} ranks with the most live slots"))
+        del calls, rec
+        release(dev)
+    log(f"serve split path ok ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
     templates.run()

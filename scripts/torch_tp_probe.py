@@ -62,6 +62,42 @@ largest summed |terms| over the largest |gradient|, the scale of a
 float32 rounding of the sum against the check's normaliser. One JSON
 line, then the card's name and power limit.
 
+``--ops`` (no group, one card) takes one llama3-8b smoke layer at the
+(1, 4) split's shapes (one rank's 2/1 heads of 16 and 32 of the 128 MLP
+columns, over ``cards.BATCH`` x ``cards.SEQ`` tokens) and feeds the card
+and the CPU the same bf16 inputs, drawn on the CPU and copied across.
+Each operation of the step's forward and backward runs in turn (``OPS``:
+the norm, the one-process and the split column and row products, RoPE,
+the dense attention that ``torch_fsdp_cards.py`` trains with and the
+flash kernels at head_dim 64, the gated activation, the f and g sums,
+the embedding lookup and the loss, each with its input and weight
+gradients), on the card, on the CPU, and on the CPU from the same
+inputs upcast to float32 (the operation's exact arithmetic up to float32
+roundings). For each output it prints the largest difference over the
+largest |value| of card against CPU, card against float32 and CPU
+against float32; the products run on the card twice, with cuBLAS's
+reduced-precision bf16 reductions allowed (the default) and not. One
+JSON line an operation, then the card's name and power limit; with
+``--one-process`` too, that mode's lines first.
+
+``--one-process --card-weights`` (no group, one card) runs the card's
+one-process steps alone on the weights its own generator draws, as
+``torch_fsdp_cards.py`` draws them, from seed 0 or, with ``--seeds N``,
+from each of the seeds 0 .. N-1: the readings that
+``torch_fsdp_cards.TOL["split bfloat16"]`` is set from (``bf16_gap``'s
+``max``, the largest relative gap of the bfloat16 step's losses and grad
+norms to the float32 step's).
+
+``--seeds N`` (four ranks) repeats ``torch_fsdp_cards.py``'s llama3-8b
+bfloat16 (1, 4) split from each of the seeds 0 .. N-1 (weights and
+batches; ``cards.SEED``) and, on rank 0, the one-process steps on the
+same weights as ``--one-process --card-weights`` runs them: one JSON
+line a seed with the split's gap to one process (``train_check``'s
+largest loss and grad norm differences) and the one-process bfloat16
+step's gap to float32 (``bf16_gap``'s ``max``), then one line with the
+largest split gap, the smallest and largest one-process gap and their
+ratios: the readings ``TOL["split bfloat16"]`` is set from.
+
 ``--one-process`` (no group; ``--cpu-weights`` implied) computes the
 one-process step alone, bfloat16 and float32, on the device and on the
 CPU from the same weights and batches: the first batch's gradient
@@ -135,12 +171,13 @@ def cpu_weights():
         model.init_params = init
 
 
-def one_process(dev) -> tuple:
+def one_process(dev, cpu_draw: bool = True) -> tuple:
     """(record, {dtype: the first batch's gradients, on the CPU}) of the
     one-process step on ``dev`` in bfloat16 and float32 from the same
-    CPU-drawn weights: the first batch's gradient norms and
-    ``cards.STEPS`` steps' losses and grad norms."""
-    out = {"device": str(dev)}
+    CPU-drawn weights (``cpu_draw`` False: drawn by ``dev``'s generator,
+    as ``torch_fsdp_cards.py`` draws them): the first batch's gradient
+    norms and ``cards.STEPS`` steps' losses and grad norms."""
+    out = {"device": str(dev), "cpu_weights": cpu_draw}
     grads = {}
     for dtype in ("bfloat16", "float32"):
         cfg = dataclasses.replace(get_smoke_config(ARCH),
@@ -149,7 +186,7 @@ def one_process(dev) -> tuple:
         batches = [batch_at(cfg, i, batch=cards.BATCH, seq=cards.SEQ,
                             seed=cards.SEED, device=dev)
                    for i in range(cards.STEPS)]
-        with cpu_weights():
+        with cpu_weights() if cpu_draw else contextlib.nullcontext():
             params = model.init_params(cfg, cards.SEED, dev)
         _, _, g = steps.value_and_grad(cfg, params, batches[0])
         grads[dtype] = model.tree_map(lambda t: t.detach().cpu(), g)
@@ -164,7 +201,13 @@ def one_process(dev) -> tuple:
                            - f32["first_batch_norm"])
         / f32["first_batch_norm"],
         "grad_norms": [abs(a - b) / b for a, b in zip(
-            out["bfloat16"]["grad_norms"], f32["grad_norms"])]}
+            out["bfloat16"]["grad_norms"], f32["grad_norms"])],
+        "losses": [abs(a - b) / b for a, b in zip(
+            out["bfloat16"]["losses"], f32["losses"])]}
+    # what ``cards.train_check`` measures of a split, of this step: the
+    # largest relative gap of the losses and grad norms over the steps
+    out["bf16_gap"]["max"] = max(out["bf16_gap"]["grad_norms"]
+                                 + out["bf16_gap"]["losses"])
     return out, grads
 
 
@@ -407,11 +450,34 @@ def main(argv=None) -> int:
                     help="--layer: the smoke config")
     ap.add_argument("--tokens", type=int, nargs=2, default=(8, 2048),
                     metavar=("B", "S"), help="--layer: batch and length")
+    ap.add_argument("--card-weights", action="store_true",
+                    help="--one-process: the card alone, on the weights "
+                    "its generator draws")
+    ap.add_argument("--seeds", type=int, default=0, metavar="N",
+                    help="4 ranks: the bf16 split and the one-process "
+                    "bf16-to-float32 gap from each of N seeds; with "
+                    "--one-process --card-weights, that gap alone")
+    ap.add_argument("--ops", action="store_true",
+                    help="no group: the split layer's operations one at a "
+                    "time, on the card and on the CPU from the same inputs")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
+    if args.ops:
+        if args.one_process:
+            one_process_main(dev)
+        return ops_main(dev)
     if args.layer:
         print(json.dumps(layer_f64(dev, args.layer, args.smoke,
                                    tuple(args.tokens))), flush=True)
+        if dev.type == "cuda":
+            print_card()
+        return 0
+    if args.one_process and args.card_weights:
+        for seed in range(max(args.seeds, 1)):
+            cards.SEED = seed
+            print(json.dumps({"seed": seed,
+                              **one_process(dev, cpu_draw=False)[0]}),
+                  flush=True)
         if dev.type == "cuda":
             print_card()
         return 0
@@ -423,6 +489,8 @@ def main(argv=None) -> int:
     try:
         if dist.get_world_size() != 4:
             raise SystemExit("run on 4 ranks: the mesh is (1, 4)")
+        if args.seeds:
+            return seeds_main(dev, args.seeds)
         for name, vocab, upcast, reduced, sublayers in VARIANTS:
             with (cpu_weights() if args.cpu_weights
                   else contextlib.nullcontext()), \
@@ -447,6 +515,186 @@ def main(argv=None) -> int:
         return 0
     finally:
         dist.destroy_process_group()
+
+
+def seeds_main(dev, n: int) -> int:
+    """``--seeds``: the split's and the one-process step's gaps from
+    each of ``n`` seeds (module docstring)."""
+    rows = []
+    try:
+        for seed in range(n):
+            cards.SEED = seed
+            rec, *_ = cards.train_check(dev, ARCH, SHAPE, DTYPE, cards.HEADS)
+            if dist.get_rank():
+                continue
+            gap = one_process(dev, cpu_draw=False)[0]["bf16_gap"]
+            rows.append({"seed": seed,
+                         "split_gap": max(rec["loss_rel_err"],
+                                          rec["norm_rel_err"]),
+                         "one_process_gap": gap["max"],
+                         "grad_leaf_rel_err": rec["grad_leaf_rel_err"],
+                         "tol": rec["tol"], "within_tol": rec["ok"],
+                         "one_process": gap})
+            print(json.dumps(rows[-1]), flush=True)
+    finally:
+        cards.SEED = 0
+    if rows:
+        split = max(r["split_gap"] for r in rows)
+        lo = min(r["one_process_gap"] for r in rows)
+        hi = max(r["one_process_gap"] for r in rows)
+        print(json.dumps({"seeds": n, "split_gap_max": split,
+                          "one_process_gap_min": lo,
+                          "one_process_gap_max": hi,
+                          "split_max_over_one_process_min": split / lo,
+                          "worst_seed_ratio": max(
+                              r["split_gap"] / r["one_process_gap"]
+                              for r in rows)}), flush=True)
+        if dev.type == "cuda":
+            print_card()
+    return 0
+
+
+def _rel_gap(a, b) -> float:
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def _ops(cfg) -> dict:
+    """{name: (function of the inputs dict -> outputs, the input names
+    whose gradients to take, the output gradient's name)}: the
+    operations ``--ops`` compares, at one rank's share of the (1, 4)
+    split of ``cfg``'s layer."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import attention
+
+    def g_sum(t):
+        parts = [t["p0"], t["p1"], t["p2"], t["p3"]]
+        return (fsdp._sum_in_order(parts).to(t["x"].dtype),)
+
+    def f_sum(t):
+        # _SplitEnter's backward: the three products' float32 partials
+        # summed over the ranks, rounded once, added v + k + q
+        g = torch.stack([t["p0"], t["p1"], t["p2"]]).to(t["x"].dtype)
+        return (g[2] + g[1] + g[0],)
+
+    pos = torch.arange(cards.SEQ).expand(cards.BATCH, cards.SEQ)
+    theta = cfg.rope_theta
+    return {
+        "rmsnorm": (lambda t: (layers.rmsnorm({"scale": t["scale"]},
+                                              t["x"]),),
+                    ("x", "scale"), "dy"),
+        "one-process product x @ w": (lambda t: (t["x"] @ t["wq"],),
+                                      ("x", "wq"), "dq"),
+        "column product (split)": (
+            lambda t: (layers.column_product(t["x"].float(), t["wq"]),),
+            ("x", "wq"), "dq"),
+        "row product (split)": (
+            lambda t: (layers.row_product(t["a"], t["wo"]),),
+            ("a", "wo"), "dy"),
+        "one-process product a @ wo": (lambda t: (t["a"] @ t["wo"],),
+                                       ("a", "wo"), "dy"),
+        "rope": (lambda t: (layers.apply_rope(t["q"], pos.to(
+            t["q"].device), theta),), ("q",), "do"),
+        "dense attention": (
+            lambda t: (attention.dense_attention(t["q"], t["k"], t["v"]),),
+            ("q", "k", "v"), "do"),
+        "flash attention (head_dim 64)": (
+            lambda t: (kops.flash_attention(t["q64"], t["k64"], t["v64"]),),
+            ("q64", "k64", "v64"), "do64"),
+        "silu gate": (lambda t: (layers._act(t["gate"], cfg.act)
+                                 * t["up"],), ("gate", "up"), "dh"),
+        "f sum": (f_sum, (), None),
+        "g sum": (g_sum, (), None),
+        "embed lookup": (
+            lambda t: (model._embed_tokens(cfg, {"embed": t["embed"]},
+                                           t["tokens"]),),
+            ("embed",), "dy3"),
+        "cross entropy": (
+            lambda t: (layers.chunked_cross_entropy_loss(
+                t["x"], t["embed"], t["labels"],
+                num_chunks=cfg.ce_chunks),), ("x", "embed"), None),
+    }
+
+
+def _ops_inputs(cfg) -> dict:
+    """The ``--ops`` inputs, drawn on the CPU from ``cards.SEED`` in
+    bf16 (the partials of the sums in float32)."""
+    m = SHAPE[1]
+    b, s, d, hd = cards.BATCH, cards.SEQ, cfg.d_model, cfg.head_dim
+    hq, hkv, ff = cfg.num_heads // m, cfg.num_kv_heads // m, cfg.d_ff // m
+    t = b * s
+    gen = torch.Generator().manual_seed(cards.SEED)
+
+    def r(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen) * scale).to(dtype)
+
+    return {"x": r(t, d), "dy": r(t, d), "scale": r(d, scale=0.1),
+            "wq": r(d, hq * hd, scale=d ** -0.5), "dq": r(t, hq * hd),
+            "a": r(t, hq * hd), "wo": r(hq * hd, d, scale=(hq * hd) ** -0.5),
+            "q": r(b, s, hq, hd), "k": r(b, s, hkv, hd),
+            "v": r(b, s, hkv, hd), "do": r(b, s, hq, hd),
+            "q64": r(b, s, hq, 64), "k64": r(b, s, hkv, 64),
+            "v64": r(b, s, hkv, 64), "do64": r(b, s, hq, 64),
+            "gate": r(t, ff), "up": r(t, ff), "dh": r(t, ff),
+            "p0": r(t, d, dtype=torch.float32),
+            "p1": r(t, d, dtype=torch.float32),
+            "p2": r(t, d, dtype=torch.float32),
+            "p3": r(t, d, dtype=torch.float32),
+            "embed": r(cfg.vocab_size, d),
+            "tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen),
+            "labels": torch.randint(0, cfg.vocab_size, (t,), generator=gen),
+            "dy3": r(b, s, d)}
+
+
+def _run_op(op, inputs: dict, dev, dtype=None) -> list:
+    """The op's outputs and its gradients for the named inputs, on
+    ``dev``; ``dtype``: the floating inputs cast to it first."""
+    fn, wrt, grad_name = op
+    t = {}
+    for k, v in inputs.items():
+        v = v.to(dev)
+        if dtype is not None and v.is_floating_point():
+            v = v.to(dtype)
+        t[k] = v.requires_grad_() if k in wrt else v
+    outs = fn(t)
+    grads = []
+    if wrt:
+        dy = [torch.ones_like(outs[0]) if grad_name is None
+              else t[grad_name].to(outs[0].dtype)]
+        grads = list(torch.autograd.grad(outs, [t[k] for k in wrt], dy))
+    return [x.detach() for x in outs] + grads
+
+
+def ops_main(dev) -> int:
+    """``--ops``: one JSON line an operation (module docstring)."""
+    cfg = dataclasses.replace(get_smoke_config(ARCH),
+                              compute_dtype="bfloat16", **cards.HEADS)
+    inputs = _ops_inputs(cfg)
+    cpu = torch.device("cpu")
+    matmul = torch.backends.cuda.matmul
+    products = ("product", "attention", "cross entropy")
+    for name, op in _ops(cfg).items():
+        card = _run_op(op, inputs, dev)
+        here = _run_op(op, inputs, cpu)
+        f32 = _run_op(op, inputs, cpu, torch.float32)
+        names = ["out"] + [f"d{k}" for k in op[1]]
+        rec = {"op": name, "outputs": {n: {
+            "card_vs_cpu": _rel_gap(a, b), "card_vs_f32": _rel_gap(a, c),
+            "cpu_vs_f32": _rel_gap(b, c), "dtype": str(a.dtype)}
+            for n, a, b, c in zip(names, card, here, f32)}}
+        if dev.type == "cuda" and any(p in name for p in products):
+            saved = matmul.allow_bf16_reduced_precision_reduction
+            matmul.allow_bf16_reduced_precision_reduction = False
+            try:
+                plain = _run_op(op, inputs, dev)
+            finally:
+                matmul.allow_bf16_reduced_precision_reduction = saved
+            for n, a, c in zip(names, plain, f32):
+                rec["outputs"][n]["card_no_reduced_vs_f32"] = _rel_gap(a, c)
+        print(json.dumps(rec), flush=True)
+    if dev.type == "cuda":
+        print_card()
+    return 0
 
 
 def print_card() -> None:

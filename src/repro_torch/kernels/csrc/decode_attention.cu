@@ -54,6 +54,18 @@
 // aligned (the wrapper checks). Masked scores are NEG_INF = -2e38 and the
 // denominator is max(l, 1e-30), as in the TPU kernel; a head with no live
 // slot (kv_len < 1) gets the TPU's mean of V over all Smax slots.
+//
+// The partial mode (partial != 0) is the kernel's half of a cache whose
+// sequence is split over ranks (the serve over a mesh, launch/fsdp.py):
+// each rank runs it over its slice of every head's slots, with kv_len
+// shifted by the slice's offset, so a rank's kv_len may be <= 0 (the
+// slice lies past the live slots) or above Smax (the live slots run past
+// the slice), and a window's lower bound follows from the same shift. It
+// writes, per query row, the normalised output in float32 and lse = m +
+// log l, the rows' partials that the ranks combine (max of lse, then the
+// weighted sums in float32). A head whose slice holds no live slot reads
+// nothing and writes o = 0, lse = -inf, so it weighs nothing in the
+// combine; the whole-cache mode keeps the TPU's mean of V for kv_len < 1.
 #include <math.h>
 
 #include "common.cuh"
@@ -75,7 +87,8 @@ struct Params {
   const void* k;
   const void* v;
   const int32_t* kv_len;
-  void* o;
+  void* o;                       // partial: float32
+  float* lse;                    // partial: [B*Hkv][G] float32
   // element strides: batch, head, row (the dim stride is 1)
   long long q_sb, q_sh, q_sg;
   long long k_sb, k_sh, k_ss;
@@ -85,6 +98,7 @@ struct Params {
   int hkv, g, sk, d;
   int splits;                    // grid.x: splits a head may use at most
   int window;                    // <= 0: no window
+  int partial;                   // write (o float32, lse); see the top
   float scale, softcap;          // softcap <= 0: no softcap
   // set by the launcher
   int rows;                      // query rows a CTA takes (row blocks)
@@ -140,15 +154,30 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
 }
 
 // A head's live slots [r0, r1): below kv_len and inside the window; a head
-// with none reads all Smax slots, all masked, as the TPU kernel sees them.
+// with none reads all Smax slots, all masked, as the TPU kernel sees them,
+// or in the partial mode none at all.
 __device__ __forceinline__ void live_range(const Params& p, int kv_len,
                                            int* r0, int* r1) {
   *r0 = p.window > 0 ? max(0, kv_len - p.window) : 0;
   *r1 = min(kv_len, p.sk);
   if (*r0 >= *r1) {
     *r0 = 0;
-    *r1 = p.sk;
+    *r1 = p.partial ? 0 : p.sk;
   }
+}
+
+// The partial mode's result for the query rows of this CTA's row block
+// of a head with no live slot in its slice: o = 0, lse = -inf.
+__device__ void write_empty(const Params& p) {
+  const int row0 = blockIdx.z * p.rows;
+  const int nrow = min(p.rows, p.g - row0);
+  const int bh = blockIdx.y;
+  float* o = static_cast<float*>(p.o) + (bh / p.hkv) * p.o_sb
+      + (bh % p.hkv) * p.o_sh;
+  for (int i = threadIdx.x; i < nrow * p.d; i += blockDim.x)
+    o[(row0 + i / p.d) * p.o_sg + i % p.d] = 0.f;
+  for (int r = threadIdx.x; r < nrow; r += blockDim.x)
+    p.lse[static_cast<long long>(bh) * p.g + row0 + r] = -INFINITY;
 }
 
 // The slice of its head's live slots that this CTA reads, [lo, hi), and
@@ -192,12 +221,14 @@ __device__ __forceinline__ bool cta_slice(const Params& p, int tk,
   }
   long long chunk = max((tot + p.target - 1) / p.target,
                         (most + gridDim.x - 1) / gridDim.x);
-  chunk = (chunk + tk - 1) / tk * tk;
+  // at least one tile: in the partial mode no head may hold a live slot
+  chunk = (max(chunk, 1LL) + tk - 1) / tk * tk;
   const int bh = blockIdx.y;
   int r0, r1;
   live_range(p, p.kv_len[(bh / p.hkv) * p.l_sb + (bh % p.hkv) * p.l_sh],
              &r0, &r1);
   *nsplit = static_cast<int>((r1 - r0 + chunk - 1) / chunk);
+  if (*nsplit == 0 && blockIdx.x == 0) write_empty(p);   // partial only
   if (static_cast<int>(blockIdx.x) >= *nsplit) return false;
   *lo = r0 + static_cast<int>(blockIdx.x * chunk);
   *hi = min(r1, *lo + static_cast<int>(chunk));
@@ -272,6 +303,7 @@ __device__ void finish(const Params& p, const float* red, const float* wm,
   const int n_out = g * D;
   const long long base = static_cast<long long>(bh) * p.splits;
   T* og = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  float* of = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
   for (int o = tid; o < n_out; o += kThreads) {
     const int r = o / D;
     const int e = o % D;
@@ -286,7 +318,14 @@ __device__ void finish(const Params& p, const float* red, const float* wm,
       num = fmaf(__ldcg(part_acc + (base + s) * n_out + o), w, num);
       den = fmaf(__ldcg(part_ml + ((base + s) * g + r) * 2 + 1), w, den);
     }
-    store1(og + r * p.o_sg + e, num / fmaxf(den, 1e-30f));
+    if (!p.partial) {
+      store1(og + r * p.o_sg + e, num / fmaxf(den, 1e-30f));
+      continue;
+    }
+    // every split of a head in the partial mode holds a live slot, whose
+    // score is finite: den >= 1
+    of[r * p.o_sg + e] = num / den;
+    if (e == 0) p.lse[static_cast<long long>(bh) * g + r] = mx + logf(den);
   }
 }
 
@@ -893,16 +932,19 @@ int launch(Params& p, int batch, float* part_acc, float* part_ml,
 }  // namespace
 
 // q [B, Hkv, G, D], k/v [B, Hkv, Smax, D], o [B, Hkv, G, D] through element
-// strides; kv_len int32. cfg: 22 values, the strides (q, k, v, o each
+// strides; kv_len int32. cfg: 23 values, the strides (q, k, v, o each
 // batch / head / row, then kv_len's batch / head; the dim stride is 1),
-// then B, Hkv, G, Smax, D, splits, dtype (0 float32, 1 bfloat16: q, k, v
-// and o), window (<= 0: none). fcfg: scale, softcap (<= 0: none).
+// then B, Hkv, G, Smax, D, splits, dtype (0 float32, 1 bfloat16: q, k, v,
+// and o but in the partial mode), window (<= 0: none), partial (0: the
+// whole-cache mode, o in q's dtype and lse unused; else o float32 and lse
+// [B*Hkv][G] float32). fcfg: scale, softcap (<= 0: none).
 // Scratch: part_acc B*Hkv*splits*G*D floats, part_ml B*Hkv*splits*G*2
 // floats; arrivals B*Hkv int32, zero before the call and zero again
 // after it.
 extern "C" int repro_decode_attention(const void* q, const void* k,
                                       const void* v, const void* kv_len,
-                                      void* o, void* part_acc, void* part_ml,
+                                      void* o, void* lse, void* part_acc,
+                                      void* part_ml,
                                       void* arrivals, const long long* cfg,
                                       const float* fcfg, int device,
                                       void* stream) {
@@ -918,6 +960,7 @@ extern "C" int repro_decode_attention(const void* q, const void* k,
   p.v = v;
   p.kv_len = static_cast<const int32_t*>(kv_len);
   p.o = o;
+  p.lse = static_cast<float*>(lse);
   p.q_sb = cfg[0]; p.q_sh = cfg[1]; p.q_sg = cfg[2];
   p.k_sb = cfg[3]; p.k_sh = cfg[4]; p.k_ss = cfg[5];
   p.v_sb = cfg[6]; p.v_sh = cfg[7]; p.v_ss = cfg[8];
@@ -928,6 +971,9 @@ extern "C" int repro_decode_attention(const void* q, const void* k,
   p.splits = static_cast<int>(cfg[19]);
   const int dtype = static_cast<int>(cfg[20]);
   p.window = static_cast<int>(cfg[21]);
+  p.partial = static_cast<int>(cfg[22]);
+  if (p.partial && p.lse == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   p.scale = fcfg[0];
   p.softcap = fcfg[1];
   cudaStream_t st = static_cast<cudaStream_t>(stream);

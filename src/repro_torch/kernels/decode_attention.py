@@ -6,6 +6,15 @@ Ports the Pallas TPU kernel ``src/repro/kernels/decode_attention.py``
 described in the source; the plain version is ``ref.decode_attention``.
 On meta tensors (the dry run) the wrapper checks its arguments and
 allocates its output and the partials' scratch, and launches nothing.
+
+``decode_attention_partial_bhgd`` is the same kernel's partial mode, the
+half of the split-K decode that runs on each rank of a cache whose
+sequence is split over ranks (the JAX kernel's docstring: "each shard
+runs this kernel over its KV slice and the partial (acc, m, l) combine
+is a 3-tensor psum"): it returns each query row's normalised output in
+float32 and its log-sum-exp, which ``models.attention.combine_partials``
+combines over the ranks. Its plain version is
+``ref.decode_attention_partial``.
 """
 from __future__ import annotations
 
@@ -17,7 +26,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import _DTYPES, as_bhsd, check_strided
 
-_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_void_p]
 _TILE_BYTES = 8192      # one K (or V) tile in shared memory (kTileBytes)
 _MAX_TILE = 64          # slots per tile at most (kMaxTile)
 _TARGET_CTAS = 396      # about three CTAs on each of the H100's 132 SMs
@@ -75,26 +84,47 @@ def decode_attention_bhgd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Slot s of head (b, h) is live when s < kv_len and, with a window,
     s > kv_len - 1 - window. Returns q's shape and dtype. CUDA tensors
     only."""
+    return _call(q, k, v, kv_len, window, softcap, scale, False)
+
+
+def decode_attention_partial_bhgd(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, kv_len: torch.Tensor, *,
+                                  window: int | None = None,
+                                  softcap: float | None = None,
+                                  scale: float | None = None
+                                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The partial mode over one rank's slice of the cache: arguments as
+    ``decode_attention_bhgd``'s, with ``kv_len`` the lengths shifted by
+    the slice's first slot (any int32: <= 0 where the slice lies past
+    the live slots, above Smax where they run past it). Returns (o,
+    lse): o float32 of q's shape, each row's output normalised over the
+    slice's live slots, and lse float32 of q's shape without the head
+    dim, their log-sum-exp of the scaled, softcapped scores; o = 0 and
+    lse = -inf where the slice holds no live slot. CUDA tensors only."""
+    return _call(q, k, v, kv_len, window, softcap, scale, True)
+
+
+def _call(q, k, v, kv_len, window, softcap, scale, partial: bool):
     dev = q.device
     if dev.type not in ("cuda", "meta"):
         raise ValueError(f"decode_attention kernel needs CUDA tensors, "
                          f"got {dev}")
     if dev.type == "meta":
-        plan = _make_plan(q, k, v, kv_len, window, softcap, scale)
-        out = torch.empty_like(q)
+        plan = _make_plan(q, k, v, kv_len, window, softcap, scale, partial)
+        out, lse = _outputs(q, partial)
         # the partials' scratch, which the card keeps per plan and stream
         torch.empty(plan.n_acc + plan.n_ml, dtype=torch.float32, device=dev)
-        return out
+        return (out, lse) if partial else out
     key = (q.shape, q.stride(), k.shape, k.stride(), v.shape, v.stride(),
            kv_len.shape, kv_len.stride(), q.dtype, k.dtype, v.dtype,
            kv_len.dtype, dev, k.get_device(), v.get_device(),
-           kv_len.get_device(), window, softcap, scale)
+           kv_len.get_device(), window, softcap, scale, partial)
     plan = _plans.get(key)
     if plan is None:
         if len(_plans) >= _MAX_PLANS:
             _plans.clear()
         plan = _plans[key] = _make_plan(q, k, v, kv_len, window, softcap,
-                                        scale)
+                                        scale, partial)
     qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
     if (qp | kp | vp) % 16:
         raise ValueError("decode_attention: q, k and v need 16-byte "
@@ -107,20 +137,33 @@ def decode_attention_bhgd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         device=dev),
             torch.zeros(plan.heads, dtype=torch.int32, device=dev))
     sp = bufs[0].data_ptr()
-    out = torch.empty_like(q)
+    out, lse = _outputs(q, partial)
     fn = _build.function("decode_attention", "repro_decode_attention", _ARGS)
-    code = fn(qp, kp, vp, kv_len.data_ptr(), out.data_ptr(), sp,
-              sp + 4 * plan.n_acc, bufs[1].data_ptr(),
-              ctypes.addressof(plan.cfg), ctypes.addressof(plan.fcfg),
-              plan.device, stream)
+    code = fn(qp, kp, vp, kv_len.data_ptr(), out.data_ptr(),
+              lse.data_ptr() if partial else None, sp, sp + 4 * plan.n_acc,
+              bufs[1].data_ptr(), ctypes.addressof(plan.cfg),
+              ctypes.addressof(plan.fcfg), plan.device, stream)
     _build.check("decode_attention", "decode_attention", code)
+    if partial:
+        decode_attention_partial_bhgd.launches += 1
+        return out, lse
     decode_attention_bhgd.launches += 1
     by = decode_attention_bhgd.by_window
     by[window or None] = by.get(window or None, 0) + 1
     return out
 
 
-def _make_plan(q, k, v, kv_len, window, softcap, scale) -> _Plan:
+def _outputs(q: torch.Tensor, partial: bool):
+    """(o, lse) of one call: o of q's shape, in q's dtype, or in the
+    partial mode float32 with lse beside it (else None)."""
+    if not partial:
+        return torch.empty_like(q), None
+    return (torch.empty(q.shape, dtype=torch.float32, device=q.device),
+            torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device))
+
+
+def _make_plan(q, k, v, kv_len, window, softcap, scale,
+               partial: bool) -> _Plan:
     """Check one call signature against what the kernel takes (raises)
     and fix its launch configuration."""
     dev = q.device
@@ -150,14 +193,15 @@ def _make_plan(q, k, v, kv_len, window, softcap, scale) -> _Plan:
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
-    o4 = as_bhsd(torch.empty_like(q, device="meta"))
+    o4 = as_bhsd(torch.empty(q.shape, dtype=torch.float32, device="meta")
+                 if partial else torch.empty_like(q, device="meta"))
     # 16-byte cp.async copies and vector reads: no fallback where they fail
     check_strided("decode_attention", q4, k4, v4, o4, elems=16 // esize)
     splits = splits_for(b * hkv, sk, tile_slots(d, esize))
-    cfg = (ctypes.c_longlong * 22)(
+    cfg = (ctypes.c_longlong * 23)(
         *(s for t in (q4, k4, v4, o4) for s in t.stride()[:3]),
         *kl.stride(), b, hkv, g, sk, d, splits, _DTYPES[q.dtype],
-        int(window or 0))
+        int(window or 0), int(partial))
     fcfg = (ctypes.c_float * 2)(
         float(scale if scale is not None else d ** -0.5), float(softcap or 0))
     return _Plan(cfg, fcfg, b * hkv, b * hkv * splits * g * d,
@@ -167,3 +211,4 @@ def _make_plan(q, k, v, kv_len, window, softcap, scale) -> _Plan:
 decode_attention_bhgd.launches = 0
 # the launches by ``window`` (None: no window), counted with ``launches``
 decode_attention_bhgd.by_window = {}
+decode_attention_partial_bhgd.launches = 0

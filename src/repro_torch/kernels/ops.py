@@ -66,6 +66,30 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, window=None,
     return out.reshape(b, 1, hq, d)
 
 
+def decode_attention_partial(q, k_cache, v_cache, kv_len, *, window=None,
+                             logit_softcap=None, scale=None):
+    """The decode kernel's partial mode over one rank's slice of the
+    caches: q (B, 1, Hq, D), caches (B, S, Hkv, D) (the slice), kv_len
+    (B,) int32 shifted by the slice's first slot -> (o (B, 1, Hq, D)
+    float32, lse (B, 1, Hq) float32), the rows' partials that
+    ``models.attention.combine_partials`` combines over the ranks."""
+    b, _, hq, d = q.shape
+    _, sk, hkv, _ = k_cache.shape
+    g = hq // hkv
+    kw = dict(window=window, softcap=logit_softcap, scale=scale)
+    if q.device.type != "cpu":
+        o, lse = _dec.decode_attention_partial_bhgd(
+            q.reshape(b, hkv, g, d), k_cache.transpose(1, 2),
+            v_cache.transpose(1, 2), kv_len[:, None].expand(b, hkv), **kw)
+    else:
+        o, lse = _ref.decode_attention_partial(
+            q.reshape(b * hkv, g, d),
+            k_cache.transpose(1, 2).reshape(b * hkv, sk, d),
+            v_cache.transpose(1, 2).reshape(b * hkv, sk, d),
+            torch.repeat_interleave(kv_len, hkv), **kw)
+    return o.reshape(b, 1, hq, d), lse.reshape(b, 1, hq)
+
+
 def hash_join_probe(build_keys, build_valid, probe_keys, probe_valid):
     """Same results as ``executor.hash_join_probe``: (pos, matched,
     bucket overflow [P]). The kernel probes a hash table that holds every

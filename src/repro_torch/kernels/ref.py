@@ -132,6 +132,39 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("hgk,hkd->hgd", p, v.float()).to(q.dtype)
 
 
+def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, kv_len: torch.Tensor, *,
+                             window: int | None = None,
+                             softcap: float | None = None,
+                             scale: float | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``decode_attention.decode_attention_partial_bhgd``
+    (the decode kernel's partial mode) over one slice of a cache whose
+    sequence is split: q (B·Hkv, G, D), k/v (B·Hkv, Sk, D), kv_len
+    (B·Hkv,) the lengths shifted by the slice's first slot (any value:
+    <= 0 or above Sk too). Slot s is live when s < kv_len and, with a
+    window, s > kv_len - 1 - window. Returns (o, lse) in float32: each
+    row's softmax-weighted sum of V over the live slots and the
+    log-sum-exp of their scores; o = 0 and lse = -inf where no slot is
+    live (the row weighs nothing in ``models.attention.combine_partials``,
+    where the whole-cache version gives the mean of V)."""
+    d = q.shape[2]
+    sk = k.shape[1]
+    scale = scale if scale is not None else d ** -0.5
+    s = torch.einsum("hgd,hkd->hgk", q.float() * scale, k.float())
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    kp = torch.arange(sk, device=q.device)[None, None, :]
+    kl = kv_len.to(torch.int64)[:, None, None]
+    ok = kp < kl
+    if window is not None:
+        ok &= kp > (kl - 1 - window)
+    s = torch.where(ok, s, torch.full_like(s, float("-inf")))
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.where(ok, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    return torch.einsum("hgk,hkd->hgd", p, v.float()), lse
+
+
 def _composite(keys: tuple[torch.Tensor, ...]) -> torch.Tensor:
     """1-2 int32 key columns -> one int64 key, order-free but exact."""
     k = keys[0].to(torch.int64)

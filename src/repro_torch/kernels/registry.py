@@ -6,15 +6,18 @@ CUDA source, and the JAX ``KERNEL_REFS`` key
 (``src/repro/kernels/registry.py``) of the Pallas kernel it ports,
 with that kernel's entry point. A backward kernel has no Pallas kernel
 (the JAX package lets XLA differentiate): its ``jax_ref`` and
-``replaces`` are ``None`` and ``backward_of`` names its forward. The
-parity tests and ``chip_smoke.py`` iterate it, so a kernel cannot ship
+``replaces`` are ``None`` and ``backward_of`` names its forward. A
+mode of a kernel that a path launches through a wrapper of its own,
+with its own plain version and launch count, is listed under its
+kernel's ``modes``: the same source and Pallas kernel. The parity
+tests and ``chip_smoke.py`` iterate it, so a kernel cannot ship
 without its plain version.
 
 A plain literal: reading it imports nothing.
 """
 from __future__ import annotations
 
-KERNELS: dict[str, dict[str, str | None]] = {
+KERNELS: dict[str, dict] = {
     "block_join_probe": {
         "wrapper": "hash_join.block_join_probe",
         "plain": "block_join_probe",
@@ -64,6 +67,16 @@ KERNELS: dict[str, dict[str, str | None]] = {
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "jax_ref": "decode_attention.decode_attention_bhgd",
         "replaces": "src/repro/kernels/decode_attention.py:70",
+        # the split-K half that the JAX kernel's docstring describes for
+        # a cache split over the mesh (decode_attention.py:10-13): each
+        # rank's slice of the sequence to (o float32, lse), the partials
+        # combined over the ranks (launch/fsdp.py's serve)
+        "modes": {
+            "decode_attention_partial": {
+                "wrapper": "decode_attention.decode_attention_partial_bhgd",
+                "plain": "decode_attention_partial",
+            },
+        },
     },
 }
 

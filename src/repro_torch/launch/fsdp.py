@@ -97,6 +97,27 @@ places each leaf by its ``NamedSharding`` and inserts the collectives.
   each rank's aux is its share of the global one, so that
   ``batch_sum`` gives the reference's.
 
+* **Serving** (``ServeLayout``, ``launch/serve.py``'s ``serve_batch(...,
+  mesh=)``). Forward only, with the same splits: each rank holds its
+  heads' columns of wq/wk/wv and rows of wo, its d_ff/m columns of a
+  dense MLP, its V/m rows of ``embed``/``lm_head`` and its E/m experts;
+  every leaf the split does not compute on by block (norms, the router,
+  the shared expert) is held whole along ``model`` from load
+  (``serve_specs``), so at ``data`` = 1 no weight moves in a step; over
+  ``data`` > 1 the FSDP dims are gathered layer by layer. The batch
+  splits over (pod, data) where it divides (``batch_specs``), else every
+  batch rank computes all of it. The decode caches follow
+  ``cache_specs``: the sequence over ``model`` (over ``data`` too where
+  the batch cannot take it), so prefill's caches, computed on each
+  rank's heads, are relaid to each rank's slots of every head
+  (``ServeLayout.fill_caches``, one all-to-all a layer), and each decode
+  step runs the decode kernel's partial mode over the rank's slice and
+  combines the rows' partials over the ranks the sequence spans
+  (``CacheSplit``, ``models/attention.py``'s ``combine_partials``).
+  Mamba-2 layers do not serve split (their conv cache's channels over
+  ``model`` meet the split mixer's B and C held whole): ``ServeLayout``
+  raises for them.
+
 Collectives run over the mesh's own groups (one per axis of size > 1),
 so a mesh over a subgroup of the world works (``runtime/elastic.py``).
 At world 1 no collective runs and the results are those of the
@@ -323,6 +344,63 @@ class ModelSplit:
                                 self.group)
         return y.to(x.dtype)
 
+    def ranks(self, p) -> list:
+        """The ``model`` ranks whose shares this process computes: its
+        own, or the stand-in's every rank (``p`` its list of trees)."""
+        if self.group is None:
+            return list(range(len(p)))
+        return [dist.get_rank(self.group)]
+
+    def gather(self, parts: list, dim: int) -> torch.Tensor:
+        """Every rank's block of a tensor split over the ``model`` ranks
+        (``parts``: this process's, one a rank it computes), concatenated
+        along ``dim`` in rank order: an all-gather, outside autograd."""
+        if self.group is None:
+            return torch.cat(parts, dim)
+        x = parts[0].contiguous()
+        out = [torch.empty_like(x) for _ in range(dist.get_world_size(
+            self.group))]
+        dist.all_gather(out, x, group=self.group)
+        return torch.cat(out, dim)
+
+    def sum(self, parts: list) -> torch.Tensor:
+        """g of float32 partials: their sum over the ``model`` ranks."""
+        if self.group is None:
+            return _sum_in_order(parts)
+        return _ModelSum.apply(parts[0], self.group)
+
+
+class CacheSplit:
+    """The decode caches' sequence split over the ranks of ``groups``
+    (the process groups of the axes ``cache_specs`` puts it over, major
+    first; empty where the sequence stays whole): ``ranges`` holds the
+    slots ``(lo, hi)`` of each slice this process keeps, this rank's
+    alone. ``groups`` None is the stand-in on one device: every rank's
+    slice in rank order, the partials combined here as the all-reduces
+    would (``models/attention.py``'s ``combine_partials``)."""
+
+    def __init__(self, groups, ranges):
+        self.groups = groups
+        self.ranges = tuple(ranges)
+
+    @property
+    def split(self) -> bool:
+        """Whether the slices are parts of the sequence, to be combined."""
+        return self.groups is None or bool(self.groups)
+
+    def reduce(self, parts: list, op: str) -> torch.Tensor:
+        """The ``op`` ("max" or "sum") over the ranks of ``parts`` (this
+        process's, one a slice it keeps)."""
+        if self.groups is None:
+            if op == "max":
+                return torch.stack(parts).amax(0)
+            return _sum_in_order(parts)
+        x = parts[0].contiguous().clone()
+        for group in self.groups:
+            dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max"
+                            else dist.ReduceOp.SUM, group=group)
+        return x
+
 
 #: the leaves of a split sublayer that each ``model`` rank holds a block
 #: of and computes with: row blocks of ``wo``, head blocks of the 1-D
@@ -414,15 +492,19 @@ class VocabSplit:
         return _sum_in_order(parts)
 
     def combine(self, parts: list, op: str) -> torch.Tensor:
-        """The ``op`` ("sum" or "max") over the ranks of each block's
-        ``parts``, outside autograd."""
+        """The ``op`` ("sum", "max" or "min") over the ranks of each
+        block's ``parts``, outside autograd."""
         if self.group is not None:
             x = parts[0].clone()
-            dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max"
-                            else dist.ReduceOp.SUM, group=self.group)
+            dist.all_reduce(x, op={"max": dist.ReduceOp.MAX,
+                                   "min": dist.ReduceOp.MIN}.get(
+                                       op, dist.ReduceOp.SUM),
+                            group=self.group)
             return x
         if op == "max":
             return torch.stack(parts).amax(0)
+        if op == "min":
+            return torch.stack(parts).amin(0)
         return _sum_in_order(parts)
 
 
@@ -515,9 +597,12 @@ class MoeExchange:
     needs of ``mesh``: ``ranks`` split the batch (pod x data), this
     rank's rows are block ``index`` of them (pod-major, as
     ``batch_specs`` splits them), and ``model_rank`` is its coordinate
-    along ``model``, whose ranks hold the experts in that order."""
+    along ``model``, whose ranks hold the experts in that order.
+    ``batch_axes``: the axes that split the batch where not all of
+    (pod, data) do (a served batch too small for them: the other batch
+    ranks hold the same rows)."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, batch_axes=mesh_lib.BATCH):
         self.sizes = sharding.axis_sizes(mesh)
         coords = mesh.get_coordinate()
         if coords is None:
@@ -525,20 +610,20 @@ class MoeExchange:
                                f"{mesh}")
         coord = dict(zip(self.sizes, coords))
         groups = sharding.mesh_groups(mesh)
-        self.ranks = batch_ranks(mesh)
+        axes = [a for a in batch_axes if a in self.sizes]
+        self.ranks = math.prod(self.sizes[a] for a in axes)
         self.index = 0
-        for a in mesh_lib.BATCH:
-            if a in self.sizes:
-                self.index = self.index * self.sizes[a] + coord[a]
-        self.batch_groups = {a: g for a, g in groups.items()
-                             if a in mesh_lib.BATCH}
+        for a in axes:
+            self.index = self.index * self.sizes[a] + coord[a]
+        self.batch_entry = tuple(axes)
+        self.batch_groups = {a: g for a, g in groups.items() if a in axes}
         self.model_rank = coord.get(mesh_lib.TP, 0)
         self.model_group = groups.get(mesh_lib.TP)
 
     def gather_counts(self, counts: torch.Tensor) -> torch.Tensor:
         """(ranks, n): every batch rank's ``counts`` (n,), in block
         order (integers: the same on every rank, and no gradient)."""
-        return sharding.gather_block(counts[None], (mesh_lib.BATCH,),
+        return sharding.gather_block(counts[None], (self.batch_entry,),
                                      self.sizes, self.batch_groups)
 
     def model_sum(self, y: torch.Tensor) -> torch.Tensor:
@@ -548,6 +633,32 @@ class MoeExchange:
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         """f of a tensor that enters this rank's experts."""
         return _ModelEnter.apply(x, self.model_group)
+
+    def experts(self, terms, w: tuple, x: torch.Tensor, gate: torch.Tensor):
+        """The float32 sum over ``model`` of every rank's experts'
+        ``terms(w, x, gate, model_rank)`` (``moe._expert_terms``): this
+        rank's experts ``w`` take the tokens ``x`` and their ``gate``
+        through f, their terms are summed by g (top-1's one term a token
+        is exact in float32)."""
+        gate, xe = self.enter(gate), self.enter(x)
+        return self.model_sum(terms(w, xe, gate, self.model_rank).float())
+
+
+class ExpertsInTurn:
+    """``MoeExchange``'s stand-in on one device for the ``model`` ranks of
+    a (1, m) mesh (``moe_in_turn``): ``blocks`` holds every rank's
+    (wi_gate, wi_up, wo) experts; ``experts`` computes every rank's terms
+    in turn and sums them in float32 in rank order, where the all-reduce
+    would. It splits no batch (``ranks`` 1)."""
+
+    ranks = 1
+
+    def __init__(self, blocks: list):
+        self.blocks = blocks
+
+    def experts(self, terms, w: tuple, x: torch.Tensor, gate: torch.Tensor):
+        return _sum_in_order([terms(b, x, gate, rank).float()
+                              for rank, b in enumerate(self.blocks)])
 
 
 class Layout:
@@ -750,3 +861,271 @@ def init_params(cfg, layout: Layout, seed: int = 0, device=None) -> Params:
 
 def numel(tree) -> int:
     return sum(t.numel() for t in model_lib._leaves(tree))
+
+
+# ---------------------------------------------------------------------------
+# Serving over the mesh
+# ---------------------------------------------------------------------------
+
+#: a MoE layer's leaves that each ``model`` rank holds E/m of
+EXPERT_LEAVES = ("wi_gate", "wi_up", "wo")
+
+
+def _map_specs(fn, specs):
+    """``fn`` over the specs (tuples) of a spec tree."""
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, v) for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [_map_specs(fn, v) for v in specs]
+    return fn(specs)
+
+
+def serve_specs(specs: Params, split: list, vocab_split: bool) -> Params:
+    """The parameter specs of a serve (``param_specs``' tree ``specs``):
+    a leaf keeps ``model`` where a rank computes with its block of it
+    (the ``SPLIT_LEAVES`` of the sublayers ``split[i]`` names, the
+    experts, ``embed``/``lm_head`` where ``vocab_split``); every other
+    leaf is held whole along ``model`` (norms, the router, the shared
+    expert, a sublayer whose counts m does not divide), so that no step
+    gathers it over ``model``."""
+    def whole(tree):
+        return _map_specs(without_model, tree)
+
+    out = {k: v if vocab_split and k in ("embed", "lm_head") else whole(v)
+           for k, v in specs.items() if k != "layers"}
+    out["layers"] = []
+    for layer, subs in zip(specs["layers"], split):
+        keep = {name: SPLIT_LEAVES[name] for name in subs}
+        keep["moe"] = EXPERT_LEAVES
+        out["layers"].append({
+            name: {k: v if k in keep.get(name, ()) else whole(v)
+                   for k, v in sub.items()} if isinstance(sub, dict)
+            else whole(sub) for name, sub in layer.items()})
+    return out
+
+
+class ServeLayout(Layout):
+    """Where a serve over ``mesh`` (a ``("data", "model")`` or ``("pod",
+    "data", "model")`` ``DeviceMesh``) keeps its weights, batch rows and
+    caches for ``batch`` requests of up to ``max_len`` slots, and how they
+    move (module docstring, "Serving"):
+
+    * ``split`` (per layer, the sublayers its ``model`` ranks split:
+      "attn", "mlp") and ``vocab`` (this rank's ``VocabSplit``, None
+      where V stays whole) as in ``Layout`` with ``tensor_parallel``;
+      ``specs``: ``serve_specs`` of the parameters; ``moe_exchange``
+      routing over the ranks that split the batch;
+    * ``batch_spec``: the rows of the batch a rank serves
+      (``batch_specs``; over none of the batch axes where the batch does
+      not divide by them);
+    * ``cache_specs`` and ``cache``: the caches' blocks and this rank's
+      ``CacheSplit`` (every attention layer's caches split alike).
+
+    Raises ``ValueError`` for a model with Mamba-2 layers."""
+
+    def __init__(self, cfg, mesh, batch: int, max_len: int):
+        if any(s.mixer == "mamba" for s in cfg.pattern):
+            raise ValueError(
+                f"{cfg.name} has Mamba-2 layers, which do not serve over a "
+                "mesh: their conv cache's channels over 'model' meet the "
+                "split mixer's B and C held whole; serve it on one device")
+        super().__init__(cfg, mesh, tensor_parallel=True)
+        self.coord = dict(zip(self.sizes, self.coords))
+        self.specs = serve_specs(self.specs, self.split,
+                                 self.vocab is not None)
+        tokens = torch.empty((batch, 1), dtype=torch.int32, device="meta")
+        self.batch_spec = mesh_lib.batch_specs(cfg, mesh,
+                                               {"tokens": tokens})["tokens"]
+        self.moe_exchange = MoeExchange(
+            mesh, sharding.entry_axes(self.batch_spec[0])) \
+            if cfg.num_experts else None
+        self.max_len = max_len
+        self.cache_specs = mesh_lib.cache_specs(
+            cfg, mesh, model_lib.init_cache(cfg, batch, max_len, "meta"))
+        self.kv_spec = next(s["k"] for s in self.cache_specs if "k" in s)
+        self.cache = CacheSplit(
+            [self.groups[a] for a in sharding.entry_axes(self.kv_spec[1])
+             if a in self.groups],
+            [mesh_lib.seq_range(self.kv_spec, mesh, self.coords, max_len)])
+
+    # -- weights -------------------------------------------------------------
+
+    def keep(self, where: tuple, tree):
+        """``model.init_params``' hook: the blocks of the subtree at
+        ``where`` as soon as it is drawn, in the compute dtype
+        (``model.cast_drawn``; a cast is elementwise, so a block's values
+        are those of the whole leaf cast)."""
+        specs = self.specs
+        for k in where:
+            specs = specs[k]
+
+        def one(t, spec):
+            b = sharding.block(t, spec, self.mesh, self.coords)
+            return b.clone() if b.shape != t.shape else b
+
+        return model_lib.cast_drawn(self.cfg, where,
+                                    _map2(one, tree, specs))
+
+    def shard(self, params: Params) -> Params:
+        """This rank's blocks of whole weights ``params`` (float32 or
+        already cast), in the compute dtype."""
+        return {k: [self.keep((k, i), p) for i, p in enumerate(v)]
+                if k == "layers" else self.keep((k,), v)
+                for k, v in params.items()}
+
+    def _gather(self, tree, specs):
+        """``tree``'s blocks gathered over ``data`` (the FSDP dims); the
+        blocks over ``model`` stay. At ``data`` = 1, ``tree`` itself."""
+        if mesh_lib.FSDP not in self.groups:
+            return tree
+        with torch.no_grad():
+            return _map2(lambda t, s: self.all_gather(t, without_model(s)),
+                         tree, specs)
+
+    def layer(self, i: int, p: Params) -> Params:
+        """Layer ``i``'s weights for compute from its blocks ``p``."""
+        return self._gather(p, self.specs["layers"][i])
+
+    def top(self, params: Params, names) -> Params:
+        """The top-level entries ``names`` (those present) for compute:
+        ``embed``/``lm_head`` this rank's V/m rows (columns) where the
+        vocabulary splits."""
+        return {k: self._gather(params[k], self.specs[k]) for k in names
+                if k in params}
+
+    # -- batch rows ----------------------------------------------------------
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a tensor whose dim 0 is the batch."""
+        spec = (self.batch_spec[0],) + (None,) * (x.dim() - 1)
+        return sharding.block(x, spec, self.mesh, self.coords)
+
+    def all_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of a tensor whose dim 0 is this rank's
+        batch rows, in batch order."""
+        spec = (self.batch_spec[0],) + (None,) * (x.dim() - 1)
+        return self.all_gather(x, spec)
+
+    def whole_logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits of this rank's rows and vocabulary block gathered into
+        the whole batch's and vocabulary's (last dim), on every rank."""
+        if self.vocab is not None:
+            x = ModelSplit(self.groups[mesh_lib.TP], ()).gather([x], -1)
+        return self.all_rows(x)
+
+    # -- caches --------------------------------------------------------------
+
+    def cache_shape(self, i: int, name: str, shape) -> tuple:
+        """The shape of this rank's block of layer ``i``'s cache ``name``
+        of global ``shape``."""
+        return sharding.block_shape(shape, self.cache_specs[i][name],
+                                    self.mesh)
+
+    def fill_caches(self, caches: list, pcaches: list,
+                    prompt_len: int) -> None:
+        """Copy prefill's caches ``pcaches`` (each attention layer's k/v
+        (B, prompt_len, H', D) on this rank's heads where ``model`` splits
+        its heads, else every head) into this rank's decode caches
+        ``caches`` (``cache_specs``' blocks): each rank's slots of every
+        head, its prompt slots filled. Where both the heads and the
+        sequence split over ``model``, one all-to-all over ``model`` a
+        layer sends each rank its slots of this rank's heads; where the
+        sequence stays whole, the heads are all-gathered."""
+        (lo, hi), = self.cache.ranges
+        tp = self.groups.get(mesh_lib.TP)
+        m = self.model_ranks
+        n_me = max(0, min(hi, prompt_len) - lo)
+        for i, (dst, src) in enumerate(zip(caches, pcaches)):
+            kv = torch.stack([src["k"], src["v"]])   # (2, B, P, H', D)
+            if "attn" not in self.split[i]:
+                got = kv[:, :, lo:lo + n_me]
+            elif not self.cache.split:
+                got = ModelSplit(tp, ()).gather([kv], 3)
+            else:
+                # the slots of each rank of this rank's model group
+                peers = [mesh_lib.seq_range(
+                    self.kv_spec, self.mesh,
+                    tuple(j if a == mesh_lib.TP else self.coord[a]
+                          for a in self.sizes), self.max_len)
+                    for j in range(m)]
+                sends = relay_sends(kv, peers, prompt_len)
+                one = kv[:, :, :n_me].numel()
+                out = kv.new_empty(m * one)
+                dist.all_to_all_single(
+                    out, torch.cat([t.reshape(-1) for t in sends]),
+                    [one] * m, [t.numel() for t in sends], group=tp)
+                got = relay_receive(list(out.view(
+                    m, 2, kv.shape[1], n_me, *kv.shape[3:]).unbind(0)))
+            dst["k"][:, :n_me] = got[0]
+            dst["v"][:, :n_me] = got[1]
+
+
+def relay_sends(kv: torch.Tensor, ranges: list, prompt_len: int) -> list:
+    """The pieces of one rank's prefill caches ``kv`` (2, B, P, H', D),
+    its heads' k and v, that the ranks holding the slots ``ranges`` (one
+    ``(lo, hi)`` a rank of its model group, in rank order) keep: each
+    rank's prompt slots."""
+    return [kv[:, :, lo:lo + max(0, min(hi, prompt_len) - lo)]
+            for lo, hi in ranges]
+
+
+def relay_receive(pieces: list) -> torch.Tensor:
+    """A rank's slots of every head from the pieces each rank of its
+    model group sent it (``relay_sends``), in rank order: their heads
+    concatenated, (2, B, n, m H', D)."""
+    return torch.cat(pieces, 3)
+
+
+def relayout_in_turn(kvs: list, ranges: list, prompt_len: int) -> list:
+    """``ServeLayout.fill_caches``' all-to-all on one device: ``kvs``
+    every ``model`` rank's prefill caches (2, B, P, H', D) on its heads,
+    ``ranges`` every rank's slots; returns each rank's prompt slots of
+    every head, as the all-to-all delivers them."""
+    sends = [relay_sends(kv, ranges, prompt_len) for kv in kvs]
+    return [relay_receive([s[j] for s in sends]) for j in range(len(ranges))]
+
+
+def moe_in_turn(moe: Params, m: int):
+    """(tree, exchange): a MoE sublayer's tree ``moe`` (whole) as rank 0
+    of the ``m`` ``model`` ranks of a (1, m) mesh holds it for expert
+    parallelism, on one device (each of ``EXPERT_LEAVES`` its E/m
+    experts, the router and the shared expert whole), and the
+    ``ExpertsInTurn`` over every rank's experts (views) that
+    ``models/moe.py``'s ``moe_apply`` takes as its exchange. Experts that
+    ``m`` does not divide stay whole, with no exchange."""
+    e = moe["wi_gate"].shape[0]
+    if e % m:
+        return moe, None
+    n = e // m
+    blocks = [tuple(moe[k][r * n:(r + 1) * n] for k in EXPERT_LEAVES)
+              for r in range(m)]
+    return {**moe, **dict(zip(EXPERT_LEAVES, blocks[0]))}, \
+        ExpertsInTurn(blocks)
+
+
+def decode_in_turn(cfg, i: int, layer: Params, cache: Params, m: int):
+    """(tree, ``ModelSplit``, caches, ``CacheSplit``, exchange): layer
+    ``i``'s weights ``layer`` (whole, in the compute dtype) and its
+    decode cache ``cache`` (``{"k", "v"}`` (B, Smax, Hkv, D)) as the
+    ``m`` ``model`` ranks of a (1, m) serve hold them, with the stand-ins
+    that compute every rank's share in turn on one device:
+    ``split_in_turn``'s trees, each rank's slots of the cache (copies)
+    where ``cache_specs`` splits the sequence, else the whole cache once,
+    and a MoE layer's ``moe_in_turn`` (else None).
+    ``models/model.py``'s ``decode_block`` runs them."""
+    tree, split = split_in_turn(cfg, i, layer, m)
+    exchange = None
+    if "moe" in tree:
+        tree["moe"], exchange = moe_in_turn(tree["moe"], m)
+    mesh = sharding.MeshShape((1, m), (mesh_lib.FSDP, mesh_lib.TP))
+    spec = mesh_lib.cache_specs(cfg, mesh, [cache])[0]["k"]
+    smax = cache["k"].shape[1]
+    if sharding.entry_axes(spec[1]):
+        ranges = [mesh_lib.seq_range(spec, mesh, (0, r), smax)
+                  for r in range(m)]
+    else:
+        ranges = [(0, smax)]
+    caches = [{k: v[:, lo:hi].clone() for k, v in cache.items()}
+              for lo, hi in ranges]
+    return (tree, split, caches,
+            CacheSplit(None if len(ranges) > 1 else [], ranges), exchange)

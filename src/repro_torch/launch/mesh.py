@@ -60,8 +60,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.executor import resolve_device
-from repro_torch.sharding import (MeshShape, axis_sizes, block_shape,
-                                  entry_axes)
+from repro_torch.sharding import (MeshShape, axis_sizes, block_range,
+                                  block_shape, entry_axes)
 
 #: the process-group backend each device type needs
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
@@ -296,6 +296,15 @@ def cache_specs(cfg, mesh, cache_tree) -> Any:
         raise ValueError(name)
 
     return map_with_path(one, cache_tree)
+
+
+def seq_range(spec: tuple, mesh, coords, smax: int) -> tuple[int, int]:
+    """The slots [lo, hi) of a (B, Smax, Hkv, D) cache's sequence that
+    the rank at mesh coordinates ``coords`` holds under ``spec``
+    (``cache_specs``' k/v spec): the block offsets of the split-K decode's
+    slice; (0, Smax) where the sequence stays whole."""
+    sizes = axis_sizes(mesh)
+    return block_range(smax, spec[1], sizes, dict(zip(sizes, coords)))
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,13 @@ device: the kernel on CUDA, dense or chunked by length on the CPU, as
 the JAX package picks dense/chunked off the TPU. The decode step takes
 the same switch (``decode``): the kernel, or the dense
 ``decode_attention`` below.
+
+Where the caches' sequence is split over ranks (the serve over a mesh,
+``launch/fsdp.py``), each rank runs ``decode_partial`` over its slice
+and ``combine_partials`` merges the rows' partials over the ranks: the
+split-K decode that the JAX decode kernel's docstring describes and
+that ``decode_attention``'s docstring says GSPMD lowers the sharded
+softmax to (``repro/models/attention.py:113-118``).
 """
 from __future__ import annotations
 
@@ -164,3 +171,52 @@ def decode(q, k_cache, v_cache, *, kv_len, window=None, logit_softcap=None,
     from repro_torch.kernels import ops as kops
     return kops.decode_attention(q, k_cache, v_cache, kv_len, window=window,
                                  logit_softcap=logit_softcap, scale=scale)
+
+
+def decode_partial(q, k_cache, v_cache, *, kv_len, window=None,
+                   logit_softcap=None, impl: str = "auto", scale=None):
+    """One rank's half of a decode over a cache whose sequence is split:
+    q (B, 1, Hq, D) over this rank's slice of the caches (B, S, Hkv, D),
+    ``kv_len`` (B,) the lengths shifted by the slice's first slot (any
+    value: <= 0 where the slice lies past the live slots, above S where
+    they run past it; the window's lower bound shifts with them). Returns
+    (o, lse), float32 (B, 1, Hq, D) and (B, 1, Hq): each row's output
+    over the slice's live slots and their log-sum-exp, o = 0 and lse =
+    -inf where none is live. The decode kernel's partial mode where
+    ``impl`` resolves to ``"kernel"``, else the plain version."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    if resolve_impl(impl, q, k_cache.shape[1]) == "kernel":
+        return kops.decode_attention_partial(
+            q, k_cache, v_cache, kv_len, window=window,
+            logit_softcap=logit_softcap, scale=scale)
+    b, _, hq, d = q.shape
+    _, sk, hkv, _ = k_cache.shape
+    o, lse = kref.decode_attention_partial(
+        q.reshape(b * hkv, hq // hkv, d),
+        k_cache.transpose(1, 2).reshape(b * hkv, sk, d),
+        v_cache.transpose(1, 2).reshape(b * hkv, sk, d),
+        torch.repeat_interleave(kv_len, hkv), window=window,
+        softcap=logit_softcap, scale=scale)
+    return o.reshape(b, 1, hq, d), lse.reshape(b, 1, hq)
+
+
+def combine_partials(parts: list, reduce, dtype: torch.dtype
+                     ) -> torch.Tensor:
+    """The rows' partials of every rank, merged: ``parts`` the (o, lse)
+    pairs this process computed (one on a rank; every rank's in turn on
+    the one-device stand-in), ``reduce(tensors, op)`` their "max" or
+    "sum" over the ranks (an all-reduce, or the stand-in's reduction in
+    rank order). The largest lse M first, then each rank's weight
+    w = exp(lse - M) (0 where its slice held no live slot), then the sums
+    of w o and of w, in float32, rounded once to ``dtype``: the JAX
+    kernel's psum of (acc, m, l), since o = acc / l and w = l exp(m - M)
+    up to the common factor. A row with no live slot on any rank gets 0
+    (the whole-cache version's mean of V is never reached by a serve,
+    whose lengths are >= 1)."""
+    m = reduce([lse for _, lse in parts], "max")
+    ws = [torch.where(lse > float("-inf"), torch.exp(lse - m),
+                      torch.zeros_like(lse)) for _, lse in parts]
+    num = reduce([o * w[..., None] for (o, _), w in zip(parts, ws)], "sum")
+    den = reduce(ws, "sum")
+    return (num / torch.clamp(den, min=1e-30)[..., None]).to(dtype)

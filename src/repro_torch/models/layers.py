@@ -219,6 +219,26 @@ def mlp_share(params: Params, xs: tuple, act: str = "silu") -> torch.Tensor:
     return row_product(h, params["wo"])
 
 
+def split_argmax(logits, vocab) -> torch.Tensor:
+    """Greedy sampling's ``torch.argmax(logits, -1)`` where the logits'
+    last dim is the vocabulary split over ranks (``vocab``, a
+    ``fsdp.VocabSplit``; ``logits`` this rank's block, or the stand-in's
+    list of every rank's): the largest value over the ranks, then the
+    lowest vocabulary index that reaches it, so ties resolve as the
+    whole ``torch.argmax`` resolves them (its first maximal index).
+    ``vocab`` None: ``torch.argmax`` itself."""
+    if vocab is None:
+        return torch.argmax(logits, dim=-1)
+    blocks = vocab.blocks(logits)
+    best = vocab.combine([b.amax(-1) for b in blocks], "max")
+    first = []
+    for b, (lo, hi) in zip(blocks, vocab.ranges):
+        idx = torch.arange(lo, hi, device=b.device)
+        first.append(torch.where(b == best[..., None], idx,
+                                 torch.full_like(idx, torch.iinfo(idx.dtype).max)).amin(-1))
+    return vocab.combine(first, "min")
+
+
 # ---------------------------------------------------------------------------
 # Softcap
 # ---------------------------------------------------------------------------

@@ -314,6 +314,14 @@ def compute_params(cfg: ModelConfig, params: Params) -> Params:
     return out
 
 
+def cast_drawn(cfg: ModelConfig, where: tuple, tree):
+    """``compute_params``' cast of the subtree at ``where`` (``("layers",
+    i)``: a layer's tree, ``(name,)``: a top-level leaf)."""
+    if where[0] == "layers":
+        return cast_layers(cfg, [tree])[0]
+    return _cast_matrices(cfg, tree)
+
+
 def init_compute_params(cfg: ModelConfig, seed: int = 0,
                         device=None) -> Params:
     """``compute_params(cfg, init_params(cfg, seed, device))``, bit for
@@ -321,12 +329,8 @@ def init_compute_params(cfg: ModelConfig, seed: int = 0,
     drawn (``init_params``' ``keep``): the whole float32 model never
     exists at once. A 12B model's float32 weights (48 GB) beside their
     bf16 copy would not fit on one 80 GB card."""
-    def keep(where, tree):
-        if where[0] == "layers":
-            return cast_layers(cfg, [tree])[0]
-        return _cast_matrices(cfg, tree)
-
-    return init_params(cfg, seed, device, keep=keep)
+    return init_params(cfg, seed, device,
+                       keep=lambda where, tree: cast_drawn(cfg, where, tree))
 
 
 # ---------------------------------------------------------------------------
@@ -379,7 +383,8 @@ def _attn_block(cfg: ModelConfig, spec: BlockSpec, p: Params,
 
 
 def attn_share(cfg: ModelConfig, spec: BlockSpec, p: Params, xs: tuple,
-               positions: torch.Tensor) -> torch.Tensor:
+               positions: torch.Tensor, kv: list | None = None
+               ) -> torch.Tensor:
     """One ``model`` rank's share of an attention sublayer split over the
     ranks (``launch/fsdp.py``): ``p`` holds its column blocks of
     wq/wk/wv, so H/m query and Hkv/m KV heads (GQA keeps its groups, as
@@ -390,7 +395,9 @@ def attn_share(cfg: ModelConfig, spec: BlockSpec, p: Params, xs: tuple,
     ``q_norm``/``k_norm`` (float32 leaves: their gradient here is a
     partial sum), masks and attention; the row product
     (``layers.row_product``) is float32 and not rounded: (b, s, d), a
-    partial sum over the ranks that g adds."""
+    partial sum over the ranks that g adds. ``kv``: a list that takes
+    the rank's rotated k and v (a serve's prefill caches, on its
+    heads)."""
     b, s, _ = xs[0].shape
     local = spec.mixer == "attn_local"
     q, k, v = (column_product(x32, p[n]).reshape(b, s, -1, cfg.head_dim)
@@ -400,6 +407,8 @@ def attn_share(cfg: ModelConfig, spec: BlockSpec, p: Params, xs: tuple,
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
     q = _rotate(cfg, spec, q, positions)
     k = _rotate(cfg, spec, k, positions)
+    if kv is not None:
+        kv.append((k, v))
     out = attn_lib.attention(
         q, k, v, causal=cfg.causal, window=cfg.window if local else None,
         logit_softcap=cfg.attn_logit_softcap or None,
@@ -466,19 +475,26 @@ def _mlp_part(cfg: ModelConfig, spec: BlockSpec, p: Params,
 
 def _apply_block_with_cache(cfg: ModelConfig, spec: BlockSpec, p: Params,
                             h: torch.Tensor, positions: torch.Tensor,
-                            exchange=None, split=None):
+                            exchange=None, split=None,
+                            split_cache: bool = False):
     """(h, MoE aux or None, the layer's decode cache). ``split``: the
     layer's ``fsdp.ModelSplit`` on a mesh whose ``model`` ranks split
     its attention (``attn_share``), its Mamba-2 mixer (``mamba_split``:
     two stages around the sum of the gated norm's statistic over the
-    ranks) or its dense MLP; a split sublayer keeps no cache (training
-    only). The post-norms and the
+    ranks) or its dense MLP; a split sublayer keeps no cache, but with
+    ``split_cache`` (a serve's prefill) split attention keeps the k/v of
+    the heads this process computed (the stand-in's every rank's,
+    concatenated in rank order). The post-norms and the
     residual adds run on the summed outputs."""
     x = rmsnorm(p["ln_mixer"], h, cfg.norm_eps)
     if split is not None and "attn" in split.sublayers:
+        kv = [] if split_cache else None
         out = split.run(lambda q, xs: attn_share(cfg, spec, q, xs,
-                                                 positions), p["attn"], x, 3)
-        cache = None
+                                                 positions, kv),
+                        p["attn"], x, 3)
+        cache = None if kv is None else {
+            "k": torch.cat([k for k, _ in kv], 2).to(cfg.cdtype),
+            "v": torch.cat([v for _, v in kv], 2).to(cfg.cdtype)}
     elif split is not None and "mamba" in split.sublayers:
         out, cache = mamba_split(cfg, split, p["mamba"], x), None
     elif spec.mixer.startswith("attn"):
@@ -680,21 +696,25 @@ def logits_from_hidden(cfg: ModelConfig, params: Params,
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
-               device=None) -> list[Params]:
+               device=None, layout=None) -> list[Params]:
     """Zeroed caches on ``device`` (``None``: the GPU; ``"meta"``: shapes
     only, JAX's ``abstract=True``), one per layer: ``{"k", "v"}`` (B,
     max_len, Hkv, D) in the compute dtype for attention, for Mamba-2
     ``{"conv"}`` (B, conv - 1, channels) in the compute dtype and
-    ``{"ssm"}`` (B, H, N, P) float32."""
+    ``{"ssm"}`` (B, H, N, P) float32. ``layout`` (a serve's
+    ``fsdp.ServeLayout``): this rank's blocks of them, as
+    ``mesh.cache_specs`` places them."""
     check_supported(cfg)
     device = resolve_device(device)
     shape = (batch_size, max_len, cfg.num_kv_heads, cfg.head_dim)
     out = []
     for i in range(cfg.num_layers):
         if cfg.layer_spec(i).mixer.startswith("attn"):
-            out.append({"k": torch.zeros(shape, dtype=cfg.cdtype,
+            here = shape if layout is None \
+                else layout.cache_shape(i, "k", shape)
+            out.append({"k": torch.zeros(here, dtype=cfg.cdtype,
                                          device=device),
-                        "v": torch.zeros(shape, dtype=cfg.cdtype,
+                        "v": torch.zeros(here, dtype=cfg.cdtype,
                                          device=device)})
         else:
             out.append(ssm_lib.mamba2_init_cache(
@@ -752,3 +772,122 @@ def decode_step_hidden(cfg: ModelConfig, params: Params, caches,
             out = rmsnorm(p["post_ln_mixer"], out, cfg.norm_eps)
         h, _ = _mlp_part(cfg, spec, p, h + out)
     return rmsnorm(params["final_norm"], h, cfg.norm_eps), caches
+
+
+# ---------------------------------------------------------------------------
+# Serving over a mesh (``launch/fsdp.ServeLayout``)
+# ---------------------------------------------------------------------------
+
+def prefill_split(cfg: ModelConfig, params: Params, batch: dict, layout):
+    """``prefill`` on one rank of a serve over a mesh: ``params`` this
+    rank's blocks, ``batch`` its rows. Split attention runs the flash
+    kernel on the rank's heads, a MoE layer the rank's experts (the
+    router over every batch rank's tokens), the vocabulary the rank's
+    rows. Returns (final hidden states (B', S, d), one cache per layer:
+    the k/v of the heads the rank computed, (B', S, H', D))."""
+    top = layout.top(params, ("embed", "final_norm"))
+    h, positions = _embed_inputs(cfg, top, batch, layout.vocab)
+    caches = []
+    for i, p in enumerate(params["layers"]):
+        h, _, cache = _apply_block_with_cache(
+            cfg, cfg.layer_spec(i), layout.layer(i, p), h, positions,
+            layout.moe_exchange, layout.model_split(i), split_cache=True)
+        caches.append(cache)
+    return rmsnorm(top["final_norm"], h, cfg.norm_eps), caches
+
+
+def _attn_decode_split(cfg: ModelConfig, spec: BlockSpec, p, cache,
+                       x: torch.Tensor, kv_len: torch.Tensor, split, seq):
+    """``_attn_decode_block`` with the heads split over ``model``
+    (``split``, a ``fsdp.ModelSplit`` naming "attn"; else None) and the
+    caches' sequence over ranks (``seq``, a ``fsdp.CacheSplit``). ``p``
+    and ``cache``: this rank's attention tree and cache, or the stand-in's
+    lists of every rank's. Each rank computes its heads' q, k, v; q and
+    the new token's k, v are all-gathered over ``model``, and the rank
+    whose slice holds slot kv_len - 1 writes them there. Each slice runs
+    the decode kernel's partial mode with the lengths shifted by its first
+    slot, and the rows' partials combine over the ranks the sequence spans
+    (``attention.combine_partials``); a whole sequence runs the whole-cache
+    decode. Each rank then keeps its heads' rows for its rows of wo, the
+    float32 partials summed over ``model`` and rounded once."""
+    b = x.shape[0]
+    hd = cfg.head_dim
+    heads = split is not None and "attn" in split.sublayers
+    trees = p if isinstance(p, list) else [p]
+    caches = cache if isinstance(cache, list) else [cache]
+    pos = (kv_len - 1)[:, None]
+    if cfg.mrope_sections:
+        pos = pos.expand(3, b, 1)
+    qkv = []
+    for t in trees:
+        if heads:
+            q, k, v = ((x @ t[n]).reshape(b, 1, -1, hd)
+                       for n in ("wq", "wk", "wv"))
+            if cfg.qk_norm:
+                q = rmsnorm(t["q_norm"], q, cfg.norm_eps)
+                k = rmsnorm(t["k_norm"], k, cfg.norm_eps)
+        else:
+            q, k, v = _qkv(cfg, t, x)
+        qkv.append((_rotate(cfg, spec, q, pos), _rotate(cfg, spec, k, pos),
+                    v))
+    if heads:
+        q, k, v = (split.gather([a[j] for a in qkv], 2) for j in range(3))
+    else:
+        q, k, v = qkv[0]
+    rows = torch.arange(b, device=x.device)
+    new = {"k": k[:, 0].to(cfg.cdtype), "v": v[:, 0].to(cfg.cdtype)}
+    for c, (lo, hi) in zip(caches, seq.ranges):
+        idx = (kv_len - 1 - lo).long()
+        own = ((idx >= 0) & (idx < hi - lo))[:, None, None]
+        at = idx.clamp(0, hi - lo - 1)
+        for name, t in new.items():
+            c[name][rows, at] = torch.where(own, t, c[name][rows, at])
+    kw = dict(window=cfg.window if spec.mixer == "attn_local" else None,
+              logit_softcap=cfg.attn_logit_softcap or None,
+              impl=cfg.attn_impl)
+    if seq.split:
+        out = attn_lib.combine_partials(
+            [attn_lib.decode_partial(q, c["k"], c["v"], kv_len=kv_len - lo,
+                                     **kw)
+             for c, (lo, _) in zip(caches, seq.ranges)],
+            seq.reduce, cfg.cdtype)
+    else:
+        out = attn_lib.decode(q, caches[0]["k"], caches[0]["v"],
+                              kv_len=kv_len, **kw)
+    if not heads:
+        return out.reshape(b, 1, -1) @ p["wo"]
+    n = qkv[0][0].shape[2]
+    return split.sum([row_product(out[:, :, r * n:(r + 1) * n].reshape(
+        b, 1, -1), t["wo"]) for r, t in zip(split.ranks(p), trees)]
+    ).to(x.dtype)
+
+
+def decode_block(cfg: ModelConfig, spec: BlockSpec, p: Params, cache,
+                 h: torch.Tensor, kv_len: torch.Tensor, split, seq,
+                 exchange=None) -> torch.Tensor:
+    """One attention layer's decode step on a serve over a mesh
+    (``_attn_decode_split``; the MLP split as in prefill, a MoE layer's
+    experts through ``exchange``): the new hidden states (B', 1, d).
+    With the stand-ins of ``fsdp.decode_in_turn`` it runs every rank's
+    share in turn on one device."""
+    x = rmsnorm(p["ln_mixer"], h, cfg.norm_eps)
+    out = _attn_decode_split(cfg, spec, p["attn"], cache, x, kv_len, split,
+                             seq)
+    if cfg.use_post_norm:
+        out = rmsnorm(p["post_ln_mixer"], out, cfg.norm_eps)
+    return _mlp_part(cfg, spec, p, h + out, exchange, split)[0]
+
+
+def decode_step_split(cfg: ModelConfig, params: Params, caches,
+                      tokens: torch.Tensor, kv_len: torch.Tensor, layout):
+    """``decode_step_hidden`` on one rank of a serve over a mesh:
+    ``params`` and ``caches`` this rank's blocks, ``tokens`` (B', 1) and
+    ``kv_len`` (B',) its rows. Returns (hidden (B', 1, d), caches), the
+    caches updated in place."""
+    top = layout.top(params, ("embed", "final_norm"))
+    h = _scaled(cfg, _embed_tokens(cfg, top, tokens, layout.vocab))
+    for i, (p, c) in enumerate(zip(params["layers"], caches)):
+        h = decode_block(cfg, cfg.layer_spec(i), layout.layer(i, p), c, h,
+                         kv_len, layout.model_split(i), layout.cache,
+                         layout.moe_exchange)
+    return rmsnorm(top["final_norm"], h, cfg.norm_eps), caches

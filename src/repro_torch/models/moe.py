@@ -39,11 +39,16 @@ On a mesh (``launch/fsdp.py``) both functions take the layout's
   part through ``exchange.enter``, whose backward all-reduces their
   gradients over ``model`` (Megatron's f and g). The router, the aux
   loss and the shared expert are computed whole on every ``model``
-  rank.
+  rank. A serve's decode step takes the same path at its token count
+  (one token a request), the capacity that of the whole batch. On one
+  device, ``launch/fsdp.moe_in_turn``'s stand-in exchange computes
+  every rank's experts in turn and sums their float32 terms in rank
+  order, where the all-reduce would.
 """
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Any
 
 import torch
@@ -155,21 +160,40 @@ def moe_apply(params: Params, x: torch.Tensor, *, top_k: int,
     microbatch (``route``), and where ``params``' experts are this
     rank's E/m of E, the experts computed on the ``model`` ranks that
     hold them (module docstring)."""
-    t, d = x.shape
     num_experts = params["router"].shape[1]
     r = route(params, x, top_k=top_k, capacity_factor=capacity_factor,
               exchange=exchange)
+    w = (params["wi_gate"], params["wi_up"], params["wo"])
+    terms = partial(_expert_terms, r=r, num_experts=num_experts, top_k=top_k,
+                    act=act)
+    if w[0].shape[0] < num_experts:         # this rank's E/m experts
+        y = exchange.experts(terms, w, x, r["gate"])
+    else:
+        y = terms(w, x, r["gate"], 0)
+    y = y.to(x.dtype)
+
+    if "shared" in params:
+        y = y + mlp(params["shared"], x, act=act)
+    return y, r["aux"]
+
+
+def _expert_terms(w: tuple, xe: torch.Tensor, gate: torch.Tensor,
+                  model_rank: int, *, r: dict, num_experts: int, top_k: int,
+                  act: str) -> torch.Tensor:
+    """Each token's gated results of the experts ``w`` (wi_gate, wi_up,
+    wo) holds, summed over its k assignments (T, d): all E experts, or
+    block ``model_rank`` of E/m of them (0 for the tokens routed
+    elsewhere), in float32 for top-k > 1, else in ``xe``'s dtype."""
+    t, d = xe.shape
     cap, order, dest = r["cap"], r["order"], r["dest"]
-    held = params["wi_gate"].shape[0]       # the experts this rank holds
+    held = w[0].shape[0]
     rows = held * cap
-    gate, xe = r["gate"], x
     if held < num_experts:
         # this rank's experts' slots, the rest (and the dropped) to the
-        # spare row; their tokens and gates enter through f
-        dest = dest - exchange.model_rank * rows
+        # spare row
+        dest = dest - model_rank * rows
         dest = torch.where((dest >= 0) & (dest < rows), dest,
                            torch.full_like(dest, rows))
-        gate, xe = exchange.enter(gate), exchange.enter(x)
 
     # scatter the sorted assignments' tokens into the (E, cap, d) buffer
     st = order // top_k                      # token of each assignment
@@ -178,9 +202,8 @@ def moe_apply(params: Params, x: torch.Tensor, *, top_k: int,
 
     # grouped expert products (library batched matmuls, as the
     # reference's XLA einsums)
-    h = _act(torch.bmm(buf, params["wi_gate"]), act) \
-        * torch.bmm(buf, params["wi_up"])
-    out = torch.bmm(h, params["wo"]).view(rows, d)
+    h = _act(torch.bmm(buf, w[0]), act) * torch.bmm(buf, w[1])
+    out = torch.bmm(h, w[2]).view(rows, d)
 
     # each token's k results in its (token, slot) order, 0 where dropped,
     # summed over k: the reference's scatter-add in another order only
@@ -190,14 +213,5 @@ def moe_apply(params: Params, x: torch.Tensor, *, top_k: int,
     got = torch.where((dest_tk < rows)[:, None], got, torch.zeros_like(got))
     # top-1 has one term per token: the reference combines it in the
     # compute dtype (moe.py:92-97), top-k > 1 in float32
-    acc = torch.float32 if top_k > 1 else x.dtype
-    y = (got.view(t, top_k, d).to(acc) * gate.to(acc)[..., None]).sum(1)
-    if held < num_experts:
-        # g: the other ranks' experts' terms, summed in float32 (top-1's
-        # one term a token is exact in it)
-        y = exchange.model_sum(y.float())
-    y = y.to(x.dtype)
-
-    if "shared" in params:
-        y = y + mlp(params["shared"], x, act=act)
-    return y, r["aux"]
+    acc = torch.float32 if top_k > 1 else xe.dtype
+    return (got.view(t, top_k, d).to(acc) * gate.to(acc)[..., None]).sum(1)

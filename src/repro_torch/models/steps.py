@@ -191,26 +191,51 @@ def make_train_step(cfg: ModelConfig, *, num_microbatches: int = 1,
 # Serve steps
 # ---------------------------------------------------------------------------
 
-def make_prefill_step(cfg: ModelConfig):
+def _head(cfg: ModelConfig, params, layout):
+    """The weights ``logits_from_hidden`` reads: ``params``, or on a
+    serve's mesh this rank's (its V/m rows of the output table where
+    the vocabulary splits)."""
+    if layout is None:
+        return params
+    return layout.top(params, ("lm_head",) if "lm_head" in params
+                      else ("embed",))
+
+
+def make_prefill_step(cfg: ModelConfig, layout=None):
     """prefill_step(params, batch) -> (last-position logits (B, 1, V),
-    caches)."""
+    caches). ``layout`` (``launch/fsdp.ServeLayout``): ``params`` are
+    this rank's blocks and ``batch`` its rows (``model.prefill_split``);
+    the logits are this rank's V/m columns where the vocabulary splits,
+    and the caches hold the heads the rank computed
+    (``ServeLayout.fill_caches`` relays them)."""
 
     def prefill_step(params, batch):
-        h, caches = model_lib.prefill(cfg, params, batch)
-        logits = model_lib.logits_from_hidden(cfg, params, h[:, -1:, :])
+        if layout is None:
+            h, caches = model_lib.prefill(cfg, params, batch)
+        else:
+            h, caches = model_lib.prefill_split(cfg, params, batch, layout)
+        logits = model_lib.logits_from_hidden(cfg, _head(cfg, params, layout),
+                                              h[:, -1:, :])
         return logits, caches
 
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, layout=None):
     """decode_step(params, caches, tokens (B, 1), kv_len (B,))
-    -> (logits (B, 1, V), caches updated in place)."""
+    -> (logits (B, 1, V), caches updated in place). ``layout``: as
+    ``make_prefill_step``'s, ``caches`` this rank's blocks
+    (``model.decode_step_split``)."""
 
     def decode_step(params, caches, tokens, kv_len):
-        h, caches = model_lib.decode_step_hidden(cfg, params, caches, tokens,
-                                                 kv_len)
-        return model_lib.logits_from_hidden(cfg, params, h), caches
+        if layout is None:
+            h, caches = model_lib.decode_step_hidden(cfg, params, caches,
+                                                     tokens, kv_len)
+        else:
+            h, caches = model_lib.decode_step_split(cfg, params, caches,
+                                                    tokens, kv_len, layout)
+        return model_lib.logits_from_hidden(
+            cfg, _head(cfg, params, layout), h), caches
 
     return decode_step
 

@@ -86,6 +86,18 @@ def block(full: torch.Tensor, spec: tuple, mesh, coords) -> torch.Tensor:
     return out
 
 
+def block_range(n: int, entry, sizes: dict, coord: dict) -> tuple[int, int]:
+    """[lo, hi) of the block of a dim of length ``n`` that the rank at
+    ``coord`` ({axis: coordinate}) holds where the dim is split over
+    ``entry``'s axes (``block``'s order); (0, n) where it is not."""
+    axes = entry_axes(entry)
+    idx = 0
+    for a in axes:
+        idx = idx * sizes[a] + coord[a]
+    size = n // math.prod(sizes[a] for a in axes)
+    return idx * size, (idx + 1) * size
+
+
 def mesh_groups(mesh) -> dict:
     """{axis name: its process group} for each axis of size > 1 of a
     ``DeviceMesh``."""
